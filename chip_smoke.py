@@ -1,0 +1,384 @@
+"""Drive tpufhe_torch's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits nonzero before the last line:
+
+1. card: the card's name and power limit (nvidia-smi);
+2. build: compile the four CUDA kernels (one nvcc per source, in parallel);
+3. kernels: each kernel against its plain torch version at the shapes of
+   the N = 8192, L = 3 x 62-bit, batch-64 mul+relin, compared with
+   torch.equal, and both timed with CUDA events;
+4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
+   mul+relin (the launch counters of all four kernels must rise), decrypt
+   all 64 and check every slot against (va * vb) mod t, print the noise;
+5. rate: chained batch-64 mul+relin steps timed with CUDA events.
+
+The second-to-last line is {"kernels": [...]}, the last one
+{"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+DEGREE = 8192
+MODULI_SIZES = [62, 62, 62]
+PLAINTEXT = 65537
+BATCH = 64
+SEED = 2026
+RATE_STEPS = 20
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
+
+# int32 multiplies charged per 64-bit operation in the operation bounds:
+# a 64 x 64 -> 64 low product is three 32-bit partial products, a high
+# product four (csrc/modarith.cuh)
+LO, HI = 3, 4
+SHOUP = HI + 2 * LO  # lazy_mul_shoup
+RED128 = 3 * HI + 4 * LO  # reduce_u128
+MULMOD = LO + HI + RED128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms, by CUDA events after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ntt_ops(n: int, inverse: bool) -> int:
+    """int32 multiplies of one length-n transform (csrc/ntt_device.cuh)."""
+    ops = (n // 2) * int(math.log2(n)) * SHOUP
+    return ops + n * SHOUP if inverse else ops
+
+
+class Bound:
+    """Least time for a kernel's work: max(bytes / memory rate, int32
+    multiplies / the card's int32 multiply rate)."""
+
+    def __init__(self, int32_rate: float):
+        self.int32_rate = int32_rate
+        self.bytes = 0
+        self.ops = 0
+
+    def add(self, nbytes: int, ops: int) -> None:
+        self.bytes += nbytes
+        self.ops += ops
+
+    def result(self) -> tuple[float, str]:
+        t_bytes = self.bytes / MEM_BYTES_PER_S * 1e3
+        t_ops = self.ops / self.int32_rate * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rand_residues(shape, moduli: torch.Tensor, gen) -> torch.Tensor:
+    """Canonical residues for (..., k, n): row j below moduli[j]; every
+    first row along the leading axes is all (p - 1)."""
+    x = torch.randint(0, 2 ** 62, shape, dtype=torch.int64,
+                      device=moduli.device, generator=gen)
+    x = torch.remainder(x, moduli[:, None])
+    x.view(-1, *shape[-2:])[0] = moduli[:, None] - 1
+    return x
+
+
+def check_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3: every kernel against its plain version at main-path shapes.
+    Returns {name: record} with per-mul+relin times and bounds."""
+    from tpufhe_torch import pipeline
+    from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
+    from tpufhe_torch.ops import ntt as ntt_mod
+
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n = ctx.k, ctx_mul.k, ctx.degree
+    cases = {}  # name -> list of (label, kernel_fn, plain_fn, bytes, ops)
+
+    # K1: extend iNTT over the 4 x B input parts; forward NTT of new limbs
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+    x_inv = rand_residues((4 * BATCH, k, n), t_ctx.p, gen)
+    x_fwd = rand_residues((4 * BATCH, k_mul - k, n), t_mul.p[k:], gen)
+    sl = slice(k, k_mul)
+    cases["ntt"] = [
+        (f"inverse {tuple(x_inv.shape)}",
+         lambda: ntt_mod.ntt_cuda(x_inv, t_ctx, slice(None), True),
+         lambda: ntt_mod.backward_plain(x_inv, t_ctx.zetas_inv, t_ctx.ninv,
+                                        t_ctx.mod),
+         2 * x_inv.numel() * 8 + 2 * k * n * 8,
+         4 * BATCH * k * ntt_ops(n, True)),
+        (f"forward limbs {k}..{k_mul} {tuple(x_fwd.shape)}",
+         lambda: ntt_mod.ntt_cuda(x_fwd, t_mul, sl, False),
+         lambda: ntt_mod.forward_plain(x_fwd, t_mul.omegas[sl], t_mul.mod[sl]),
+         2 * x_fwd.numel() * 8 + 2 * (k_mul - k) * n * 8,
+         4 * BATCH * (k_mul - k) * ntt_ops(n, False)),
+    ]
+
+    # K2: extend (factor 1) and the t/q down-scale
+    ext_rns = mp.extender.rns_scaler
+    down_rns = mp.down_scaler.rns_scaler
+    s_ext = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
+    s_down = rand_residues((3, BATCH, k_mul, n), t_mul.p, gen)
+
+    def scale_ops(sc, k_in, size, coeffs):
+        # mac_64x128: two low and two high products per input limb
+        per = 2 * k_in * (LO + HI)
+        per_out = 2 * RED128 + SHOUP + k_in * SHOUP
+        if not sc.factor.is_one:
+            # the theta_omega sum, and v * theta_gamma (128 x 128 bits)
+            per += 2 * k_in * (LO + HI) + 4 * (LO + HI)
+            per_out += RED128
+        return coeffs * (per + size * per_out)
+
+    cases["rns_scale"] = [
+        (f"extend {tuple(s_ext.shape)} -> {k_mul - k} limbs",
+         lambda: ext_rns.scale_cuda(s_ext, k, k_mul - k),
+         lambda: ext_rns.scale_plain(s_ext, k, k_mul - k),
+         (s_ext.numel() + 4 * BATCH * (k_mul - k) * n) * 8,
+         scale_ops(ext_rns, k, k_mul - k, 4 * BATCH * n)),
+        (f"down {tuple(s_down.shape)} -> {k} limbs",
+         lambda: down_rns.scale_cuda(s_down, 0, k),
+         lambda: down_rns.scale_plain(s_down, 0, k),
+         (s_down.numel() + 3 * BATCH * k * n) * 8,
+         scale_ops(down_rns, k_mul, k, 3 * BATCH * n)),
+    ]
+
+    # K3: tensor + iNTT over the multiplication basis
+    ext = rand_residues((4, BATCH, k_mul, n), t_mul.p, gen)
+    cases["tensor_intt"] = [
+        (f"{tuple(ext.shape)} -> (3, {BATCH}, {k_mul}, {n})",
+         lambda: pipeline.tensor_intt_cuda(ctx_mul, ext),
+         lambda: pipeline.tensor_intt_plain(ctx_mul, ext),
+         (7 * BATCH * k_mul * n + 2 * k_mul * n) * 8,
+         BATCH * k_mul * (n * (2 * MULMOD + 2 * (LO + HI) + RED128)
+                          + 3 * ntt_ops(n, True))),
+    ]
+
+    # K4: relin tail with a random key (values and their Shoup constants)
+    dsc = rand_residues((3, BATCH, k, n), t_ctx.p, gen)
+
+    key = SimpleNamespace()
+    key.c0 = rand_residues((k, k, n), t_ctx.p, gen)
+    key.c1 = rand_residues((k, k, n), t_ctx.p, gen)
+    key.c0_shoup = shoup_of(key.c0, ctx.moduli)
+    key.c1_shoup = shoup_of(key.c1, ctx.moduli)
+    # a digit's reduce_u64 is reduce_u128 with a zero high word: two low and
+    # two high products
+    cases["relin_tail"] = [
+        (f"{tuple(dsc.shape)} + ksk 4 x {(k, k, n)} -> (2, {BATCH}, {k}, {n})",
+         lambda: pipeline.relin_tail_cuda(ctx, dsc, key),
+         lambda: pipeline.relin_tail_plain(ctx, dsc, key),
+         (5 * BATCH * k * n + 4 * k * k * n + 2 * k * n) * 8,
+         BATCH * k * (k * (n * (2 * (LO + HI) + 2 * SHOUP)
+                           + ntt_ops(n, False))
+                      + 2 * ntt_ops(n, False))),
+    ]
+
+    def as_tensor(out):
+        return torch.stack(out) if isinstance(out, tuple) else out
+
+    records = {}
+    for name, items in cases.items():
+        ms = plain_ms = 0.0
+        bound = Bound(int32_rate)
+        err = 0
+        shapes = []
+        for label, kfn, pfn, nbytes, ops in items:
+            got = as_tensor(kfn())
+            want = as_tensor(pfn())
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            e = int((got - want).abs().max().item())
+            log(f"  {name} {label}: equal={equal} max_abs_err={e}")
+            if not equal:
+                raise SystemExit(f"kernel {name} disagrees with its plain "
+                                 f"version at {label}")
+            del got, want
+            ms += time_ms(kfn, 20)
+            plain_ms += time_ms(pfn, 3)
+            bound.add(nbytes, ops)
+            err = max(err, e)
+            shapes.append(label)
+        bound_ms, bound_by = bound.result()
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": err,
+                         "shapes": shapes, "bytes": bound.bytes,
+                         "int32_muls": bound.ops}
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) per mul+relin")
+    return records
+
+
+def main_path(par) -> tuple[dict, float, object, tuple]:
+    """Phase 4. Returns (launch counts of the step, seconds, step, inputs)."""
+    from tpufhe_torch import kernels
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.pipeline import make_mul_relin
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t = par.plaintext.value
+    rng = ChaCha8Rng(seed_from_u64(SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng)
+    torch.cuda.synchronize()
+    log(f"  keygen (sk + rk) {time.perf_counter() - t0:.2f} s")
+
+    vals = np.random.default_rng(SEED)
+    va = vals.integers(0, t, (BATCH, par.degree()), dtype=np.uint64)
+    vb = vals.integers(0, t, (BATCH, par.degree()), dtype=np.uint64)
+    t0 = time.perf_counter()
+    cas = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par), rng)
+           for v in va]
+    cbs = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par), rng)
+           for v in vb]
+    torch.cuda.synchronize()
+    log(f"  SIMD encode + encrypt {2 * BATCH} ciphertexts "
+        f"{time.perf_counter() - t0:.2f} s")
+    a0, a1, b0, b1 = (torch.stack([c[i] for c in cs])
+                      for cs in (cas, cbs) for i in (0, 1))
+
+    step = make_mul_relin(par, rk)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    c0, c1 = step(a0, a1, b0, b1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"  mul+relin of {BATCH} pairs (first call) {secs:.3f} s, "
+        f"launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise SystemExit(f"kernel {name} was not launched on the main path")
+
+    ctx = par.context_at_level(0)
+    if tuple(c0.shape) != (BATCH, ctx.k, par.degree()):
+        raise SystemExit(f"unexpected output shape {tuple(c0.shape)}")
+    p = ctx.tables.p[:, None]
+    if not bool(((c0 >= 0) & (c0 < p) & (c1 >= 0) & (c1 < p)).all()):
+        raise SystemExit("output residues are not canonical")
+
+    t0 = time.perf_counter()
+    bad = 0
+    for i in range(BATCH):
+        ct = Ciphertext(par, [c0[i], c1[i]], 0)
+        got = sk.try_decrypt(ct).try_decode(Encoding.simd())
+        want = (va[i].astype(object) * vb[i].astype(object)) % t
+        bad += int((got != want.astype(np.uint64)).sum())
+    log(f"  decrypt + decode {BATCH} products {time.perf_counter() - t0:.2f} s, "
+        f"wrong slots {bad}")
+    if bad:
+        raise SystemExit(f"{bad} slots decrypted wrong")
+    fresh = sk.measure_noise(cas[0])
+    prod = sk.measure_noise(Ciphertext(par, [c0[0], c1[0]], 0))
+    log(f"  noise: fresh {fresh} bits, product {prod} bits")
+    if prod >= sum(MODULI_SIZES) - 18:
+        raise SystemExit("product noise leaves no budget")
+    return launches, secs, step, (a0, a1, b0, b1)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    from tpufhe_torch import kernels
+    from tpufhe_torch.bfv import BfvParametersBuilder
+
+    t_all = time.perf_counter()
+    card = nvidia_smi("name,power.limit")
+    log("phase 1: card")
+    log(card)
+    sm_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_rate = sms * INT32_MULS_PER_CLOCK_PER_SM * sm_clock_mhz * 1e6
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {sms} SMs, "
+        f"max SM clock {sm_clock_mhz:.0f} MHz, int32 multiply rate "
+        f"{int32_rate / 1e12:.2f} T/s")
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    built = kernels.build()
+    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+
+    par = (BfvParametersBuilder().set_degree(DEGREE)
+           .set_plaintext_modulus(PLAINTEXT).set_moduli_sizes(MODULI_SIZES)
+           .build())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    log("phase 3: kernels against their plain versions")
+    records = check_kernels(par, gen, int32_rate)
+
+    log("phase 4: main path")
+    launches, first_s, step, inputs = main_path(par)
+
+    log("phase 5: rate")
+    a0, a1, b0, b1 = inputs
+
+    def chained():
+        c0, c1 = a0, a1
+        for _ in range(RATE_STEPS):
+            c0, c1 = step(c0, c1, b0, b1)
+        return c0
+
+    step_ms = time_ms(chained, 1) / RATE_STEPS
+    log(f"  {RATE_STEPS} chained mul+relin steps at batch {BATCH}: "
+        f"{step_ms:.3f} ms/step, {BATCH / step_ms * 1e3:.1f} mul+relin/s "
+        f"on {card}")
+
+    out = []
+    for name, (src, replaces) in kernels.KERNELS.items():
+        r = records[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"tpufhe_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "shape": r["shapes"], "equal": True,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "bytes": r["bytes"],
+            "int32_muls": r["int32_muls"],
+        })
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

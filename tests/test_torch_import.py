@@ -1,0 +1,37 @@
+"""tpufhe_torch stands alone: importing it pulls in neither JAX nor tpufhe."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_pulls_in_no_jax_and_no_tpufhe():
+    code = (
+        "import sys\n"
+        "import tpufhe_torch, tpufhe_torch.bfv, tpufhe_torch.pipeline\n"
+        "import tpufhe_torch.convert, tpufhe_torch.kernels\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'tpufhe' or m.startswith('tpufhe.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_sources_never_import_tpufhe_or_jax():
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:tpufhe(?!_torch)\b|jax\b)", re.MULTILINE)
+    files = sorted((ROOT / "tpufhe_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if pattern.search(f.read_text())]
+    assert not offenders, offenders

@@ -1,0 +1,5 @@
+from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
+from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
+from tpufhe_torch.bfv.keys.secret_key import SecretKey
+
+__all__ = ["SecretKey", "KeySwitchingKey", "RelinearizationKey"]

@@ -1,0 +1,112 @@
+"""Secret keys: CBD sampling, symmetric encryption, decryption, noise meter.
+
+The port of tpufhe/bfv/keys/secret_key.py (fhe/src/bfv/keys/secret_key.rs):
+- encrypt_poly: b = e - a*s + m with a expanded from a fresh 32-byte seed,
+  in the reference's draw order (seed, then the CBD error);
+- try_decrypt: phase c0 + c1 s -> t/q scale -> the host-side mod-t fold of
+  the first plaintext-context row (secret_key.rs:200-282);
+- measure_noise: decrypt, re-encode, report the largest noise in bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufhe_torch.bfv.ciphertext import Ciphertext
+from tpufhe_torch.bfv.parameters import BfvParameters
+from tpufhe_torch.bfv.plaintext import Plaintext
+from tpufhe_torch.errors import ContextMismatch, UnsupportedOperation
+from tpufhe_torch.ops import zq
+from tpufhe_torch.ops.rq import (
+    from_i64_coeffs,
+    lift_bigints,
+    ntt_backward,
+    ntt_forward,
+    random_from_seed,
+)
+from tpufhe_torch.utils.sampling import sample_vec_cbd
+
+
+class SecretKey:
+    """A secret key: N signed small coefficients, host-side."""
+
+    def __init__(self, coeffs: np.ndarray, par: BfvParameters):
+        self.par = par
+        self.coeffs = np.array(coeffs, dtype=np.int64, copy=True)
+        self._s_ntt: dict = {}
+        self._enc_fns: dict = {}
+        self._dec_fns: dict = {}
+
+    @staticmethod
+    def random(par: BfvParameters, rng) -> "SecretKey":
+        return SecretKey(sample_vec_cbd(par.degree(), par.variance, rng), par)
+
+    def s_ntt(self, ctx) -> torch.Tensor:
+        """s in the NTT domain of `ctx`, (k, N), cached per context."""
+        key = id(ctx)
+        if key not in self._s_ntt:
+            self._s_ntt[key] = ntt_forward(ctx, from_i64_coeffs(self.coeffs, ctx))
+        return self._s_ntt[key]
+
+    def _encrypt_fn(self, level: int):
+        if level not in self._enc_fns:
+            from tpufhe_torch.pipeline import make_encrypt_with_seed_expansion
+
+            self._enc_fns[level] = make_encrypt_with_seed_expansion(
+                self.par, self, level)
+        return self._enc_fns[level]
+
+    def _decrypt_fn(self, level: int):
+        if level not in self._dec_fns:
+            from tpufhe_torch.pipeline import make_decrypt_phase
+
+            self._dec_fns[level] = make_decrypt_phase(self.par, self, level)
+        return self._dec_fns[level]
+
+    def encrypt_poly(self, m: torch.Tensor, level: int, rng) -> Ciphertext:
+        """Symmetric encryption of an NTT-domain (k, N) polynomial."""
+        ctx = self.par.context_at_level(level)
+        seed = rng.fill_bytes(32)
+        a = random_from_seed(ctx, seed)
+        e = from_i64_coeffs(
+            sample_vec_cbd(ctx.degree, self.par.variance, rng), ctx)
+        b = self._encrypt_fn(level)(a, e, m)
+        return Ciphertext(self.par, [b, a], level, seed=seed)
+
+    def try_encrypt(self, pt: Plaintext, rng) -> Ciphertext:
+        if pt.par != self.par:
+            raise ContextMismatch("Incompatible BFV parameters")
+        return self.encrypt_poly(pt.to_poly(), pt.level, rng)
+
+    def try_decrypt(self, ct: Ciphertext) -> Plaintext:
+        if ct.par != self.par:
+            raise ContextMismatch("Incompatible BFV parameters")
+        if len(ct) != 2:
+            raise UnsupportedOperation(
+                "tpufhe_torch decrypts two-part ciphertexts only")
+        d = self._decrypt_fn(ct.level)(ct[0], ct[1])
+        t = self.par.plaintext.value
+        q0 = self.par.moduli[0]
+        row0 = d[0].cpu().numpy().astype(np.uint64)
+        value = ((row0 + np.uint64(t)) % np.uint64(q0)) % np.uint64(t)
+        return Plaintext(self.par, value, None, ct.level)
+
+    def measure_noise(self, ct: Ciphertext) -> int:
+        """Largest noise across coefficients, in bits (secret_key.rs:63-100)."""
+        pt = self.try_decrypt(ct)
+        m = pt.to_poly()
+        ctx = self.par.context_at_level(ct.level)
+        mod = ctx.mod
+        s = self.s_ntt(ctx)
+        si = s
+        c = ct[0]
+        for i in range(1, len(ct)):
+            c = zq.add(c, zq.mul(ct[i], si, mod), mod)
+            si = zq.mul(si, s, mod)
+        c = ntt_backward(ctx, zq.sub(c, m, mod))
+        q = ctx.modulus()
+        noise = 0
+        for coeff in lift_bigints(ctx, c):
+            noise = max(noise, min(coeff.bit_length(), (q - coeff).bit_length()))
+        return noise

@@ -1,0 +1,83 @@
+"""Carry state between tpufhe and tpufhe_torch, through numpy arrays only.
+
+tpufhe keeps residues as lane-folded uint32 (lo, hi) planes shaped
+(..., k, 2, N/128, 128) (or (..., k, 2, 1, N) when N is not a multiple of
+128), because TPU lanes are 32-bit. tpufhe_torch keeps one int64 word per
+residue, (..., k, N). These functions convert between the two, and build
+tpufhe_torch key and ciphertext objects from the arrays of tpufhe's, so that
+both packages can be fed the same keys.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufhe_torch.ops.zq import as_int64
+
+_LANES = 128
+
+
+def _lane_shape(n: int) -> tuple:
+    return (n // _LANES, _LANES) if n % _LANES == 0 else (1, n)
+
+
+def lanes_to_words(arr: np.ndarray) -> np.ndarray:
+    """uint32 (..., 2, S, L) lane-folded pairs -> int64 (..., N) words
+    (the bit pattern of the uint64 value)."""
+    arr = np.asarray(arr, dtype=np.uint32)
+    flat = arr.reshape(arr.shape[:-2] + (arr.shape[-2] * arr.shape[-1],))
+    lo = flat[..., 0, :].astype(np.uint64)
+    hi = flat[..., 1, :].astype(np.uint64)
+    return as_int64(lo | (hi << np.uint64(32)))
+
+
+def words_to_lanes(words: np.ndarray) -> np.ndarray:
+    """int64 or uint64 (..., N) words -> uint32 (..., 2, S, L) pairs."""
+    u = np.ascontiguousarray(words).view(np.uint64)
+    lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (u >> np.uint64(32)).astype(np.uint32)
+    arr = np.stack([lo, hi], axis=-2)
+    return arr.reshape(arr.shape[:-1] + _lane_shape(arr.shape[-1]))
+
+
+def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """tpufhe lane-folded residues -> a tpufhe_torch tensor on `device`."""
+    return torch.from_numpy(lanes_to_words(arr)).to(device)
+
+
+def from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tpufhe_torch tensor -> tpufhe lane-folded uint32 residues."""
+    return words_to_lanes(t.detach().cpu().numpy())
+
+
+def secret_key(coeffs: np.ndarray, par):
+    """A tpufhe_torch SecretKey from tpufhe's signed coefficients."""
+    from tpufhe_torch.bfv.keys.secret_key import SecretKey
+
+    return SecretKey(np.asarray(coeffs, dtype=np.int64), par)
+
+
+def relinearization_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
+                        level: int = 0):
+    """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows: each of
+    c0, c0_shoup, c1, c1_shoup is a list (one per decomposition row) of
+    lane-folded arrays, e.g. [np.asarray(p.coeffs) for p in rk.ksk.c0]."""
+    from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
+    from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
+
+    def rows(arrs):
+        return torch.from_numpy(
+            np.stack([lanes_to_words(a) for a in arrs])).to(par.device)
+
+    ksk = KeySwitchingKey(par, seed, rows(c0), rows(c0_shoup), rows(c1),
+                          rows(c1_shoup), level, level)
+    return RelinearizationKey(ksk)
+
+
+def ciphertext(par, parts, level: int = 0, seed: bytes | None = None):
+    """A tpufhe_torch Ciphertext from tpufhe's lane-folded parts."""
+    from tpufhe_torch.bfv.ciphertext import Ciphertext
+
+    return Ciphertext(par, [to_tensor(p, par.device) for p in parts], level,
+                      seed)

@@ -1,0 +1,151 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each kernel is one source in ``tpufhe_torch/csrc/`` with a plain C entry
+point. It is compiled at first use with nvcc for ``sm_90a`` into
+``tpufhe_torch/_build/`` (named by a hash of its sources, so an edited
+source is rebuilt) and loaded with ctypes. ``build()`` compiles every kernel
+at once, one nvcc process per source, all started together.
+
+Every wrapper calls ``count(name)`` right where it launches its kernel, and
+only there, so a run can show which kernels a path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD = os.path.join(_DIR, "_build")
+
+# kernel name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "ntt": ("ntt.cu", "tpufhe/ops/pallas/mxu_ntt_kernel.py:319 _mxu4_kernel"),
+    "rns_scale": ("rns_scale.cu",
+                  "tpufhe/ops/pallas/rns_kernel.py:361 _scale_kernel_bc"),
+    "tensor_intt": ("tensor_intt.cu",
+                    "tpufhe/ops/pallas/mxu_ntt_kernel.py:738 _tensor_intt_kernel"),
+    "relin_tail": ("relin_tail.cu",
+                   "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"),
+}
+HEADERS = ("modarith.cuh", "ntt_device.cuh")
+# Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
+# the NTT-based kernels hold whole rows of N words in it.
+SMEM_BYTES = 232448
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {name: 0 for name in KERNELS}
+_libs: dict = {}
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    for src in (KERNELS[name][0],) + HEADERS:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default all) that are not built yet.
+
+    One nvcc per source, all running at once. Returns {name: seconds} for
+    what was compiled. Raises RuntimeError with nvcc's output if any build
+    fails.
+    """
+    names = list(KERNELS) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    if not todo:
+        return {}
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = _lib_path(n)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", out + ".tmp",
+               os.path.join(CSRC, KERNELS[n][0])]
+        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+    times, errors = {}, []
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        times[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"{n}: nvcc exit {proc.returncode}\n"
+                          + log.decode(errors="replace"))
+        else:
+            out = _lib_path(n)
+            os.replace(out + ".tmp", out)
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return times
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of kernel `name`, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_lib_path(name))
+        _libs[name] = lib
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher returned a nonzero cudaGetLastError()."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def require_cuda_int64(name: str, *tensors) -> None:
+    """The checks every launching wrapper makes on its tensor arguments."""
+    import torch
+
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
+        if t.dtype != torch.int64:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected torch.int64")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")

@@ -1,0 +1,152 @@
+"""Polynomials in R_q[x] = Z_q[x]/(x^N + 1) with RNS coefficients: the
+subset of tpufhe.ops.rq that the multiply + relinearize path needs.
+
+Coefficients are int64 tensors shaped (..., k, N), one canonical residue
+per word, in power basis or in bit-reversed NTT order; leading dimensions
+are batch. A ``Context`` holds the moduli, their NTT operators and the
+per-limb tables on its device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufhe_torch.device import resolve_device
+from tpufhe_torch.errors import InvalidContext
+from tpufhe_torch.ops import ntt as ntt_mod
+from tpufhe_torch.ops import zq
+from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
+from tpufhe_torch.ops.zq import Modulus
+from tpufhe_torch.utils.rngs import expand_seed
+
+_CONTEXT_CACHE: dict = {}
+
+
+class Context:
+    """Moduli + NTT operators + RNS context of one ring, on one device.
+
+    Mirrors rq/context.rs:9-156 without the switch-down chain. Cached by
+    (moduli, degree, device).
+    """
+
+    def __new__(cls, moduli, degree: int, device=None):
+        device = resolve_device(device)
+        key = (tuple(int(m) for m in moduli), int(degree), str(device))
+        if key in _CONTEXT_CACHE:
+            return _CONTEXT_CACHE[key]
+        self = super().__new__(cls)
+        self._init(key[0], key[1], device)
+        _CONTEXT_CACHE[key] = self
+        return self
+
+    def _init(self, moduli, degree, device):
+        if degree < 8 or (degree & (degree - 1)) != 0:
+            raise InvalidContext(
+                "The degree is not a power of two larger or equal to 8")
+        self.moduli = moduli
+        self.degree = degree
+        self.device = device
+        self.rns = RnsContext(list(moduli))
+        self.q = [Modulus(m) for m in moduli]
+        self.ops = []
+        for qi in self.q:
+            op = ntt_mod.NttOperator.new(qi, degree)
+            if op is None:
+                raise InvalidContext("Impossible to construct a Ntt operator")
+            self.ops.append(op)
+        self._tables = None
+
+    @property
+    def k(self) -> int:
+        return len(self.moduli)
+
+    def modulus(self) -> int:
+        return self.rns.product
+
+    @property
+    def tables(self) -> ntt_mod.NttTables:
+        """Per-limb device tables (built on first use)."""
+        if self._tables is None:
+            self._tables = ntt_mod.NttTables.build(self.ops, self.device)
+        return self._tables
+
+    @property
+    def mod(self) -> zq.ModTable:
+        """Constants of the plain elementwise ops, shape (k, 1)."""
+        return self.tables.mod
+
+    def __repr__(self):
+        return (f"Context(moduli={self.moduli}, degree={self.degree}, "
+                f"device={self.device})")
+
+
+def ntt_forward(ctx: Context, x: torch.Tensor,
+                limb_slice: slice | None = None) -> torch.Tensor:
+    """Forward NTT of canonical (..., k_sel, N) rows (K1 on the card).
+    Counterpart of tpufhe.ops.rq.ntt_forward_any (non-lazy)."""
+    return ntt_mod.ntt_transform(x, ctx.tables, limb_slice, inverse=False)
+
+
+def ntt_backward(ctx: Context, x: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of canonical (..., k, N) rows (K1 on the card).
+    Counterpart of tpufhe.ops.rq.ntt_backward_any."""
+    return ntt_mod.ntt_transform(x, ctx.tables, None, inverse=True)
+
+
+def from_i64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
+    """Signed coefficients (N,) reduced into every limb: (k, N) power basis
+    (rq/convert.rs TryConvertFrom<&[i64]>)."""
+    v = np.zeros(ctx.degree, dtype=np.int64)
+    v[: len(coeffs)] = np.asarray(coeffs, dtype=np.int64)
+    t = torch.from_numpy(v).to(ctx.device)
+    return torch.remainder(t[None, :], ctx.mod.p)
+
+
+def from_u64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
+    """Unsigned coefficients below 2^63, reduced into every limb."""
+    v = np.zeros(ctx.degree, dtype=np.uint64)
+    cs = np.asarray(coeffs, dtype=np.uint64)
+    v[: len(cs)] = cs
+    t = torch.from_numpy(zq.as_int64(v)).to(ctx.device)
+    if (t < 0).any():
+        raise ValueError("coefficients must be below 2^63")
+    return torch.remainder(t[None, :], ctx.mod.p)
+
+
+def random_rows(ctx: Context, rng) -> torch.Tensor:
+    """Uniform (k, N) residues sampled limb by limb (rq/mod.rs:226-237)."""
+    rows = np.stack([q.random_vec(ctx.degree, rng) for q in ctx.q])
+    return torch.from_numpy(zq.as_int64(rows)).to(ctx.device)
+
+
+def random_from_seed(ctx: Context, seed: bytes) -> torch.Tensor:
+    """Deterministic expansion: ChaCha8(SHA-256(seed)) (rq/mod.rs:241-257)."""
+    return random_rows(ctx, expand_seed(seed))
+
+
+def lift_bigints(ctx: Context, coeffs: torch.Tensor) -> list:
+    """CRT-lift each coefficient of a (k, N) power-basis poly into [0, q)."""
+    mat = coeffs.cpu().numpy()
+    return [ctx.rns.lift([int(mat[i, j]) for i in range(ctx.k)])
+            for j in range(ctx.degree)]
+
+
+class Scaler:
+    """Context-to-context scaler with the common-moduli fast path
+    (rq/scaler.rs:18-127); only the power-basis form is needed here."""
+
+    def __init__(self, from_ctx: Context, to_ctx: Context, factor: ScalingFactor):
+        if from_ctx.degree != to_ctx.degree:
+            raise InvalidContext("Incompatible degrees")
+        self.from_ctx = from_ctx
+        self.to_ctx = to_ctx
+        self.factor = factor
+        ncm = 0
+        if factor.is_one:
+            for qa, qb in zip(from_ctx.q, to_ctx.q):
+                if qa.p != qb.p:
+                    break
+                ncm += 1
+        self.number_common_moduli = ncm
+        self.rns_scaler = RnsScaler(from_ctx.rns, to_ctx.rns, factor)

@@ -1,0 +1,277 @@
+"""Z_q modular arithmetic for moduli up to 62 bits.
+
+Two halves:
+
+- ``Modulus``: host-side constants and exact Python-int arithmetic, the
+  counterpart of tpufhe/ops/zq.py's Modulus (fhe-math/src/zq/mod.rs:32-98):
+  the 128-bit Barrett constant, Shoup precomputation, inverses and the
+  reference-compatible uniform sampler.
+- Plain elementwise ops on ``torch.int64`` tensors holding one residue per
+  word: ``add``, ``sub``, ``neg``, ``mul`` and ``mul_shoup`` mod p. They are
+  the glue around the CUDA kernels (encryption's e - a*s + m, the decryption
+  phase, the key-switch digits) and the arithmetic of every kernel's plain
+  version.
+
+torch has no 128-bit product and almost no uint64 arithmetic, so a product of
+two 62-bit residues is formed from 31-bit digits whose partial products stay
+below 2^62 (``_mul_digits``), and reduced by Barrett's method with
+mu = floor(2^124 / p). Nothing relies on int64 wraparound: every
+intermediate is a non-negative value below 2^63, except the signed columns of
+``normalize``, whose floor shifts are exact.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from tpufhe_torch.errors import InvalidModulus
+from tpufhe_torch.utils.primes import is_prime, supports_opt
+from tpufhe_torch.utils.rngs import uniform_u64_below
+
+DIGIT_BITS = 31
+DIGIT_MASK = (1 << DIGIT_BITS) - 1
+_M64 = (1 << 64) - 1
+
+
+@dataclass(frozen=True)
+class Modulus:
+    """A modulus p < 2^62 with precomputed Barrett/Shoup constants.
+
+    Mirrors fhe-math/src/zq/mod.rs:32-98 and tpufhe.ops.zq.Modulus.
+    """
+
+    p: int
+    barrett_hi: int = field(init=False)
+    barrett_lo: int = field(init=False)
+    leading_zeros: int = field(init=False)
+    supports_opt: bool = field(init=False)
+
+    def __post_init__(self):
+        p = int(self.p)
+        if p < 2 or (p >> 62) != 0:
+            raise InvalidModulus(p)
+        barrett = (1 << 128) // p
+        object.__setattr__(self, "p", p)
+        object.__setattr__(self, "barrett_hi", barrett >> 64)
+        object.__setattr__(self, "barrett_lo", barrett & _M64)
+        object.__setattr__(self, "leading_zeros", 64 - p.bit_length())
+        object.__setattr__(self, "supports_opt", supports_opt(p))
+
+    def neg(self, a: int) -> int:
+        return (-a) % self.p
+
+    def shoup(self, a: int) -> int:
+        """floor(a * 2^64 / p), the Shoup precomputation (zq/mod.rs:195-199)."""
+        assert 0 <= a < self.p
+        return (a << 64) // self.p
+
+    def inv(self, a: int) -> int | None:
+        if not is_prime(self.p) or a == 0:
+            return None
+        return pow(a, self.p - 2, self.p)
+
+    def reduce(self, a: int) -> int:
+        return int(a) % self.p
+
+    def random_vec(self, size: int, rng) -> np.ndarray:
+        """Uniform values in [0, p) with rand-0.9 Uniform semantics."""
+        return uniform_u64_below(rng, self.p, size)
+
+
+def shoup_array(values: np.ndarray, moduli) -> np.ndarray:
+    """Shoup constants floor(v * 2^64 / p) of canonical residues.
+
+    values: (..., k, N) residues, moduli: the k moduli. Returns uint64 (the
+    constants use all 64 bits; callers store them in int64 by bit pattern).
+    """
+    values = np.asarray(values, dtype=np.uint64)
+    out = np.empty(values.shape, dtype=np.uint64)
+    for j, p in enumerate(moduli):
+        src = values[..., j, :]
+        flat = [(int(v) << 64) // int(p) for v in src.reshape(-1)]
+        out[..., j, :] = np.array(flat, dtype=np.uint64).reshape(src.shape)
+    return out
+
+
+def as_int64(values: np.ndarray) -> np.ndarray:
+    """uint64 words -> int64 with the same bit pattern."""
+    return np.ascontiguousarray(np.asarray(values, dtype=np.uint64)).view(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# 31-bit digit arithmetic on int64 tensors
+# ---------------------------------------------------------------------------
+
+
+def to_digits(x, n: int) -> list:
+    """Digits of an int64 tensor read as an unsigned 64-bit word.
+
+    Digit i holds bits [31 i, 31 i + 31); the top digit is masked to the
+    bits the word has, so a negative bit pattern (a word >= 2^63) yields
+    its unsigned digits.
+    """
+    out = []
+    for i in range(n):
+        width = min(DIGIT_BITS, 64 - DIGIT_BITS * i)
+        out.append((x >> (DIGIT_BITS * i)) & ((1 << width) - 1))
+    return out
+
+
+def int_digits(x: int, n: int) -> list:
+    """Digits of a non-negative Python int."""
+    return [(int(x) >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(n)]
+
+
+def normalize(cols: list, n: int | None = None) -> list:
+    """Carry-propagate columns into n digits in [0, 2^31).
+
+    Columns may be negative; the floor shift makes the result the two's
+    complement of the value modulo 2^(31 n). The final carry is dropped.
+    """
+    n = len(cols) if n is None else n
+    out = []
+    carry = 0
+    for i in range(n):
+        v = carry + (cols[i] if i < len(cols) else 0)
+        out.append(v & DIGIT_MASK)
+        carry = v >> DIGIT_BITS
+    return out
+
+
+def mul_columns(a: list, b: list, cols: list | None = None, sign: int = 1) -> list:
+    """Add sign * (a * b) into 31-bit columns, schoolbook.
+
+    Each partial product (< 2^62) is split into its low and high 31 bits
+    before it enters a column, so a column stays far below 2^63 for any
+    digit count used here.
+    """
+    if cols is None:
+        cols = [0] * (len(a) + len(b) + 1)
+    for i, ai in enumerate(a):
+        for j, bj in enumerate(b):
+            prod = ai * bj
+            lo = prod & DIGIT_MASK
+            hi = prod >> DIGIT_BITS
+            if sign > 0:
+                cols[i + j] = cols[i + j] + lo
+                cols[i + j + 1] = cols[i + j + 1] + hi
+            else:
+                cols[i + j] = cols[i + j] - lo
+                cols[i + j + 1] = cols[i + j + 1] - hi
+    return cols
+
+
+def bits_of(digits: list, start: int, width: int):
+    """Bits [start, start + width) of a digit number as an int64 (width <= 63)."""
+    assert width <= 63
+    out = 0
+    got = 0
+    while got < width:
+        pos = start + got
+        d, off = divmod(pos, DIGIT_BITS)
+        take = min(DIGIT_BITS - off, width - got)
+        if d < len(digits):
+            piece = (digits[d] >> off) & ((1 << take) - 1)
+            out = out + (piece << got)
+        got += take
+    return out
+
+
+class ModTable:
+    """Per-modulus constants of the plain ops, shaped to broadcast.
+
+    `p` has shape `shape` (e.g. (k, 1) against (..., k, N) data); the
+    Barrett constant mu = floor(2^124 / p) is held as four 31-bit digits.
+    """
+
+    def __init__(self, moduli, device, shape=None):
+        self.moduli = tuple(int(m) for m in moduli)
+        self.device = torch.device(device)
+        self.shape = (len(self.moduli), 1) if shape is None else tuple(shape)
+
+        def col(vals):
+            return torch.tensor(vals, dtype=torch.int64,
+                                device=self.device).reshape(self.shape)
+
+        self.p = col(list(self.moduli))
+        self.p_digits = [col([d[i] for d in
+                              (int_digits(m, 2) for m in self.moduli)])
+                         for i in range(2)]
+        mus = [int_digits((1 << 124) // m, 4) for m in self.moduli]
+        self.mu_digits = [col([d[i] for d in mus]) for i in range(4)]
+
+    def view(self, shape) -> "ModTable":
+        """The same constants reshaped (e.g. (k, 1, 1) for staged NTT views)."""
+        return ModTable(self.moduli, self.device, shape)
+
+    def __getitem__(self, sl: slice) -> "ModTable":
+        return ModTable(self.moduli[sl], self.device,
+                        (len(self.moduli[sl]),) + self.shape[1:])
+
+
+def add(a, b, m: ModTable):
+    """(a + b) mod p for a, b < p."""
+    s = a + b
+    return torch.where(s >= m.p, s - m.p, s)
+
+
+def sub(a, b, m: ModTable):
+    """(a - b) mod p for a, b < p."""
+    d = a - b
+    return torch.where(d < 0, d + m.p, d)
+
+
+def neg(a, m: ModTable):
+    """(-a) mod p for a < p."""
+    return torch.where(a == 0, a, m.p - a)
+
+
+def _barrett_digits(prod: list, m: ModTable):
+    """Reduce a product given as four 31-bit digits (value < p^2 < 2^124).
+
+    q = floor(prod * mu / 2^124) with mu = floor(2^124 / p) is the true
+    quotient or one less, so r = prod - q p lies in [0, 2p) and one
+    conditional subtraction finishes.
+    """
+    qcols = mul_columns(prod[:4], m.mu_digits)
+    qd = normalize(qcols, 6)[4:6]  # q < 2^62: digits 4 and 5
+    qp = normalize(mul_columns(qd, m.p_digits), 3)
+    r = normalize([prod[i] - qp[i] for i in range(3)], 3)
+    r = r[0] + (r[1] << DIGIT_BITS) + (r[2] << (2 * DIGIT_BITS))
+    return torch.where(r >= m.p, r - m.p, r)
+
+
+def mul(a, b, m: ModTable):
+    """(a * b) mod p for canonical a, b < p < 2^62."""
+    prod = normalize(mul_columns(to_digits(a, 2), to_digits(b, 2)), 4)
+    return _barrett_digits(prod, m)
+
+
+def mul_shoup(a, b, b_shoup, m: ModTable):
+    """a * b mod p by Shoup's method (zq/mod.rs:224-234), fully reduced.
+
+    b < p and b_shoup = floor(b 2^64 / p) stored by bit pattern in int64;
+    a is any value below 2^63. q = floor(a b_shoup / 2^64) is formed
+    exactly from digits, then r = a b - q p (in [0, 2p)) from the low
+    three digits.
+    """
+    ad = to_digits(a, 3)
+    q = bits_of(normalize(mul_columns(ad, to_digits(b_shoup, 3)), 6), 64, 63)
+    ab = normalize(mul_columns(ad, to_digits(b, 2)), 3)
+    qp = normalize(mul_columns(to_digits(q, 3), m.p_digits), 3)
+    r = normalize([ab[i] - qp[i] for i in range(3)], 3)
+    r = r[0] + (r[1] << DIGIT_BITS) + (r[2] << (2 * DIGIT_BITS))
+    return torch.where(r >= m.p, r - m.p, r)
+
+
+def mod_of_digits(digits: list, m: ModTable):
+    """(sum_i digits[i] 2^(31 i)) mod p, by Horner's rule from the top."""
+    two31 = torch.remainder(
+        torch.full_like(m.p, 1 << DIGIT_BITS), m.p)
+    r = torch.remainder(digits[-1], m.p)
+    for d in reversed(digits[:-1]):
+        r = torch.remainder(mul(r, two31, m) + d, m.p)
+    return r
