@@ -5,14 +5,28 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the four CUDA kernels (one nvcc per source, in parallel);
-3. kernels: each kernel against its plain torch version at the shapes of
-   the N = 8192, L = 3 x 62-bit, batch-64 mul+relin, compared with
-   torch.equal, and both timed with CUDA events;
+2. build: compile the five CUDA kernels (one nvcc per source, in parallel)
+   and the native ChaCha8 / CBD sampler (g++); fails if either does not
+   build;
+3. kernels: each kernel against its plain torch version, compared with
+   torch.equal, and both timed with CUDA events: ntt, rns_scale,
+   tensor_intt and relin_tail at the shapes of the N = 8192, L = 3 x 62-bit,
+   batch-64 mul+relin; rotate_tail and the rotation's inverse ntt at the
+   N = 8192, 4 x 62-bit, batch-32 rotation; ntt at N = 16 and 512 (the
+   small degrees tpufhe's other NTT kernel serves);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
-   mul+relin (the launch counters of all four kernels must rise), decrypt
+   mul+relin (the launch counters of its four kernels must rise), decrypt
    all 64 and check every slot against (va * vb) mod t, print the noise;
-5. rate: chained batch-64 mul+relin steps timed with CUDA events.
+5. rate: chained batch-64 mul+relin steps timed with CUDA events;
+6. rotation path (N = 8192, 4 x 62-bit, BASELINE config 4): secret key
+   and an evaluation key for the inner sum and expansion level 4, encrypt
+   32 SIMD and 4 poly ciphertexts; a column rotation by 1 of all 32, the
+   inner sum of the first 16 and the expansion of the 4 into 16 each, each
+   run with the launch counters set to 0 just before it (ntt and
+   rotate_tail must rise); every slot of every output is checked after
+   decryption, and the noise printed;
+7. rates: chained batch-32 rotations and batch-16 inner sums, timed with
+   CUDA events.
 
 The second-to-last line is {"kernels": [...]}, the last one
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
@@ -22,6 +36,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -36,6 +51,14 @@ PLAINTEXT = 65537
 BATCH = 64
 SEED = 2026
 RATE_STEPS = 20
+# rotation path: BASELINE config 4 as bench.py runs it
+ROT_MODULI_SIZES = [62, 62, 62, 62]
+ROT_BATCH = 32
+SUM_BATCH = 16
+EXPAND_LEVEL = 4
+EXPAND_BATCH = 4
+ROT_RATE_STEPS = 64
+SUM_RATE_STEPS = 4
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -108,11 +131,104 @@ def rand_residues(shape, moduli: torch.Tensor, gen) -> torch.Tensor:
     return x
 
 
-def check_kernels(par, gen, int32_rate: float) -> dict:
-    """Phase 3: every kernel against its plain version at main-path shapes.
-    Returns {name: record} with per-mul+relin times and bounds."""
-    from tpufhe_torch import pipeline
+def random_key(ctx, gen) -> SimpleNamespace:
+    """A random (k, k, N) key-switching key with its Shoup constants."""
     from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
+
+    k, n = ctx.k, ctx.degree
+    key = SimpleNamespace()
+    key.c0 = rand_residues((k, k, n), ctx.tables.p, gen)
+    key.c1 = rand_residues((k, k, n), ctx.tables.p, gen)
+    key.c0_shoup = shoup_of(key.c0, ctx.moduli)
+    key.c1_shoup = shoup_of(key.c1, ctx.moduli)
+    return key
+
+
+def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops) -> dict:
+    """One kernel call against its plain version: torch.equal, then both
+    timed. Raises SystemExit if they disagree."""
+
+    def as_tensor(out):
+        return torch.stack(out) if isinstance(out, tuple) else out
+
+    got = as_tensor(kfn())
+    want = as_tensor(pfn())
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    err = int((got - want).abs().max().item())
+    log(f"  {name} {label}: equal={equal} max_abs_err={err}")
+    if not equal:
+        raise SystemExit(f"kernel {name} disagrees with its plain version "
+                         f"at {label}")
+    del got, want
+    bound = Bound(int32_rate)
+    bound.add(nbytes, ops)
+    bound_ms, bound_by = bound.result()
+    return {"label": label, "ms": time_ms(kfn, 20), "plain_ms": time_ms(pfn, 3),
+            "max_abs_err": err, "bytes": nbytes, "int32_muls": ops,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
+    """Phase 3, the rotation's kernels and the small-degree NTT: K5 and the
+    rotation's inverse NTT at the batch-32 rotation shapes, and K1 at
+    N = 16 and 512 (k = 3, 4 rows), forward and inverse. Returns
+    {label: case record}."""
+    from tpufhe_torch import pipeline
+    from tpufhe_torch.bfv import BfvParametersBuilder
+    from tpufhe_torch.ops import ntt as ntt_mod
+    from tpufhe_torch.ops.rq import Context
+
+    out = {}
+    ctx = par_rot.context_at_level(0)
+    k, n = ctx.k, ctx.degree
+    tb = ctx.tables
+    s0 = rand_residues((ROT_BATCH, k, n), tb.p, gen)
+    c2 = rand_residues((ROT_BATCH, k, n), tb.p, gen)
+    key = random_key(ctx, gen)
+    out["rotate_tail"] = run_case(
+        "rotate_tail", f"s0, c2 {tuple(s0.shape)} + ksk 4 x {(k, k, n)} -> "
+        f"(2, {ROT_BATCH}, {k}, {n})",
+        lambda: pipeline.rotate_tail_cuda(ctx, s0, c2, key),
+        lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key), int32_rate,
+        (4 * ROT_BATCH * k * n + 4 * k * k * n + 2 * k * n) * 8,
+        ROT_BATCH * k * k * (n * (2 * (LO + HI) + 2 * SHOUP)
+                             + ntt_ops(n, False)))
+    out["ntt_rotation"] = run_case(
+        "ntt", f"inverse {tuple(s0.shape)} (rotation)",
+        lambda: ntt_mod.ntt_cuda(s0, tb, slice(None), True),
+        lambda: ntt_mod.backward_plain(s0, tb.zetas_inv, tb.ninv, tb.mod),
+        int32_rate, 2 * s0.numel() * 8 + 2 * k * n * 8,
+        ROT_BATCH * k * ntt_ops(n, True))
+    for small in (16, 512):
+        moduli = BfvParametersBuilder.generate_moduli([62] * 3, small)
+        t_small = Context(moduli, small).tables
+        x = rand_residues((4, 3, small), t_small.p, gen)
+        for inverse in (False, True):
+            direction = "inverse" if inverse else "forward"
+            if inverse:
+                pfn = (lambda x=x, t=t_small: ntt_mod.backward_plain(
+                    x, t.zetas_inv, t.ninv, t.mod))
+            else:
+                pfn = (lambda x=x, t=t_small: ntt_mod.forward_plain(
+                    x, t.omegas, t.mod))
+            out[f"ntt_{small}_{direction}"] = run_case(
+                "ntt", f"{direction} {tuple(x.shape)}",
+                lambda x=x, t=t_small, inv=inverse: ntt_mod.ntt_cuda(
+                    x, t, slice(None), inv),
+                pfn, int32_rate, 2 * x.numel() * 8 + 2 * 3 * small * 8,
+                4 * 3 * ntt_ops(small, inverse))
+    for label, r in out.items():
+        log(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return out
+
+
+def check_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3: every mul+relin kernel against its plain version at
+    main-path shapes. Returns {name: record} with per-mul+relin times and
+    bounds."""
+    from tpufhe_torch import pipeline
     from tpufhe_torch.ops import ntt as ntt_mod
 
     ctx = par.context_at_level(0)
@@ -182,12 +298,7 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
 
     # K4: relin tail with a random key (values and their Shoup constants)
     dsc = rand_residues((3, BATCH, k, n), t_ctx.p, gen)
-
-    key = SimpleNamespace()
-    key.c0 = rand_residues((k, k, n), t_ctx.p, gen)
-    key.c1 = rand_residues((k, k, n), t_ctx.p, gen)
-    key.c0_shoup = shoup_of(key.c0, ctx.moduli)
-    key.c1_shoup = shoup_of(key.c1, ctx.moduli)
+    key = random_key(ctx, gen)
     # a digit's reduce_u64 is reduce_u128 with a zero high word: two low and
     # two high products
     cases["relin_tail"] = [
@@ -200,37 +311,22 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
                       + 2 * ntt_ops(n, False))),
     ]
 
-    def as_tensor(out):
-        return torch.stack(out) if isinstance(out, tuple) else out
-
     records = {}
     for name, items in cases.items():
-        ms = plain_ms = 0.0
+        runs = [run_case(name, label, kfn, pfn, int32_rate, nbytes, ops)
+                for label, kfn, pfn, nbytes, ops in items]
         bound = Bound(int32_rate)
-        err = 0
-        shapes = []
-        for label, kfn, pfn, nbytes, ops in items:
-            got = as_tensor(kfn())
-            want = as_tensor(pfn())
-            torch.cuda.synchronize()
-            equal = torch.equal(got, want)
-            e = int((got - want).abs().max().item())
-            log(f"  {name} {label}: equal={equal} max_abs_err={e}")
-            if not equal:
-                raise SystemExit(f"kernel {name} disagrees with its plain "
-                                 f"version at {label}")
-            del got, want
-            ms += time_ms(kfn, 20)
-            plain_ms += time_ms(pfn, 3)
-            bound.add(nbytes, ops)
-            err = max(err, e)
-            shapes.append(label)
+        for r in runs:
+            bound.add(r["bytes"], r["int32_muls"])
         bound_ms, bound_by = bound.result()
-        records[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "max_abs_err": err,
-                         "shapes": shapes, "bytes": bound.bytes,
-                         "int32_muls": bound.ops}
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        records[name] = {"ms": sum(r["ms"] for r in runs),
+                         "plain_ms": sum(r["plain_ms"] for r in runs),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": max(r["max_abs_err"] for r in runs),
+                         "shapes": [r["label"] for r in runs],
+                         "bytes": bound.bytes, "int32_muls": bound.ops}
+        r = records[name]
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}) per mul+relin")
     return records
 
@@ -280,8 +376,8 @@ def main_path(par) -> tuple[dict, float, object, tuple]:
     launches = dict(kernels.LAUNCHES)
     log(f"  mul+relin of {BATCH} pairs (first call) {secs:.3f} s, "
         f"launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("ntt", "rns_scale", "tensor_intt", "relin_tail"):
+        if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched on the main path")
 
     ctx = par.context_at_level(0)
@@ -310,12 +406,123 @@ def main_path(par) -> tuple[dict, float, object, tuple]:
     return launches, secs, step, (a0, a1, b0, b1)
 
 
+def run_program(name: str, fn, *args):
+    """Run one program with the launch counters set to 0 just before it;
+    fails unless ntt and rotate_tail both launched. Returns (outputs,
+    launches, seconds)."""
+    from tpufhe_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"  {name} (first call) {secs:.3f} s, launches {launches}")
+    for kernel in ("ntt", "rotate_tail"):
+        if not launches.get(kernel):
+            raise SystemExit(f"kernel {kernel} was not launched by {name}")
+    return out, launches, secs
+
+
+def check_outputs(name, par, sk, c0, c1, want, encoding) -> None:
+    """Every output canonical, every slot of every decryption equal to
+    `want` (same leading shape as c0 without the (k, N) tail)."""
+    from tpufhe_torch.bfv import Ciphertext
+
+    p = par.context_at_level(0).tables.p[:, None]
+    if not bool(((c0 >= 0) & (c0 < p) & (c1 >= 0) & (c1 < p)).all()):
+        raise SystemExit(f"{name}: output residues are not canonical")
+    flat0 = c0.reshape(-1, *c0.shape[-2:])
+    flat1 = c1.reshape(-1, *c1.shape[-2:])
+    want = want.reshape(flat0.shape[0], -1)
+    bad = 0
+    for i in range(flat0.shape[0]):
+        ct = Ciphertext(par, [flat0[i], flat1[i]], 0)
+        bad += int((sk.try_decrypt(ct).try_decode(encoding) != want[i]).sum())
+    log(f"  {name}: {flat0.shape[0]} ciphertexts decrypted, wrong slots {bad}, "
+        f"noise {sk.measure_noise(Ciphertext(par, [flat0[0], flat1[0]], 0))} bits")
+    if bad:
+        raise SystemExit(f"{name}: {bad} slots decrypted wrong")
+
+
+def rotation_path(par) -> dict:
+    """Phase 6. Returns {program: (launches, step, inputs)}."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        SecretKey,
+    )
+    from tpufhe_torch.pipeline import make_expand, make_inner_sum, make_rotate
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n = par.plaintext.value, par.degree()
+    rng = ChaCha8Rng(seed_from_u64(SEED + 1))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    ek = (EvaluationKeyBuilder(sk).enable_inner_sum()
+          .enable_expansion(EXPAND_LEVEL).build(rng))
+    torch.cuda.synchronize()
+    log(f"  keygen (sk + {len(ek.gk)} Galois keys) "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    vals = np.random.default_rng(SEED + 1)
+    simd = vals.integers(0, t, (ROT_BATCH, n), dtype=np.uint64)
+    poly = np.zeros((EXPAND_BATCH, n), dtype=np.uint64)
+    size = 1 << EXPAND_LEVEL
+    poly[:, :size] = vals.integers(0, t, (EXPAND_BATCH, size), dtype=np.uint64)
+    t0 = time.perf_counter()
+    cs = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par), rng)
+          for v in simd]
+    cp = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.poly(), par), rng)
+          for v in poly]
+    torch.cuda.synchronize()
+    log(f"  encode + encrypt {ROT_BATCH} SIMD and {EXPAND_BATCH} poly "
+        f"ciphertexts {time.perf_counter() - t0:.2f} s")
+    log(f"  noise: fresh {sk.measure_noise(cs[0])} bits")
+    s0, s1 = (torch.stack([c[i] for c in cs]) for i in (0, 1))
+    p0, p1 = (torch.stack([c[i] for c in cp]) for i in (0, 1))
+
+    out = {}
+    rot = make_rotate(par, ek.gk[ek.rot_to_gk_exponent[1]])
+    (c0, c1), launches, _ = run_program(
+        f"rotate columns by 1, batch {ROT_BATCH}", rot, s0, s1)
+    h = n // 2
+    want = np.concatenate([np.roll(simd[:, :h], -1, axis=1),
+                           np.roll(simd[:, h:], -1, axis=1)], axis=1)
+    check_outputs("rotation", par, sk, c0, c1, want, Encoding.simd())
+    out["rotate"] = (launches, rot, (s0, s1))
+
+    inner = make_inner_sum(par, ek)
+    a0, a1 = s0[:SUM_BATCH].contiguous(), s1[:SUM_BATCH].contiguous()
+    (c0, c1), launches, _ = run_program(
+        f"inner sum, batch {SUM_BATCH}", inner, a0, a1)
+    sums = simd[:SUM_BATCH].astype(object).sum(axis=1) % t
+    want = np.repeat(sums.astype(np.uint64)[:, None], n, axis=1)
+    check_outputs("inner sum", par, sk, c0, c1, want, Encoding.simd())
+    out["inner_sum"] = (launches, inner, (a0, a1))
+
+    expand = make_expand(par, ek, EXPAND_LEVEL)
+    (c0, c1), launches, _ = run_program(
+        f"expand to {size}, batch {EXPAND_BATCH}", expand, p0, p1)
+    if tuple(c0.shape) != (size, EXPAND_BATCH, par.context_at_level(0).k, n):
+        raise SystemExit(f"expansion: unexpected shape {tuple(c0.shape)}")
+    want = np.zeros((size, EXPAND_BATCH, n), dtype=np.uint64)
+    want[:, :, 0] = ((poly[:, :size].T.astype(object) << EXPAND_LEVEL) % t
+                     ).astype(np.uint64)
+    check_outputs("expansion", par, sk, c0, c1, want, Encoding.poly())
+    out["expand"] = (launches, expand, (p0, p1))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    from tpufhe_torch import kernels
+    from tpufhe_torch import kernels, native
     from tpufhe_torch.bfv import BfvParametersBuilder
 
     t_all = time.perf_counter()
@@ -333,14 +540,26 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = native.lib()
+    if lib is None:
+        raise SystemExit(f"the native sampler did not build: {native.error}")
+    log(f"  sampler: native ({os.path.basename(lib._name)}, "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     par = (BfvParametersBuilder().set_degree(DEGREE)
            .set_plaintext_modulus(PLAINTEXT).set_moduli_sizes(MODULI_SIZES)
            .build())
+    par_rot = (BfvParametersBuilder().set_degree(DEGREE)
+               .set_plaintext_modulus(PLAINTEXT)
+               .set_moduli_sizes(ROT_MODULI_SIZES).build())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
     records = check_kernels(par, gen, int32_rate)
+    side = check_side_kernels(par_rot, gen, int32_rate)
+    records["rotate_tail"] = dict(side["rotate_tail"],
+                                  shapes=[side["rotate_tail"]["label"]])
 
     log("phase 4: main path")
     launches, first_s, step, inputs = main_path(par)
@@ -359,19 +578,58 @@ def main() -> int:
         f"{step_ms:.3f} ms/step, {BATCH / step_ms * 1e3:.1f} mul+relin/s "
         f"on {card}")
 
+    log("phase 6: rotation path")
+    programs = rotation_path(par_rot)
+
+    log("phase 7: rates")
+    rot_launches, rot, (r0, r1) = programs["rotate"]
+
+    def chained_rot():
+        c0, c1 = r0, r1
+        for _ in range(ROT_RATE_STEPS):
+            c0, c1 = rot(c0, c1)
+        return c0
+
+    rot_ms = time_ms(chained_rot, 1) / ROT_RATE_STEPS
+    rot_kernels = side["ntt_rotation"]["ms"] + side["rotate_tail"]["ms"]
+    log(f"  {ROT_RATE_STEPS} chained rotations at batch {ROT_BATCH}: "
+        f"{rot_ms:.3f} ms/step, {ROT_BATCH / rot_ms * 1e3:.1f} rotations/s, "
+        f"kernels {rot_kernels:.3f} ms, glue {rot_ms - rot_kernels:.3f} ms "
+        f"on {card}")
+    _, inner, (i0, i1) = programs["inner_sum"]
+
+    def chained_sum():
+        c0, c1 = i0, i1
+        for _ in range(SUM_RATE_STEPS):
+            c0, c1 = inner(c0, c1)
+        return c0
+
+    sum_ms = time_ms(chained_sum, 1) / SUM_RATE_STEPS
+    log(f"  {SUM_RATE_STEPS} chained inner sums at batch {SUM_BATCH}: "
+        f"{sum_ms:.3f} ms/step, {SUM_BATCH / sum_ms * 1e3:.1f} inner sums/s "
+        f"on {card}")
+
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
         r = records[name]
-        out.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"tpufhe_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[name], "shape": r["shapes"], "equal": True,
+            "launches": (rot_launches if name == "rotate_tail"
+                         else launches)[name],
+            "shape": r["shapes"], "equal": True,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "bytes": r["bytes"],
             "int32_muls": r["int32_muls"],
-        })
+        }
+        if name == "ntt":
+            entry["other_shapes"] = {
+                label: {k: side[label][k] for k in
+                        ("label", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for label in side if label.startswith("ntt_")}
+        out.append(entry)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,11 @@ def test_import_pulls_in_no_jax_and_no_tpufhe():
         "import sys\n"
         "import tpufhe_torch, tpufhe_torch.bfv, tpufhe_torch.pipeline\n"
         "import tpufhe_torch.convert, tpufhe_torch.kernels\n"
+        "import tpufhe_torch.bfv.ops, tpufhe_torch.bfv.keys.evaluation_key\n"
+        "import tpufhe_torch.bfv.keys.galois_key, tpufhe_torch.native\n"
+        "from tpufhe_torch.utils import rngs, sampling\n"
+        "assert tpufhe_torch.native.lib() is not None, tpufhe_torch.native.error\n"
+        "rngs.ChaCha8Rng(rngs.seed_from_u64(1)).fill_bytes(1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tpufhe' or m.startswith('tpufhe.')]\n"
         "assert not bad, bad\n"
@@ -32,6 +37,9 @@ def test_sources_never_import_tpufhe_or_jax():
         r"^\s*(?:import|from)\s+(?:tpufhe(?!_torch)\b|jax\b)", re.MULTILINE)
     files = sorted((ROOT / "tpufhe_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("bfv/ops.py", "bfv/keys/galois_key.py",
+                "bfv/keys/evaluation_key.py", "native/__init__.py"):
+        assert ROOT / "tpufhe_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert not offenders, offenders

@@ -1,6 +1,6 @@
-"""The plain versions of kernels K3 (tensor + iNTT) and K4 (relin tail)
-against the XLA composition they replace in tpufhe's pipeline, at N = 1024,
-word for word."""
+"""The plain versions of kernels K3 (tensor + iNTT), K4 (relin tail) and K5
+(rotate tail) against the XLA composition they replace in tpufhe's
+pipeline, at N = 1024, word for word."""
 
 from types import SimpleNamespace
 
@@ -32,12 +32,40 @@ def params():
     return jp, tp
 
 
+@pytest.fixture(scope="module")
+def params4():
+    """BASELINE config 4's moduli shape (4 x 62 bits), for the rotation."""
+    jp = (J.BfvParametersBuilder().set_degree(N).set_plaintext_modulus(65537)
+          .set_moduli_sizes([62] * 4).build())
+    tp = (T.BfvParametersBuilder().set_degree(N).set_plaintext_modulus(65537)
+          .set_moduli_sizes([62] * 4).set_device("cpu").build())
+    return jp, tp
+
+
 def _residues(moduli, lead, seed):
     rng = np.random.default_rng(seed)
     x = np.stack([rng.integers(0, p, lead + (N,), dtype=np.uint64)
                   for p in moduli], axis=-2)
     x.reshape((-1, len(moduli), N))[0] = np.array(moduli, dtype=np.uint64)[:, None] - 1
     return x.astype(np.int64)
+
+
+def _random_key(tctx, seed):
+    """A random (k, k, N) key with its Shoup constants, in the port's form
+    and as tpufhe's lane-folded (value, Shoup) pairs per row."""
+    k = tctx.k
+    key = SimpleNamespace()
+    key.c0 = torch.from_numpy(_residues(tctx.moduli, (k,), seed))
+    key.c1 = torch.from_numpy(_residues(tctx.moduli, (k,), seed + 1))
+    key.c0_shoup = shoup_of(key.c0, tctx.moduli)
+    key.c1_shoup = shoup_of(key.c1, tctx.moduli)
+
+    def lanes(t):
+        return convert.words_to_lanes(t.numpy())
+
+    ksk_c0 = [(lanes(key.c0[i]), lanes(key.c0_shoup[i])) for i in range(k)]
+    ksk_c1 = [(lanes(key.c1[i]), lanes(key.c1_shoup[i])) for i in range(k)]
+    return key, ksk_c0, ksk_c1
 
 
 def test_tensor_intt_plain_matches_tpufhe(params):
@@ -60,20 +88,8 @@ def test_tensor_intt_plain_matches_tpufhe(params):
 def test_relin_tail_plain_matches_tpufhe(params):
     jp, tp = params
     jctx, tctx = jp.context_at_level(0), tp.context_at_level(0)
-    k = tctx.k
     dsc = _residues(tctx.moduli, (3, B), 2)
-
-    key = SimpleNamespace()
-    key.c0 = torch.from_numpy(_residues(tctx.moduli, (k,), 3))
-    key.c1 = torch.from_numpy(_residues(tctx.moduli, (k,), 4))
-    key.c0_shoup = shoup_of(key.c0, tctx.moduli)
-    key.c1_shoup = shoup_of(key.c1, tctx.moduli)
-
-    def lanes(t):
-        return convert.words_to_lanes(t.numpy())
-
-    ksk_c0 = [(lanes(key.c0[i]), lanes(key.c0_shoup[i])) for i in range(k)]
-    ksk_c1 = [(lanes(key.c1[i]), lanes(key.c1_shoup[i])) for i in range(k)]
+    key, ksk_c0, ksk_c1 = _random_key(tctx, 3)
     _, add_c = jpl._ops_for(jctx)
 
     def ref(x):
@@ -85,6 +101,28 @@ def test_relin_tail_plain_matches_tpufhe(params):
 
     want = jax.jit(ref)(convert.words_to_lanes(dsc))
     got0, got1 = tpl.relin_tail_plain(tctx, torch.from_numpy(dsc), key)
+    want = convert.lanes_to_words(np.asarray(want))
+    np.testing.assert_array_equal(want[0], got0.numpy())
+    np.testing.assert_array_equal(want[1], got1.numpy())
+
+
+def test_rotate_tail_plain_matches_tpufhe(params4):
+    """K5's plain version against _key_switch_batched + the add of s0
+    (tpufhe pipeline.py:778-779), at k = 4."""
+    jp, tp = params4
+    jctx, tctx = jp.context_at_level(0), tp.context_at_level(0)
+    s0 = _residues(tctx.moduli, (B,), 5)
+    c2 = _residues(tctx.moduli, (B,), 6)
+    key, ksk_c0, ksk_c1 = _random_key(tctx, 7)
+    _, add_c = jpl._ops_for(jctx)
+
+    def ref(s0, c2):
+        ks0, ks1 = jpl._key_switch_batched(jctx, c2, ksk_c0, ksk_c1)
+        return jnp.stack([add_c(ks0, s0), ks1])
+
+    want = jax.jit(ref)(convert.words_to_lanes(s0), convert.words_to_lanes(c2))
+    got0, got1 = tpl.rotate_tail_plain(tctx, torch.from_numpy(s0),
+                                       torch.from_numpy(c2), key)
     want = convert.lanes_to_words(np.asarray(want))
     np.testing.assert_array_equal(want[0], got0.numpy())
     np.testing.assert_array_equal(want[1], got1.numpy())

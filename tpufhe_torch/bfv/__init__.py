@@ -2,7 +2,15 @@
 
 from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.encoding import Encoding
-from tpufhe_torch.bfv.keys import KeySwitchingKey, RelinearizationKey, SecretKey
+from tpufhe_torch.bfv.keys import (
+    EvaluationKey,
+    EvaluationKeyBuilder,
+    GaloisKey,
+    KeySwitchingKey,
+    RelinearizationKey,
+    SecretKey,
+)
+from tpufhe_torch.bfv.ops import ct_add, ct_sub
 from tpufhe_torch.bfv.parameters import (
     BfvParameters,
     BfvParametersBuilder,
@@ -20,4 +28,9 @@ __all__ = [
     "SecretKey",
     "KeySwitchingKey",
     "RelinearizationKey",
+    "GaloisKey",
+    "EvaluationKey",
+    "EvaluationKeyBuilder",
+    "ct_add",
+    "ct_sub",
 ]

@@ -58,21 +58,51 @@ def secret_key(coeffs: np.ndarray, par):
     return SecretKey(np.asarray(coeffs, dtype=np.int64), par)
 
 
-def relinearization_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
-                        level: int = 0):
-    """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows: each of
-    c0, c0_shoup, c1, c1_shoup is a list (one per decomposition row) of
-    lane-folded arrays, e.g. [np.asarray(p.coeffs) for p in rk.ksk.c0]."""
+def _ksk(par, seed: bytes, c0, c0_shoup, c1, c1_shoup, level: int):
     from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
-    from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
 
     def rows(arrs):
         return torch.from_numpy(
             np.stack([lanes_to_words(a) for a in arrs])).to(par.device)
 
-    ksk = KeySwitchingKey(par, seed, rows(c0), rows(c0_shoup), rows(c1),
-                          rows(c1_shoup), level, level)
-    return RelinearizationKey(ksk)
+    return KeySwitchingKey(par, seed, rows(c0), rows(c0_shoup), rows(c1),
+                           rows(c1_shoup), level, level)
+
+
+def relinearization_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
+                        level: int = 0):
+    """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows: each of
+    c0, c0_shoup, c1, c1_shoup is a list (one per decomposition row) of
+    lane-folded arrays, e.g. [np.asarray(p.coeffs) for p in rk.ksk.c0]."""
+    from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
+
+    return RelinearizationKey(
+        _ksk(par, seed, c0, c0_shoup, c1, c1_shoup, level))
+
+
+def galois_key(par, exponent: int, seed: bytes, c0, c0_shoup, c1, c1_shoup,
+               level: int = 0):
+    """A tpufhe_torch GaloisKey for x -> x^exponent from tpufhe's ksk rows
+    (as for relinearization_key), with ciphertext and key at `level`."""
+    from tpufhe_torch.bfv.keys.galois_key import GaloisKey
+    from tpufhe_torch.ops.rq import SubstitutionExponent
+
+    element = SubstitutionExponent(par.context_at_level(level), exponent)
+    return GaloisKey(element,
+                     _ksk(par, seed, c0, c0_shoup, c1, c1_shoup, level))
+
+
+def evaluation_key(par, keys: dict, level: int = 0):
+    """A tpufhe_torch EvaluationKey from tpufhe's Galois keys: `keys` maps
+    each exponent to the arguments (seed, c0, c0_shoup, c1, c1_shoup) of
+    galois_key. The monomials need no randomness and are rebuilt."""
+    from tpufhe_torch.bfv.keys.evaluation_key import EvaluationKey, monomials
+
+    gk = {e: galois_key(par, e, *args, level=level)
+          for e, args in keys.items()}
+    return EvaluationKey(par, level, level, gk,
+                         EvaluationKey.construct_rot_to_gk_exponent(par),
+                         monomials(par.context_at_level(level)))
 
 
 def ciphertext(par, parts, level: int = 0, seed: bytes | None = None):

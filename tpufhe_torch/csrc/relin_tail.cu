@@ -14,7 +14,8 @@
 // One thread block per (row, limb j), with three shared rows of n words
 // (192 KB at n = 8192): a work row that is forward-transformed in turn for
 // d_0 .. d_{k-1}, c0 and c1, and the two key-switch accumulators. The
-// lifted rows and the accumulators never reach device memory.
+// lifted rows and the accumulators never reach device memory. The digit
+// lift and accumulate loop is keyswitch_device.cuh, shared with K5.
 //
 // Bound on this card: per (row, limb) coefficient it reads 24 bytes of
 // ciphertext and 32 k bytes of key (the key is shared by all rows and
@@ -24,7 +25,7 @@
 // simple design first.
 #include <cuda_runtime.h>
 
-#include "ntt_device.cuh"
+#include "keyswitch_device.cuh"
 
 __global__ void relin_tail_kernel(const u64* __restrict__ dsc,
                                   u64* __restrict__ out, long long plane,
@@ -51,22 +52,8 @@ __global__ void relin_tail_kernel(const u64* __restrict__ dsc,
   const u64* tws = ws + (long long)j * n;
   const u64* c2 = dsc + 2 * plane + row * k * n;  // limb i at c2 + i n
 
-  for (int i = 0; i < k; ++i) {
-    const u64* src = c2 + (long long)i * n;
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      buf[e] = reduce_u64(src[e], br);
-    __syncthreads();
-    ntt_forward_rows(buf, 1, n, logn, tw, tws, p);
-    const long long kofs = ((long long)i * k + j) * n;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      const u64 d = buf[e];  // lazy, < 4p: Shoup takes any u64
-      const u64 t0 = mul_shoup(d, k0[kofs + e], k0s[kofs + e], p);
-      const u64 t1 = mul_shoup(d, k1[kofs + e], k1s[kofs + e], p);
-      acc0[e] = i ? add_mod(acc0[e], t0, p) : t0;
-      acc1[e] = i ? add_mod(acc1[e], t1, p) : t1;
-    }
-    __syncthreads();
-  }
+  keyswitch_accumulate(c2, k, j, n, logn, br, tw, tws, k0, k0s, k1, k1s, buf,
+                       acc0, acc1);
 
   for (int part = 0; part < 2; ++part) {
     const u64* src = dsc + part * plane + blk * n;

@@ -75,3 +75,18 @@ class UnsupportedOperation(FheError):
 class ParametersError(FheError):
     def __init__(self, reason: str):
         super().__init__(f"Parameters error: {reason}")
+
+
+class InvalidCiphertext(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Invalid ciphertext: {reason}")
+
+
+class InvalidGaloisElement(FheError):
+    def __init__(self, element: int, reason: str):
+        super().__init__(f"Invalid Galois element {element}: {reason}")
+
+
+class InvalidRotationStep(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Invalid rotation step: {reason}")

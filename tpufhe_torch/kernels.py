@@ -25,15 +25,20 @@ BUILD = os.path.join(_DIR, "_build")
 
 # kernel name -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "ntt": ("ntt.cu", "tpufhe/ops/pallas/mxu_ntt_kernel.py:319 _mxu4_kernel"),
+    "ntt": ("ntt.cu", "tpufhe/ops/pallas/mxu_ntt_kernel.py:319 _mxu4_kernel"
+                      " and tpufhe/ops/pallas/ntt_kernel.py:109 _ntt_kernel"),
     "rns_scale": ("rns_scale.cu",
                   "tpufhe/ops/pallas/rns_kernel.py:361 _scale_kernel_bc"),
     "tensor_intt": ("tensor_intt.cu",
                     "tpufhe/ops/pallas/mxu_ntt_kernel.py:738 _tensor_intt_kernel"),
     "relin_tail": ("relin_tail.cu",
-                   "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"),
+                   "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"
+                   " (mode relin)"),
+    "rotate_tail": ("rotate_tail.cu",
+                    "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"
+                    " (mode rotate)"),
 }
-HEADERS = ("modarith.cuh", "ntt_device.cuh")
+HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh")
 # Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
 # the NTT-based kernels hold whole rows of N words in it.
 SMEM_BYTES = 232448

@@ -1,5 +1,6 @@
 """Polynomials in R_q[x] = Z_q[x]/(x^N + 1) with RNS coefficients: the
-subset of tpufhe.ops.rq that the multiply + relinearize path needs.
+subset of tpufhe.ops.rq that the multiply + relinearize and the Galois
+rotation paths need.
 
 Coefficients are int64 tensors shaped (..., k, N), one canonical residue
 per word, in power basis or in bit-reversed NTT order; leading dimensions
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch.device import resolve_device
-from tpufhe_torch.errors import InvalidContext
+from tpufhe_torch.errors import InvalidContext, InvalidGaloisElement
 from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
@@ -130,6 +131,47 @@ def lift_bigints(ctx: Context, coeffs: torch.Tensor) -> list:
     mat = coeffs.cpu().numpy()
     return [ctx.rns.lift([int(mat[i, j]) for i in range(ctx.k)])
             for j in range(ctx.degree)]
+
+
+class SubstitutionExponent:
+    """Galois automorphism x -> x^exponent (rq/mod.rs:88-121), as gather
+    tables on the context's device: ``perm_ntt`` for NTT-domain rows,
+    ``perm_power`` and ``sign_power`` (True = negate) for power-basis rows.
+    """
+
+    def __init__(self, ctx: Context, exponent: int):
+        n = ctx.degree
+        exponent = exponent % (2 * n)
+        if exponent % 2 == 0:
+            raise InvalidGaloisElement(
+                exponent, "the exponent should be odd modulo 2 * degree")
+        self.ctx = ctx
+        self.exponent = exponent
+        mask = n - 1
+        bitrev = ntt_mod.bitrev_indices(n)
+        # NTT domain: out[bitrev[j]] = in[bitrev[((e - 1) / 2 + j e) mod n]]
+        power = ((exponent - 1) // 2 + np.arange(n, dtype=np.int64) * exponent)
+        perm_ntt = bitrev[power & mask][bitrev]
+        # power basis: out[(j e) mod n] = (-1)^floor(j e / n) in[j]
+        power = np.arange(n, dtype=np.int64) * exponent
+        src = np.empty(n, dtype=np.int64)
+        src[power & mask] = np.arange(n)
+        sign = np.empty(n, dtype=bool)
+        sign[power & mask] = (power & n) != 0
+        self.perm_ntt = torch.from_numpy(perm_ntt).to(ctx.device)
+        self.perm_power = torch.from_numpy(src).to(ctx.device)
+        self.sign_power = torch.from_numpy(sign).to(ctx.device)
+
+
+def substitute(x: torch.Tensor, exp: SubstitutionExponent,
+               ntt: bool) -> torch.Tensor:
+    """x(X) -> x(X^e) on (..., k, N) rows of exp's context, NTT domain or
+    power basis (tpufhe.ops.rq.Poly.substitute): a gather along the last
+    axis, and for power-basis rows a negation where ``sign_power`` is set."""
+    if ntt:
+        return x[..., exp.perm_ntt]
+    gathered = x[..., exp.perm_power]
+    return torch.where(exp.sign_power, zq.neg(gathered, exp.ctx.mod), gathered)
 
 
 class Scaler:

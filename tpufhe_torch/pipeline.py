@@ -1,6 +1,7 @@
 """End-to-end BFV programs over raw coefficient tensors: the fused
-multiply + relinearize (default HPS strategy), and the encryption and
-decryption cores. The port of the matching parts of tpufhe/pipeline.py.
+multiply + relinearize (default HPS strategy), the Galois rotation, inner
+sum and oblivious expansion, and the encryption and decryption cores. The
+port of the matching parts of tpufhe/pipeline.py.
 
 A mul+relin step runs six kernel launches, in tpufhe's structure
 (pipeline.py:509-569):
@@ -13,8 +14,13 @@ A mul+relin step runs six kernel launches, in tpufhe's structure
 6. K4 relin tail: forward NTT of c0, c1 and the Garner digits of c2,
    key-switch accumulate, and the two adds.
 
+A rotation step (pipeline.py:756-781) gathers both parts by the Galois
+permutation (plain torch, as tpufhe's XLA take), then runs two launches:
+K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
+its Garner digits, key-switch accumulate and the add of the substituted c0.
+
 Tensors are int64 (..., k, N) on the parameters' device; leading dimensions
-are the batch. K3 and K4 sit in this module beside their plain versions.
+are the batch. K3, K4 and K5 sit in this module beside their plain versions.
 """
 
 from __future__ import annotations
@@ -25,9 +31,16 @@ import torch
 
 from tpufhe_torch import kernels
 from tpufhe_torch.bfv.parameters import BfvParameters
+from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.ntt import backward_plain, forward_plain
-from tpufhe_torch.ops.rq import Context, ntt_backward, ntt_forward
+from tpufhe_torch.ops.rq import (
+    Context,
+    SubstitutionExponent,
+    ntt_backward,
+    ntt_forward,
+    substitute,
+)
 
 # ---------------------------------------------------------------------------
 # Key-switch helpers (plain torch glue)
@@ -169,6 +182,65 @@ def relin_tail(ctx: Context, dsc: torch.Tensor, ksk):
 
 
 # ---------------------------------------------------------------------------
+# K5: rotate tail (csrc/rotate_tail.cu)
+# ---------------------------------------------------------------------------
+
+_ROTATE_TAIL_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int] + [ctypes.c_void_p] * 10
+
+
+def rotate_tail_plain(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
+    """NTT-domain s0 and power-basis c2, both (..., k, N) -> NTT-domain
+    (s0 + ks0, ks1): the Garner digits of c2, their forward NTT,
+    _ksk_accumulate and the add (tpufhe pipeline.py:778-779 with
+    _key_switch_batched), the plain version of K5."""
+    mod = ctx.mod
+    digits = _ksk_digits(ctx, c2_pb)
+    ks0, ks1 = _ksk_accumulate(
+        ctx, forward_plain(digits, ctx.tables.omegas, mod), ksk)
+    return zq.add(s0, ks0, mod), ks1
+
+
+def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
+    """Launch K5; returns the two output parts."""
+    kernels.require_cuda_int64("rotate_tail", s0, c2_pb, ksk.c0, ksk.c0_shoup,
+                               ksk.c1, ksk.c1_shoup)
+    k, n = ctx.k, ctx.degree
+    if s0.shape != c2_pb.shape or s0.shape[-2:] != (k, n):
+        raise ValueError(f"rotate_tail: shapes {tuple(s0.shape)} and "
+                         f"{tuple(c2_pb.shape)}, expected (..., {k}, {n})")
+    for t in (ksk.c0, ksk.c0_shoup, ksk.c1, ksk.c1_shoup):
+        if tuple(t.shape) != (k, k, n):
+            raise ValueError(f"rotate_tail: key shape {tuple(t.shape)}, "
+                             f"expected ({k}, {k}, {n})")
+    if 3 * n * 8 > kernels.SMEM_BYTES:
+        raise ValueError(f"rotate_tail: degree {n} does not fit in shared memory")
+    out = torch.empty((2,) + s0.shape, dtype=torch.int64, device=s0.device)
+    rows_k = s0.numel() // n
+    if rows_k == 0:
+        return out[0], out[1]
+    tb = ctx.tables
+    fn = kernels.function("rotate_tail", "tpufhe_rotate_tail", _ROTATE_TAIL_ARGS)
+    kernels.count("rotate_tail")
+    err = fn(kernels.ptr(s0), kernels.ptr(c2_pb), kernels.ptr(out), rows_k, k, n,
+             kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
+             kernels.ptr(tb.omegas), kernels.ptr(tb.omegas_shoup),
+             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+             kernels.ptr(tb.barrett_hi), kernels.stream())
+    kernels.check(err, "rotate_tail")
+    return out[0], out[1]
+
+
+def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
+    if s0.device.type == "cuda":
+        return rotate_tail_cuda(ctx, s0, c2_pb, ksk)
+    if s0.device.type != "cpu":
+        raise ValueError(f"rotate_tail: unsupported device {s0.device}")
+    return rotate_tail_plain(ctx, s0, c2_pb, ksk)
+
+
+# ---------------------------------------------------------------------------
 # Programs
 # ---------------------------------------------------------------------------
 
@@ -230,5 +302,80 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
     def step(a, e_pb, m):
         e = ntt_forward(ctx, e_pb)
         return zq.add(zq.sub(e, zq.mul(a, s, mod), mod), m, mod)
+
+    return step
+
+
+def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
+    """(c0, c1) -> the Galois-rotated ciphertext (galois_key.rs:62-87):
+    substitute both parts, inverse NTT of the substituted c1 (K1), then
+    the key switch and the add of the substituted c0 (K5). Only keys at
+    the ciphertext's level are ported; leveled keys need the switch-down."""
+    if ksk.ciphertext_level != ksk.ksk_level or ksk.ctx_ciphertext is not ctx:
+        raise UnsupportedOperation(
+            "only Galois keys at the ciphertext's level are ported")
+
+    def rot(c0, c1):
+        s0 = substitute(c0, exp, ntt=True)
+        c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
+        return rotate_tail(ctx, s0, c2_pb, ksk)
+
+    return rot
+
+
+def make_rotate(par: BfvParameters, gk, level: int = 0):
+    """(c0, c1) -> Galois rotation of NTT-domain (..., k, N) parts by the
+    key's element: two launches per call, K1 then K5."""
+    return _rotate_step(par.context_at_level(level), gk.element, gk.ksk)
+
+
+def make_inner_sum(par: BfvParameters, ek, level: int = 0):
+    """(c0, c1) -> inner sum: log2(N/2) column rotations then the row
+    rotation, each followed by an add (evaluation_key.rs:56-82)."""
+    if not ek.supports_inner_sum():
+        raise UnsupportedOperation("This key does not support the inner sum")
+    ctx = par.context_at_level(level)
+    n = par.degree()
+    mod = ctx.mod
+    exps = [ek.rot_to_gk_exponent[1 << i] for i in range(n.bit_length() - 2)]
+    rots = [_rotate_step(ctx, ek.gk[e].element, ek.gk[e].ksk)
+            for e in exps + [2 * n - 1]]
+
+    def step(c0, c1):
+        for rot in rots:
+            r0, r1 = rot(c0, c1)
+            c0, c1 = zq.add(c0, r0, mod), zq.add(c1, r1, mod)
+        return c0, c1
+
+    return step
+
+
+def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
+    """Oblivious expansion (Angel et al., evaluation_key.rs:153-193) into
+    2^level_count ciphertexts: at doubling level l all 2^l live ciphertexts
+    rotate in one batched step, and the monomial x^{-2^l} fold is one
+    Shoup multiply. (c0, c1) of shape (B, k, N) -> a pair of
+    (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands."""
+    if not ek.supports_expansion(level_count):
+        raise UnsupportedOperation(
+            "This key does not support expansion at this level")
+    ctx = par.context_at_level(level)
+    n = par.degree()
+    mod = ctx.mod
+    levels = []
+    for l in range(level_count):
+        gk = ek.gk[(n >> l) + 1]
+        mono, mono_shoup = ek.monomials[l]
+        levels.append((_rotate_step(ctx, gk.element, gk.ksk), mono, mono_shoup))
+
+    def step(c0, c1):
+        cur0, cur1 = c0[None], c1[None]
+        for rot, mono, mono_shoup in levels:
+            sub0, sub1 = rot(cur0, cur1)
+            new0 = zq.mul_shoup(zq.sub(cur0, sub0, mod), mono, mono_shoup, mod)
+            new1 = zq.mul_shoup(zq.sub(cur1, sub1, mod), mono, mono_shoup, mod)
+            cur0 = torch.cat([zq.add(cur0, sub0, mod), new0])
+            cur1 = torch.cat([zq.add(cur1, sub1, mod), new1])
+        return cur0, cur1
 
     return step

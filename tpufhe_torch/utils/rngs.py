@@ -1,8 +1,10 @@
 """Deterministic randomness compatible with the reference's PRNG stack.
 
-A copy of the pure-Python branch of tpufhe/utils/rngs.py (the native
-ChaCha sampler is not part of the port yet), so the streams are
-byte-identical to tpufhe's:
+A copy of tpufhe/utils/rngs.py, so the streams are byte-identical to
+tpufhe's. Bulk draws (``fill_bytes`` past the current block,
+``uniform_u64_below``) go through the native sampler of
+``tpufhe_torch.native`` when it is built, else through the same stream in
+pure Python:
 
 - ``ChaCha8Rng``: the ChaCha stream cipher with 8 double-rounds, word-level
   output order and 64-byte blocks as in rand_chacha 0.9.
@@ -19,9 +21,12 @@ generation time, never on the device path.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 
 import numpy as np
+
+from tpufhe_torch import native
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
@@ -100,6 +105,30 @@ class ChaChaRng:
 
     def fill_bytes(self, n: int) -> bytes:
         # rand_core fills from the u32 word stream; whole words are consumed.
+        lib = native.lib()
+        if lib is not None:
+            # drain the current block exactly as the pure path does, then
+            # generate whole blocks natively and one tail block
+            out = bytearray()
+            while len(out) < n and self._pos < len(self._buf):
+                take = min(n - len(out), len(self._buf) - self._pos)
+                out += self._buf[self._pos : self._pos + take]
+                self._pos += take
+                if len(out) < n and self._pos % 4 != 0:
+                    self._pos += 4 - (self._pos % 4)
+            nfull = (n - len(out)) // 64
+            if nfull:
+                buf = ctypes.create_string_buffer(64 * nfull)
+                lib.chacha_blocks(self._key_arr(), self._counter,
+                                  self._stream_u64(), self._rounds, nfull, buf)
+                self._counter += nfull
+                out += buf.raw
+            if len(out) < n:
+                self._refill()
+                rem = n - len(out)
+                out += self._buf[:rem]
+                self._pos = rem
+            return bytes(out)
         out = bytearray()
         while len(out) < n:
             if self._pos >= len(self._buf):
@@ -111,6 +140,36 @@ class ChaChaRng:
             if len(out) < n and self._pos % 4 != 0:
                 self._pos += 4 - (self._pos % 4)
         return bytes(out)
+
+    # -- the native stream-state protocol (native/tpufhe_native.cpp) --
+
+    def _key_arr(self):
+        if not hasattr(self, "_key_c"):
+            self._key_c = (ctypes.c_uint32 * 8)(*self._key)
+        return self._key_c
+
+    def _stream_u64(self) -> int:
+        return self._nonce[0] | (self._nonce[1] << 32)
+
+    def _native_state(self):
+        """(next_block_counter, wordpos 0..16) or None if mid-word."""
+        if self._pos % 4 != 0:
+            return None
+        if self._buf and self._pos < len(self._buf):
+            return self._counter, self._pos // 4
+        return self._counter, 16
+
+    def _adopt_native_state(self, counter: int, wordpos: int, lib):
+        self._counter = int(counter)
+        if wordpos < 16:
+            buf = ctypes.create_string_buffer(64)
+            lib.chacha_blocks(self._key_arr(), self._counter - 1,
+                              self._stream_u64(), self._rounds, 1, buf)
+            self._buf = buf.raw
+            self._pos = wordpos * 4
+        else:
+            self._buf = b""
+            self._pos = 0
 
 
 def ChaCha8Rng(seed: bytes) -> ChaChaRng:
@@ -141,6 +200,20 @@ def uniform_u64_below(rng, bound: int, size: int) -> np.ndarray:
     """
     bound = int(bound)
     assert 0 < bound
+    lib = native.lib()
+    if lib is not None and isinstance(rng, ChaChaRng):
+        st = rng._native_state()
+        if st is not None:
+            counter = ctypes.c_uint64(st[0])
+            wp = ctypes.c_uint32(st[1])
+            out = np.empty(size, dtype=np.uint64)
+            lib.chacha_uniform_u64(
+                rng._key_arr(), rng._stream_u64(), rng._rounds,
+                ctypes.byref(counter), ctypes.byref(wp), bound, size,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            )
+            rng._adopt_native_state(counter.value, wp.value, lib)
+            return out
     thresh = ((1 << 64) - bound) % bound
     out = np.empty(size, dtype=np.uint64)
     for i in range(size):
