@@ -5,28 +5,39 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the five CUDA kernels (one nvcc per source, in parallel)
-   and the native ChaCha8 / CBD sampler (g++); fails if either does not
-   build;
+2. build: compile the seven CUDA kernels (one nvcc per source, in
+   parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
+   does not build;
 3. kernels: each kernel against its plain torch version, compared with
    torch.equal, and both timed with CUDA events: ntt, rns_scale,
    tensor_intt and relin_tail at the shapes of the N = 8192, L = 3 x 62-bit,
-   batch-64 mul+relin; rotate_tail and the rotation's inverse ntt at the
+   batch-64 mul+relin; tensor at the square's shapes, intt_scale at the
+   fused extend's (default and strategy 2), rns_scale and tensor_intt at
+   strategy 2's; rotate_tail and the rotation's inverse ntt at the
    N = 8192, 4 x 62-bit, batch-32 rotation; ntt at N = 16 and 512 (the
    small degrees tpufhe's other NTT kernel serves);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
-   mul+relin (the launch counters of its four kernels must rise), decrypt
-   all 64 and check every slot against (va * vb) mod t, print the noise;
+   mul+relin (the launch counters must read ntt 2, rns_scale 2,
+   tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
+   against (va * vb) mod t, print the noise;
 5. rate: chained batch-64 mul+relin steps timed with CUDA events;
 6. rotation path (N = 8192, 4 x 62-bit, BASELINE config 4): secret key
    and an evaluation key for the inner sum and expansion level 4, encrypt
    32 SIMD and 4 poly ciphertexts; a column rotation by 1 of all 32, the
    inner sum of the first 16 and the expansion of the 4 into 16 each, each
-   run with the launch counters set to 0 just before it (ntt and
-   rotate_tail must rise); every slot of every output is checked after
+   run with the launch counters set to 0 just before it (exact counts of
+   ntt and rotate_tail); every slot of every output is checked after
    decryption, and the noise printed;
 7. rates: chained batch-32 rotations and batch-16 inner sums, timed with
-   CUDA events.
+   CUDA events;
+8. variants on phase 4's keys and ciphertexts: strategy 2 with kP = 1 and
+   2 extension primes, split and with the fused extend, the default
+   strategy with the fused extend, and the square; each run with the
+   counters set to 0 just before it and held to its exact launch counts,
+   every slot of all 64 outputs checked, the noise printed, each fused
+   output torch.equal to its split one, and two chained kP = 2 products
+   decrypted as va * vb * vb;
+9. variant rates: chained batch-64 steps of each variant.
 
 The second-to-last line is {"kernels": [...]}, the last one
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
@@ -59,6 +70,24 @@ EXPAND_LEVEL = 4
 EXPAND_BATCH = 4
 ROT_RATE_STEPS = 64
 SUM_RATE_STEPS = 4
+# phase 8: (name, make_mul_relin options, launches per step)
+MUL_VARIANTS = [
+    ("strategy 2 kP=1 split", {"strategy2_primes": 1},
+     {"ntt": 3, "rns_scale": 3, "tensor_intt": 1, "relin_tail": 1}),
+    ("strategy 2 kP=1 fused", {"strategy2_primes": 1, "ext_fuse": True},
+     {"intt_scale": 2, "ntt": 2, "tensor_intt": 1, "rns_scale": 1,
+      "relin_tail": 1}),
+    ("strategy 2 kP=2 split", {"strategy2_primes": 2},
+     {"ntt": 3, "rns_scale": 3, "tensor_intt": 1, "relin_tail": 1}),
+    ("strategy 2 kP=2 fused", {"strategy2_primes": 2, "ext_fuse": True},
+     {"intt_scale": 2, "ntt": 2, "tensor_intt": 1, "rns_scale": 1,
+      "relin_tail": 1}),
+    ("default fused", {"ext_fuse": True},
+     {"intt_scale": 1, "ntt": 1, "tensor_intt": 1, "rns_scale": 1,
+      "relin_tail": 1}),
+]
+MUL_LAUNCHES = {"ntt": 2, "rns_scale": 2, "tensor_intt": 1, "relin_tail": 1}
+SQUARE_LAUNCHES = {"ntt": 3, "rns_scale": 2, "tensor": 1, "relin_tail": 1}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -100,6 +129,24 @@ def ntt_ops(n: int, inverse: bool) -> int:
     """int32 multiplies of one length-n transform (csrc/ntt_device.cuh)."""
     ops = (n // 2) * int(math.log2(n)) * SHOUP
     return ops + n * SHOUP if inverse else ops
+
+
+def scale_ops(sc, k_in: int, size: int, coeffs: int) -> int:
+    """int32 multiplies of the HPS scaler body on `coeffs` coefficients
+    (csrc/rns_scale_device.cuh)."""
+    # mac_64x128: two low and two high products per input limb
+    per = 2 * k_in * (LO + HI)
+    per_out = 2 * RED128 + SHOUP + k_in * SHOUP
+    if not sc.factor.is_one:
+        # the theta_omega sum, and v * theta_gamma (128 x 128 bits)
+        per += 2 * k_in * (LO + HI) + 4 * (LO + HI)
+        per_out += RED128
+    return coeffs * (per + size * per_out)
+
+
+# int32 multiplies of one K3 / K7 tensor coefficient: two mul_mod and one
+# mul_add_mod
+TENSOR_OPS = 2 * MULMOD + 2 * (LO + HI) + RED128
 
 
 class Bound:
@@ -262,16 +309,6 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
     s_ext = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
     s_down = rand_residues((3, BATCH, k_mul, n), t_mul.p, gen)
 
-    def scale_ops(sc, k_in, size, coeffs):
-        # mac_64x128: two low and two high products per input limb
-        per = 2 * k_in * (LO + HI)
-        per_out = 2 * RED128 + SHOUP + k_in * SHOUP
-        if not sc.factor.is_one:
-            # the theta_omega sum, and v * theta_gamma (128 x 128 bits)
-            per += 2 * k_in * (LO + HI) + 4 * (LO + HI)
-            per_out += RED128
-        return coeffs * (per + size * per_out)
-
     cases["rns_scale"] = [
         (f"extend {tuple(s_ext.shape)} -> {k_mul - k} limbs",
          lambda: ext_rns.scale_cuda(s_ext, k, k_mul - k),
@@ -292,8 +329,7 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
          lambda: pipeline.tensor_intt_cuda(ctx_mul, ext),
          lambda: pipeline.tensor_intt_plain(ctx_mul, ext),
          (7 * BATCH * k_mul * n + 2 * k_mul * n) * 8,
-         BATCH * k_mul * (n * (2 * MULMOD + 2 * (LO + HI) + RED128)
-                          + 3 * ntt_ops(n, True))),
+         BATCH * k_mul * (n * TENSOR_OPS + 3 * ntt_ops(n, True))),
     ]
 
     # K4: relin tail with a random key (values and their Shoup constants)
@@ -311,29 +347,135 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
                       + 2 * ntt_ops(n, False))),
     ]
 
-    records = {}
-    for name, items in cases.items():
-        runs = [run_case(name, label, kfn, pfn, int32_rate, nbytes, ops)
-                for label, kfn, pfn, nbytes, ops in items]
-        bound = Bound(int32_rate)
-        for r in runs:
-            bound.add(r["bytes"], r["int32_muls"])
-        bound_ms, bound_by = bound.result()
-        records[name] = {"ms": sum(r["ms"] for r in runs),
-                         "plain_ms": sum(r["plain_ms"] for r in runs),
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": max(r["max_abs_err"] for r in runs),
-                         "shapes": [r["label"] for r in runs],
-                         "bytes": bound.bytes, "int32_muls": bound.ops}
-        r = records[name]
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}) per mul+relin")
-    return records
+    return {name: run_cases(name, items, int32_rate, "per mul+relin")
+            for name, items in cases.items()}
 
 
-def main_path(par) -> tuple[dict, float, object, tuple]:
-    """Phase 4. Returns (launch counts of the step, seconds, step, inputs)."""
-    from tpufhe_torch import kernels
+def run_cases(name, items, int32_rate, per: str) -> dict:
+    """run_case over (label, kernel_fn, plain_fn, bytes, ops) items whose
+    launches make up one step; returns the step's record (times and bound
+    summed over the items)."""
+    runs = [run_case(name, label, kfn, pfn, int32_rate, nbytes, ops)
+            for label, kfn, pfn, nbytes, ops in items]
+    bound = Bound(int32_rate)
+    for r in runs:
+        bound.add(r["bytes"], r["int32_muls"])
+    bound_ms, bound_by = bound.result()
+    rec = {"ms": sum(r["ms"] for r in runs),
+           "plain_ms": sum(r["plain_ms"] for r in runs),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "max_abs_err": max(r["max_abs_err"] for r in runs),
+           "shapes": [r["label"] for r in runs],
+           "bytes": bound.bytes, "int32_muls": bound.ops}
+    log(f"  {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}) {per}")
+    return rec
+
+
+def check_variant_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3, the kernels of strategy 2, the fused extend and the square
+    at their program shapes (N = 8192, L = 3, batch 64): tensor (K7) on the
+    square's (a0, a1, a0, a1), intt_scale (K8) at the default fused extend
+    and at the kP = 2 fused extend (lhs and rhs), rns_scale at the kP = 2
+    split step's three scalings and tensor_intt at kP = 1 and 2. Returns
+    {label: record of one step's launches}."""
+    from tpufhe_torch import pipeline
+    from tpufhe_torch.ops import ntt as ntt_mod
+    from tpufhe_torch.ops.intt_scale import intt_scale_cuda, intt_scale_plain
+
+    ctx = par.context_at_level(0)
+    k, n = ctx.k, ctx.degree
+    t_ctx = ctx.tables
+    mb = pipeline.mul_basis(par)
+    s2 = {kp: pipeline.mul_basis(par, strategy2_primes=kp) for kp in (1, 2)}
+    out = {}
+
+    # K7: the square's tensor over the 7-limb basis
+    t_mul = mb.ctx_mul.tables
+    k_mul = mb.ctx_mul.k
+    a0 = rand_residues((BATCH, k_mul, n), t_mul.p, gen)
+    a1 = rand_residues((BATCH, k_mul, n), t_mul.p, gen)
+    out["tensor"] = run_cases("tensor", [
+        (f"square (a0, a1, a0, a1) {tuple(a0.shape)} -> (3, {BATCH}, {k_mul}, {n})",
+         lambda: pipeline.tensor_cuda(mb.ctx_mul, a0, a1, a0, a1),
+         lambda: pipeline.tensor_plain(mb.ctx_mul, a0, a1, a0, a1),
+         (5 * BATCH * k_mul * n + 3 * k_mul) * 8,
+         BATCH * k_mul * n * TENSOR_OPS)], int32_rate, "per square")
+
+    # K8: the fused extends; each row reads k limbs and the k inverse
+    # twiddle tables, and writes `size` limbs
+    def k8(label, scaler, x, start, size):
+        rows = x.numel() // (k * n)
+        return (f"{label} {tuple(x.shape)} -> {size} limbs",
+                lambda: intt_scale_cuda(ctx, scaler, x, start, size),
+                lambda: intt_scale_plain(ctx, scaler, x, start, size),
+                (x.numel() + rows * size * n + 2 * k * n) * 8,
+                rows * k * ntt_ops(n, True) + scale_ops(scaler, k, size, rows * n))
+
+    def split_ms(pairs) -> float:
+        """Time of the K1 inverse + K2 launches that K8 replaces."""
+        def run():
+            for scaler, x, start, size in pairs:
+                scaler.scale_cuda(ntt_mod.ntt_cuda(x, t_ctx, slice(None), True),
+                                  start, size)
+        return time_ms(run, 20)
+
+    x4 = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
+    out["intt_scale"] = run_cases("intt_scale", [
+        k8("default extend", mb.ext, x4, k, k_mul - k)], int32_rate,
+        "per default fused mul+relin")
+    out["intt_scale"]["split_ms"] = split_ms([(mb.ext, x4, k, k_mul - k)])
+    k2 = s2[2].ctx_mul.k
+    out["intt_scale_s2"] = run_cases("intt_scale", [
+        k8("kP=2 lhs extend", s2[2].ext, x4[:2], k, k2 - k),
+        k8("kP=2 rhs P/q", s2[2].rhs, x4[2:], 0, k2)], int32_rate,
+        "per kP=2 fused mul+relin")
+    out["intt_scale_s2"]["split_ms"] = split_ms(
+        [(s2[2].ext, x4[:2], k, k2 - k), (s2[2].rhs, x4[2:], 0, k2)])
+    for key in ("intt_scale", "intt_scale_s2"):
+        log(f"  {key}: the split K1 inverse + K2 launches it replaces "
+            f"{out[key]['split_ms']:.4f} ms")
+
+    # K2 at the kP = 2 split step: lhs extend, rhs P/q, t/P down-scale
+    t2 = s2[2].ctx_mul.tables
+    x_pb = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
+    down = rand_residues((3, BATCH, k2, n), t2.p, gen)
+    lhs, rhs = x_pb[:2], x_pb[2:]
+    out["rns_scale_s2"] = run_cases("rns_scale", [
+        (f"kP=2 lhs extend {tuple(lhs.shape)} -> {k2 - k} limbs",
+         lambda: s2[2].ext.scale_cuda(lhs, k, k2 - k),
+         lambda: s2[2].ext.scale_plain(lhs, k, k2 - k),
+         (lhs.numel() + 2 * BATCH * (k2 - k) * n) * 8,
+         scale_ops(s2[2].ext, k, k2 - k, 2 * BATCH * n)),
+        (f"kP=2 rhs P/q {tuple(rhs.shape)} -> {k2} limbs",
+         lambda: s2[2].rhs.scale_cuda(rhs, 0, k2),
+         lambda: s2[2].rhs.scale_plain(rhs, 0, k2),
+         (rhs.numel() + 2 * BATCH * k2 * n) * 8,
+         scale_ops(s2[2].rhs, k, k2, 2 * BATCH * n)),
+        (f"kP=2 down t/P {tuple(down.shape)} -> {k} limbs",
+         lambda: s2[2].down.scale_cuda(down, 0, k),
+         lambda: s2[2].down.scale_plain(down, 0, k),
+         (down.numel() + 3 * BATCH * k * n) * 8,
+         scale_ops(s2[2].down, k2, k, 3 * BATCH * n)),
+    ], int32_rate, "per kP=2 split mul+relin")
+
+    # K3 over the strategy-2 bases
+    for kp in (1, 2):
+        cm = s2[kp].ctx_mul
+        ext = rand_residues((4, BATCH, cm.k, n), cm.tables.p, gen)
+        out[f"tensor_intt_s2_kp{kp}"] = run_cases("tensor_intt", [
+            (f"kP={kp} {tuple(ext.shape)} -> (3, {BATCH}, {cm.k}, {n})",
+             lambda cm=cm, ext=ext: pipeline.tensor_intt_cuda(cm, ext),
+             lambda cm=cm, ext=ext: pipeline.tensor_intt_plain(cm, ext),
+             (7 * BATCH * cm.k * n + 2 * cm.k * n) * 8,
+             BATCH * cm.k * (n * TENSOR_OPS + 3 * ntt_ops(n, True)))],
+            int32_rate, f"per kP={kp} mul+relin")
+    return out
+
+
+def main_path(par) -> SimpleNamespace:
+    """Phase 4. Returns the keys, values, inputs, the step, its launch
+    counts and output."""
     from tpufhe_torch.bfv import (
         Ciphertext,
         Encoding,
@@ -367,18 +509,8 @@ def main_path(par) -> tuple[dict, float, object, tuple]:
                       for cs in (cas, cbs) for i in (0, 1))
 
     step = make_mul_relin(par, rk)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    c0, c1 = step(a0, a1, b0, b1)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    log(f"  mul+relin of {BATCH} pairs (first call) {secs:.3f} s, "
-        f"launches {launches}")
-    for name in ("ntt", "rns_scale", "tensor_intt", "relin_tail"):
-        if launches[name] == 0:
-            raise SystemExit(f"kernel {name} was not launched on the main path")
+    (c0, c1), launches = run_program(f"mul+relin of {BATCH} pairs", step,
+                                     (a0, a1, b0, b1), MUL_LAUNCHES)
 
     ctx = par.context_at_level(0)
     if tuple(c0.shape) != (BATCH, ctx.k, par.degree()):
@@ -403,13 +535,15 @@ def main_path(par) -> tuple[dict, float, object, tuple]:
     log(f"  noise: fresh {fresh} bits, product {prod} bits")
     if prod >= sum(MODULI_SIZES) - 18:
         raise SystemExit("product noise leaves no budget")
-    return launches, secs, step, (a0, a1, b0, b1)
+    return SimpleNamespace(sk=sk, rk=rk, va=va, vb=vb,
+                           inputs=(a0, a1, b0, b1), step=step,
+                           launches=launches, product=(c0, c1))
 
 
-def run_program(name: str, fn, *args):
+def run_program(name: str, fn, args, expected: dict):
     """Run one program with the launch counters set to 0 just before it;
-    fails unless ntt and rotate_tail both launched. Returns (outputs,
-    launches, seconds)."""
+    fails unless the counts equal `expected` (kernel -> launches; the
+    others 0). Returns (outputs, launches)."""
     from tpufhe_torch import kernels
 
     torch.cuda.synchronize()
@@ -420,10 +554,9 @@ def run_program(name: str, fn, *args):
     secs = time.perf_counter() - t0
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     log(f"  {name} (first call) {secs:.3f} s, launches {launches}")
-    for kernel in ("ntt", "rotate_tail"):
-        if not launches.get(kernel):
-            raise SystemExit(f"kernel {kernel} was not launched by {name}")
-    return out, launches, secs
+    if launches != expected:
+        raise SystemExit(f"{name}: launches {launches}, expected {expected}")
+    return out, launches
 
 
 def check_outputs(name, par, sk, c0, c1, want, encoding) -> None:
@@ -487,8 +620,9 @@ def rotation_path(par) -> dict:
 
     out = {}
     rot = make_rotate(par, ek.gk[ek.rot_to_gk_exponent[1]])
-    (c0, c1), launches, _ = run_program(
-        f"rotate columns by 1, batch {ROT_BATCH}", rot, s0, s1)
+    (c0, c1), launches = run_program(
+        f"rotate columns by 1, batch {ROT_BATCH}", rot, (s0, s1),
+        {"ntt": 1, "rotate_tail": 1})
     h = n // 2
     want = np.concatenate([np.roll(simd[:, :h], -1, axis=1),
                            np.roll(simd[:, h:], -1, axis=1)], axis=1)
@@ -497,16 +631,19 @@ def rotation_path(par) -> dict:
 
     inner = make_inner_sum(par, ek)
     a0, a1 = s0[:SUM_BATCH].contiguous(), s1[:SUM_BATCH].contiguous()
-    (c0, c1), launches, _ = run_program(
-        f"inner sum, batch {SUM_BATCH}", inner, a0, a1)
+    rots = n.bit_length() - 1  # log2(N / 2) column rotations + the row one
+    (c0, c1), launches = run_program(
+        f"inner sum, batch {SUM_BATCH}", inner, (a0, a1),
+        {"ntt": rots, "rotate_tail": rots})
     sums = simd[:SUM_BATCH].astype(object).sum(axis=1) % t
     want = np.repeat(sums.astype(np.uint64)[:, None], n, axis=1)
     check_outputs("inner sum", par, sk, c0, c1, want, Encoding.simd())
     out["inner_sum"] = (launches, inner, (a0, a1))
 
     expand = make_expand(par, ek, EXPAND_LEVEL)
-    (c0, c1), launches, _ = run_program(
-        f"expand to {size}, batch {EXPAND_BATCH}", expand, p0, p1)
+    (c0, c1), launches = run_program(
+        f"expand to {size}, batch {EXPAND_BATCH}", expand, (p0, p1),
+        {"ntt": EXPAND_LEVEL, "rotate_tail": EXPAND_LEVEL})
     if tuple(c0.shape) != (size, EXPAND_BATCH, par.context_at_level(0).k, n):
         raise SystemExit(f"expansion: unexpected shape {tuple(c0.shape)}")
     want = np.zeros((size, EXPAND_BATCH, n), dtype=np.uint64)
@@ -514,6 +651,48 @@ def rotation_path(par) -> dict:
                      ).astype(np.uint64)
     check_outputs("expansion", par, sk, c0, c1, want, Encoding.poly())
     out["expand"] = (launches, expand, (p0, p1))
+    return out
+
+
+def variants_path(par, mp: SimpleNamespace) -> dict:
+    """Phase 8 on phase 4's keys and ciphertexts. Returns {variant: (step,
+    launches)}; a mul+relin step takes (a0, a1, b0, b1), the square's
+    (a0, a1)."""
+    from tpufhe_torch.bfv import Encoding
+    from tpufhe_torch.pipeline import make_mul_relin, make_square_relin
+
+    t = par.plaintext.value
+    a0, a1, b0, b1 = mp.inputs
+    va, vb = mp.va.astype(object), mp.vb.astype(object)
+    want_mul = (va * vb % t).astype(np.uint64)
+    out, products = {}, {}
+    for name, options, expected in MUL_VARIANTS:
+        step = make_mul_relin(par, mp.rk, **options)
+        (c0, c1), launches = run_program(name, step, mp.inputs, expected)
+        check_outputs(name, par, mp.sk, c0, c1, want_mul, Encoding.simd())
+        out[name] = (step, launches)
+        products[name] = (c0, c1)
+    products["default split"] = mp.product
+    for fused, split in (("strategy 2 kP=1 fused", "strategy 2 kP=1 split"),
+                         ("strategy 2 kP=2 fused", "strategy 2 kP=2 split"),
+                         ("default fused", "default split")):
+        equal = all(torch.equal(x, y)
+                    for x, y in zip(products[fused], products[split]))
+        log(f"  {fused} equal to {split}: {equal}")
+        if not equal:
+            raise SystemExit(f"{fused} differs from {split}")
+
+    square = make_square_relin(par, mp.rk)
+    (c0, c1), launches = run_program("square", square, (a0, a1),
+                                     SQUARE_LAUNCHES)
+    check_outputs("square", par, mp.sk, c0, c1,
+                  (va * va % t).astype(np.uint64), Encoding.simd())
+    out["square"] = (square, launches)
+
+    step = out["strategy 2 kP=2 split"][0]
+    c0, c1 = step(*products["strategy 2 kP=2 split"], b0, b1)
+    check_outputs("strategy 2 kP=2, two chained products", par, mp.sk, c0, c1,
+                  (va * vb * vb % t).astype(np.uint64), Encoding.simd())
     return out
 
 
@@ -560,12 +739,16 @@ def main() -> int:
     side = check_side_kernels(par_rot, gen, int32_rate)
     records["rotate_tail"] = dict(side["rotate_tail"],
                                   shapes=[side["rotate_tail"]["label"]])
+    variant_records = check_variant_kernels(par, gen, int32_rate)
+    records["tensor"] = variant_records["tensor"]
+    records["intt_scale"] = variant_records["intt_scale"]
 
     log("phase 4: main path")
-    launches, first_s, step, inputs = main_path(par)
+    mp = main_path(par)
 
     log("phase 5: rate")
-    a0, a1, b0, b1 = inputs
+    step = mp.step
+    a0, a1, b0, b1 = mp.inputs
 
     def chained():
         c0, c1 = a0, a1
@@ -609,14 +792,43 @@ def main() -> int:
         f"{sum_ms:.3f} ms/step, {SUM_BATCH / sum_ms * 1e3:.1f} inner sums/s "
         f"on {card}")
 
+    log("phase 8: strategy 2, fused extend and square")
+    variants = variants_path(par, mp)
+
+    log("phase 9: variant rates")
+    for name, (vstep, _) in variants.items():
+        def chained_variant(vstep=vstep, square=name == "square"):
+            c0, c1 = a0, a1
+            for _ in range(RATE_STEPS):
+                c0, c1 = vstep(c0, c1) if square else vstep(c0, c1, b0, b1)
+            return c0
+
+        v_ms = time_ms(chained_variant, 1) / RATE_STEPS
+        log(f"  {RATE_STEPS} chained {name} steps at batch {BATCH}: "
+            f"{v_ms:.3f} ms/step, {BATCH / v_ms * 1e3:.1f} ops/s on {card}")
+
+    # the program whose run gives each kernel's launches
+    runs = {"rotate_tail": ("rotation", rot_launches),
+            "tensor": ("square", variants["square"][1]),
+            "intt_scale": ("default fused mul+relin",
+                           variants["default fused"][1])}
+    other_shapes = {
+        "ntt": {label: side[label] for label in side
+                if label.startswith("ntt_")},
+        "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"]},
+        "tensor_intt": {f"strategy2_kp{kp}":
+                        variant_records[f"tensor_intt_s2_kp{kp}"]
+                        for kp in (1, 2)},
+        "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"]},
+    }
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
         r = records[name]
+        program, launches = runs.get(name, ("mul+relin", mp.launches))
         entry = {
             "name": name, "route": "cuda",
             "source": f"tpufhe_torch/csrc/{src}", "replaces": replaces,
-            "launches": (rot_launches if name == "rotate_tail"
-                         else launches)[name],
+            "launches": launches[name], "program": program,
             "shape": r["shapes"], "equal": True,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -624,11 +836,15 @@ def main() -> int:
             "library_ms": None, "bytes": r["bytes"],
             "int32_muls": r["int32_muls"],
         }
-        if name == "ntt":
+        if name in other_shapes:
             entry["other_shapes"] = {
-                label: {k: side[label][k] for k in
-                        ("label", "ms", "plain_ms", "bound_ms", "bound_by")}
-                for label in side if label.startswith("ntt_")}
+                label: {k: rec[k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by", "split_ms")
+                        if k in rec}
+                | {"shape": rec.get("shapes", rec.get("label"))}
+                for label, rec in other_shapes[name].items()}
+        if "split_ms" in r:
+            entry["split_ms"] = r["split_ms"]
         out.append(entry)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

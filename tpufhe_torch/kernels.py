@@ -37,8 +37,13 @@ KERNELS = {
     "rotate_tail": ("rotate_tail.cu",
                     "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"
                     " (mode rotate)"),
+    "tensor": ("tensor.cu",
+               "tpufhe/ops/pallas/tensor_kernel.py:57 _tensor_kernel"),
+    "intt_scale": ("intt_scale.cu",
+                   "tpufhe/ops/pallas/intt_scale_kernel.py:59 _intt_scale_kernel"),
 }
-HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh")
+HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh",
+           "rns_scale_device.cuh")
 # Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
 # the NTT-based kernels hold whole rows of N words in it.
 SMEM_BYTES = 232448

@@ -169,8 +169,9 @@ class RnsScaler:
         self._k_out = k_out
         self._tables: dict = {}
 
-    def _table(self, device) -> torch.Tensor:
-        """The kernel's constant table (layout in csrc/rns_scale.cu)."""
+    def table(self, device) -> torch.Tensor:
+        """The constant table of K2 and K8 (layout in
+        csrc/rns_scale_device.cuh)."""
         key = str(device)
         if key not in self._tables:
             words = [self.theta_gamma & _M64, self.theta_gamma >> 64]
@@ -186,16 +187,23 @@ class RnsScaler:
             self._tables[key] = torch.from_numpy(arr).to(device)
         return self._tables[key]
 
-    def scale(self, x: torch.Tensor, starting_index: int = 0,
-              size: int | None = None) -> torch.Tensor:
-        """(..., k_in, n) canonical residues -> (..., size, n) in the `to`
-        basis, rows starting_index .. starting_index + size."""
+    def check_rows(self, x: torch.Tensor, starting_index: int,
+                   size: int | None) -> int:
+        """The number of output rows (all from starting_index on when size
+        is None); raises unless x has k_in limbs and the rows exist."""
         size = self._k_out - starting_index if size is None else size
         if x.shape[-2] != self._k_in:
             raise ValueError(f"rns_scale: {x.shape[-2]} input limbs, "
                              f"expected {self._k_in}")
         if not 0 <= starting_index <= starting_index + size <= self._k_out:
             raise ValueError("rns_scale: output rows out of range")
+        return size
+
+    def scale(self, x: torch.Tensor, starting_index: int = 0,
+              size: int | None = None) -> torch.Tensor:
+        """(..., k_in, n) canonical residues -> (..., size, n) in the `to`
+        basis, rows starting_index .. starting_index + size."""
+        size = self.check_rows(x, starting_index, size)
         if x.device.type == "cuda":
             return self.scale_cuda(x, starting_index, size)
         if x.device.type != "cpu":
@@ -215,7 +223,7 @@ class RnsScaler:
         if total == 0 or size == 0:
             return y
         fn = kernels.function("rns_scale", "tpufhe_rns_scale", _SCALE_ARGS)
-        tab = self._table(x.device)
+        tab = self.table(x.device)
         kernels.count("rns_scale")
         err = fn(kernels.ptr(x), kernels.ptr(y), total, n, self._k_in,
                  kernels.ptr(tab), starting_index, size,

@@ -1,9 +1,10 @@
 """End-to-end BFV programs over raw coefficient tensors: the fused
-multiply + relinearize (default HPS strategy), the Galois rotation, inner
-sum and oblivious expansion, and the encryption and decryption cores. The
-port of the matching parts of tpufhe/pipeline.py.
+multiply + relinearize (default HPS strategy and strategy 2), the square +
+relinearize, the Galois rotation, inner sum and oblivious expansion, and
+the encryption and decryption cores. The port of the matching parts of
+tpufhe/pipeline.py.
 
-A mul+relin step runs six kernel launches, in tpufhe's structure
+A default mul+relin step runs six kernel launches, in tpufhe's structure
 (pipeline.py:509-569):
 
 1. K1 inverse NTT of the four input parts (k limbs);
@@ -14,18 +15,27 @@ A mul+relin step runs six kernel launches, in tpufhe's structure
 6. K4 relin tail: forward NTT of c0, c1 and the Garner digits of c2,
    key-switch accumulate, and the two adds.
 
+With ``ext_fuse=True`` K8 (ops/intt_scale.py) replaces each extend's K1
+inverse + K2 pair. Strategy 2 (``strategy2_primes=kP``) extends the lhs
+exactly into q + P (P the product of kP new 62-bit primes) and scales the
+rhs by P/q into the whole basis, then down-scales the tensor by t/P
+(pipeline.py:446-471, 522-538). The square (pipeline.py:584-621) extends
+one ciphertext and forms its tensor with K7 before the inverse NTT.
+
 A rotation step (pipeline.py:756-781) gathers both parts by the Galois
 permutation (plain torch, as tpufhe's XLA take), then runs two launches:
 K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
 its Garner digits, key-switch accumulate and the add of the substituted c0.
 
 Tensors are int64 (..., k, N) on the parameters' device; leading dimensions
-are the batch. K3, K4 and K5 sit in this module beside their plain versions.
+are the batch. K3, K4, K5 and K7 sit in this module beside their plain
+versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -33,14 +43,18 @@ from tpufhe_torch import kernels
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
+from tpufhe_torch.ops.intt_scale import intt_scale, intt_scale_fits
 from tpufhe_torch.ops.ntt import backward_plain, forward_plain
+from tpufhe_torch.ops.rns import RnsScaler, ScalingFactor
 from tpufhe_torch.ops.rq import (
     Context,
+    Scaler,
     SubstitutionExponent,
     ntt_backward,
     ntt_forward,
     substitute,
 )
+from tpufhe_torch.utils.primes import generate_prime
 
 # ---------------------------------------------------------------------------
 # Key-switch helpers (plain torch glue)
@@ -70,6 +84,55 @@ def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
 
 
 # ---------------------------------------------------------------------------
+# K7: tensor product (csrc/tensor.cu)
+# ---------------------------------------------------------------------------
+
+_TENSOR_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int] + [ctypes.c_void_p] * 4
+
+
+def tensor_plain(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
+    """NTT-domain (..., k, N) parts -> stacked (3, ..., k, N)
+    (a0 b0, a0 b1 + a1 b0, a1 b1), the plain version of K7."""
+    mod = ctx.mod
+    c0 = zq.mul(a0, b0, mod)
+    c1 = zq.add(zq.mul(a0, b1, mod), zq.mul(a1, b0, mod), mod)
+    c2 = zq.mul(a1, b1, mod)
+    return torch.stack([c0, c1, c2])
+
+
+def tensor_cuda(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
+    """Launch K7."""
+    kernels.require_cuda_int64("tensor", a0, a1, b0, b1)
+    k, n = ctx.k, ctx.degree
+    shapes = [tuple(t.shape) for t in (a0, a1, b0, b1)]
+    if shapes[0][-2:] != (k, n) or len(set(shapes)) != 1:
+        raise ValueError(f"tensor: shapes {shapes}, expected four of "
+                         f"(..., {k}, {n})")
+    out = torch.empty((3,) + a0.shape, dtype=torch.int64, device=a0.device)
+    rows_k = a0.numel() // n
+    if rows_k == 0:
+        return out
+    tb = ctx.tables
+    fn = kernels.function("tensor", "tpufhe_tensor", _TENSOR_ARGS)
+    kernels.count("tensor")
+    err = fn(kernels.ptr(a0), kernels.ptr(a1), kernels.ptr(b0), kernels.ptr(b1),
+             kernels.ptr(out), rows_k, k, n, kernels.ptr(tb.p),
+             kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi),
+             kernels.stream())
+    kernels.check(err, "tensor")
+    return out
+
+
+def tensor(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
+    if a0.device.type == "cuda":
+        return tensor_cuda(ctx, a0, a1, b0, b1)
+    if a0.device.type != "cpu":
+        raise ValueError(f"tensor: unsupported device {a0.device}")
+    return tensor_plain(ctx, a0, a1, b0, b1)
+
+
+# ---------------------------------------------------------------------------
 # K3: tensor product + inverse NTT (csrc/tensor_intt.cu)
 # ---------------------------------------------------------------------------
 
@@ -80,13 +143,9 @@ _TENSOR_INTT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
 def tensor_intt_plain(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     """(4, ..., k, N) NTT-domain (a0, a1, b0, b1) -> (3, ..., k, N) power
     basis (a0 b0, a0 b1 + a1 b0, a1 b1), the plain version of K3."""
-    mod = ctx_mul.mod
     tb = ctx_mul.tables
-    a0, a1, b0, b1 = ext[0], ext[1], ext[2], ext[3]
-    c0 = zq.mul(a0, b0, mod)
-    c1 = zq.add(zq.mul(a0, b1, mod), zq.mul(a1, b0, mod), mod)
-    c2 = zq.mul(a1, b1, mod)
-    return backward_plain(torch.stack([c0, c1, c2]), tb.zetas_inv, tb.ninv, mod)
+    return backward_plain(tensor_plain(ctx_mul, *ext), tb.zetas_inv, tb.ninv,
+                          ctx_mul.mod)
 
 
 def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
@@ -245,31 +304,125 @@ def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
 # ---------------------------------------------------------------------------
 
 
-def make_mul_relin(par: BfvParameters, rk, level: int = 0):
-    """(a0, a1, b0, b1) -> (c0, c1): multiply + relinearize with the default
-    HPS strategy (ops/mod.rs:259-341 then key_switching_key.rs:214-241).
-    Inputs are NTT-domain (..., k, N) parts of two ciphertext batches."""
+@dataclass(frozen=True)
+class MulBasis:
+    """The multiplication basis of one level and the scalers of a product:
+    ``ext`` q -> the basis's new limbs (factor 1), ``rhs`` q -> the whole
+    basis (factor P/q, strategy 2 only) and ``down`` the basis -> q
+    (factor t/q, or t/P for strategy 2)."""
+
+    ctx_mul: Context
+    ext: RnsScaler
+    rhs: RnsScaler | None
+    down: RnsScaler
+
+
+def mul_basis(par: BfvParameters, level: int = 0,
+              strategy2_primes: int | None = None) -> MulBasis:
+    """The default basis of mul_params, or strategy 2's q + P with P the
+    product of `strategy2_primes` 62-bit primes == 1 mod 2N taken downward
+    from 2^62, skipping the ciphertext moduli (tpufhe pipeline.py:458-471)."""
     ctx_lvl = par.context_level_at(level)
     ctx = ctx_lvl.poly_context
+    if strategy2_primes is None:
+        mp = ctx_lvl.mul_params()
+        assert mp.extender.number_common_moduli == ctx.k
+        return MulBasis(mp.to_ctx, mp.extender.rns_scaler, None,
+                        mp.down_scaler.rns_scaler)
+    basis = list(ctx.moduli)
+    upper = 1 << 62
+    p_prod = 1
+    while len(basis) != ctx.k + strategy2_primes:
+        upper = generate_prime(62, 2 * par.degree(), upper)
+        if upper not in basis:
+            basis.append(upper)
+            p_prod *= upper
+    ctx_mul = Context(tuple(basis), par.degree(), ctx.device)
+    return MulBasis(
+        ctx_mul,
+        Scaler(ctx, ctx_mul, ScalingFactor.one()).rns_scaler,
+        Scaler(ctx, ctx_mul, ScalingFactor(p_prod, ctx.modulus())).rns_scaler,
+        Scaler(ctx_mul, ctx,
+               ScalingFactor(par.plaintext.value, p_prod)).rns_scaler)
+
+
+def make_mul_relin(par: BfvParameters, rk, level: int = 0,
+                   strategy2_primes: int | None = None,
+                   ext_fuse: bool = False):
+    """(a0, a1, b0, b1) -> (c0, c1): multiply + relinearize
+    (ops/mod.rs:259-341 then key_switching_key.rs:214-241). Inputs are
+    NTT-domain (..., k, N) parts of two ciphertext batches.
+
+    strategy2_primes=kP selects the second HPS strategy of eprint 2021/204
+    over q + P (see mul_basis). ext_fuse=True runs each extend as one K8
+    launch; it raises UnsupportedOperation where intt_scale_fits is false.
+    Launches per step: default 6 (ntt 2, rns_scale 2, tensor_intt 1,
+    relin_tail 1), fused 5; strategy 2 split 8 (ntt 3, rns_scale 3), fused
+    7 (intt_scale 2, ntt 2, rns_scale 1)."""
+    ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
-    mp = ctx_lvl.mul_params()
-    ctx_mul = mp.extender.to_ctx
-    ext_rns = mp.extender.rns_scaler
-    down_rns = mp.down_scaler.rns_scaler
-    assert mp.extender.number_common_moduli == ctx.k
+    mb = mul_basis(par, level, strategy2_primes)
+    ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
+    if ext_fuse and not intt_scale_fits(k, ctx.degree):
+        raise UnsupportedOperation(
+            f"the fused extend does not take {k} limbs of degree {ctx.degree}")
+
+    def new_limbs(x, x_pb):
+        """The extend's new limbs k .. k_mul of x in the NTT domain, from
+        the power basis x_pb unless the extend is fused."""
+        if ext_fuse:
+            rows = intt_scale(ctx, mb.ext, x, k, k_mul - k)
+        else:
+            rows = mb.ext.scale(x_pb, starting_index=k, size=k_mul - k)
+        return ntt_forward(ctx_mul, rows, limb_slice=slice(k, k_mul))
 
     def step(a0, a1, b0, b1):
         x = torch.stack([a0, a1, b0, b1])  # (4, ..., k, N)
+        x_pb = None if ext_fuse else ntt_backward(ctx, x)
         # extend to the multiplication basis (ops/mod.rs:307-317)
-        x_pb = ntt_backward(ctx, x)
-        new_rows = ext_rns.scale(x_pb, starting_index=k, size=k_mul - k)
+        if mb.rhs is None:
+            ext = torch.cat([x, new_limbs(x, x_pb)], dim=-2)
+        else:
+            # strategy 2: the lhs extends exactly, the rhs is scaled by P/q
+            # into every limb of the basis
+            lhs_pb = None if x_pb is None else x_pb[:2]
+            lhs = torch.cat([x[:2], new_limbs(x[:2], lhs_pb)], dim=-2)
+            if ext_fuse:
+                rhs = intt_scale(ctx, mb.rhs, x[2:], 0, k_mul)
+            else:
+                rhs = mb.rhs.scale(x_pb[2:], starting_index=0, size=k_mul)
+            ext = torch.cat([lhs, ntt_forward(ctx_mul, rhs)])
+        # tensor product + inverse NTT, then the down-scale
+        t_pb = tensor_intt(ctx_mul, ext)
+        dsc = mb.down.scale(t_pb, starting_index=0, size=k)
+        return relin_tail(ctx, dsc, ksk)
+
+    return step
+
+
+def make_square_relin(par: BfvParameters, rk, level: int = 0):
+    """(a0, a1) -> (c0, c1): square + relinearize (tpufhe
+    pipeline.py:584-621) in seven launches: K1 inverse of (a0, a1), K2
+    extend, K1 forward of the new limbs, K7 on (a0, a1, a0, a1), K1 inverse
+    of the three parts over k_mul, K2 down-scale, then the K4 tail (the
+    function of tpufhe's forward NTT + accumulate + adds there)."""
+    ctx = par.context_at_level(level)
+    ksk = rk.ksk
+    assert ksk.ciphertext_level == level and ksk.ksk_level == level
+    mb = mul_basis(par, level)
+    ctx_mul = mb.ctx_mul
+    k, k_mul = ctx.k, ctx_mul.k
+
+    def step(a0, a1):
+        x = torch.stack([a0, a1])
+        new_rows = mb.ext.scale(ntt_backward(ctx, x), starting_index=k,
+                                size=k_mul - k)
         new_rows = ntt_forward(ctx_mul, new_rows, limb_slice=slice(k, k_mul))
         ext = torch.cat([x, new_rows], dim=-2)
-        # tensor product + inverse NTT, then the t/q down-scale
-        t_pb = tensor_intt(ctx_mul, ext)
-        dsc = down_rns.scale(t_pb, starting_index=0, size=k)
+        t = tensor(ctx_mul, ext[0], ext[1], ext[0], ext[1])
+        dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
         return relin_tail(ctx, dsc, ksk)
 
     return step
