@@ -5,7 +5,7 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the seven CUDA kernels (one nvcc per source, in
+2. build: compile the eight CUDA kernels (one nvcc per source, in
    parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
    does not build;
 3. kernels: each kernel against its plain torch version, compared with
@@ -15,7 +15,10 @@ Phases, in order; any failure exits nonzero before the last line:
    fused extend's (default and strategy 2), rns_scale and tensor_intt at
    strategy 2's; rotate_tail and the rotation's inverse ntt at the
    N = 8192, 4 x 62-bit, batch-32 rotation; ntt at N = 16 and 512 (the
-   small degrees tpufhe's other NTT kernel serves);
+   small degrees tpufhe's other NTT kernel serves); ntt32 at the four
+   transforms of the narrow N = 8192, 7 x 30-bit, batch-64 mul+relin, at
+   the narrow rotation's two and at N = 512, and rns_scale on its int32
+   rows (extend 7 -> 9 new limbs, down-scale 16 -> 7);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -37,10 +40,20 @@ Phases, in order; any failure exits nonzero before the last line:
    every slot of all 64 outputs checked, the noise printed, each fused
    output torch.equal to its split one, and two chained kP = 2 products
    decrypted as va * vb * vb;
-9. variant rates: chained batch-64 steps of each variant.
+9. variant rates: chained batch-64 steps of each variant;
+10. narrow (w30) path (seed 2028): N = 8192, moduli 7 x 30-bit, t = 65537,
+    int32 rows; keygen (sk, rk, the inner sum's 13 Galois keys), 128 SIMD
+    encryptions, the encryption core (ntt32 1) and the decryption core on
+    64 ciphertexts (ntt32 1, rns_scale 1), then mul+relin and the square
+    at batch 64 (ntt32 4, rns_scale 2 each), a column rotation by 1 at
+    batch 32 (ntt32 2) and the inner sum at batch 16 (ntt32 26), each run
+    with the counters set to 0 just before it and held to exactly those
+    counts (no wide kernel), every slot of every output checked;
+11. narrow rates: chained steps of the four narrow programs, with the
+    kernels' and the glue's share of a mul+relin and a rotation.
 
-The second-to-last line is {"kernels": [...]}, the last one
-{"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
+The second-to-last line is {"kernels": [...]} (eight entries), the last
+one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -88,6 +101,11 @@ MUL_VARIANTS = [
 ]
 MUL_LAUNCHES = {"ntt": 2, "rns_scale": 2, "tensor_intt": 1, "relin_tail": 1}
 SQUARE_LAUNCHES = {"ntt": 3, "rns_scale": 2, "tensor": 1, "relin_tail": 1}
+# narrow (w30) path: every modulus below 2^30, int32 rows, K9 and K2 only
+NARROW_MODULI_SIZES = [30] * 7
+NARROW_SEED = SEED + 2
+NARROW_MUL_LAUNCHES = {"ntt32": 4, "rns_scale": 2}
+NARROW_ROT_LAUNCHES = {"ntt32": 2}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -125,10 +143,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ntt_ops(n: int, inverse: bool) -> int:
-    """int32 multiplies of one length-n transform (csrc/ntt_device.cuh)."""
-    ops = (n // 2) * int(math.log2(n)) * SHOUP
-    return ops + n * SHOUP if inverse else ops
+def ntt_ops(n: int, inverse: bool, shoup: int = SHOUP) -> int:
+    """int32 multiplies of one length-n transform (csrc/ntt_device.cuh):
+    one Shoup product per butterfly, and per word for the n^{-1} fold."""
+    ops = (n // 2) * int(math.log2(n)) * shoup
+    return ops + n * shoup if inverse else ops
+
+
+# a narrow (w30) Shoup product: one high and two low 32-bit products
+SHOUP32 = 3
 
 
 def scale_ops(sc, k_in: int, size: int, coeffs: int) -> int:
@@ -169,11 +192,12 @@ class Bound:
 
 
 def rand_residues(shape, moduli: torch.Tensor, gen) -> torch.Tensor:
-    """Canonical residues for (..., k, n): row j below moduli[j]; every
-    first row along the leading axes is all (p - 1)."""
+    """Canonical residues for (..., k, n) of the moduli's word type (int64,
+    or int32 for a narrow context): row j below moduli[j]; every first row
+    along the leading axes is all (p - 1)."""
     x = torch.randint(0, 2 ** 62, shape, dtype=torch.int64,
                       device=moduli.device, generator=gen)
-    x = torch.remainder(x, moduli[:, None])
+    x = torch.remainder(x, moduli[:, None].long()).to(moduli.dtype)
     x.view(-1, *shape[-2:])[0] = moduli[:, None] - 1
     return x
 
@@ -473,6 +497,88 @@ def check_variant_kernels(par, gen, int32_rate: float) -> dict:
     return out
 
 
+def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3, the narrow (w30) path's kernels at its shapes (N = 8192,
+    7 x 30-bit, batch 64, int32 rows): K9 at the four transforms of a
+    mul+relin step (the extend's inverse over the 4 parts, the forward of
+    the 9 new limbs with limb_slice 7..16, the inverse of the 3 tensor
+    parts over the 16-limb basis, the tail's forward of 2 + 7 stacked
+    parts), at a rotation's two (batch 32) and at N = 512, where tpufhe
+    runs its K9; K2 on int32 rows at the extend (7 -> 9 new limbs) and the
+    down-scale (16 -> 7). Returns {label: record}."""
+    from tpufhe_torch.bfv import BfvParametersBuilder
+    from tpufhe_torch.ops import ntt as ntt_mod
+    from tpufhe_torch.ops.rq import Context
+
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n = ctx.k, ctx_mul.k, ctx.degree
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+
+    def k9(label, x, tables, sl, inverse):
+        k_sel, nn = x.shape[-2:]
+        if inverse:
+            pfn = (lambda: ntt_mod.backward32_plain(
+                x, tables.zetas_inv[sl], tables.ninv[sl], tables.p[sl]))
+        else:
+            pfn = (lambda: ntt_mod.forward32_plain(
+                x, tables.omegas[sl], tables.p[sl]))
+        direction = "inverse" if inverse else "forward"
+        return (f"{direction} {label} {tuple(x.shape)}",
+                lambda: ntt_mod.ntt32_cuda(x, tables, sl, inverse), pfn,
+                2 * x.numel() * 4 + 2 * k_sel * nn * 4,
+                x.numel() // nn * ntt_ops(nn, inverse, SHOUP32))
+
+    full, new = slice(None), slice(k, k_mul)
+    out = {}
+    out["ntt32"] = run_cases("ntt32", [
+        k9("extend", rand_residues((4, BATCH, k, n), t_ctx.p, gen), t_ctx,
+           full, True),
+        k9(f"new limbs {k}..{k_mul}",
+           rand_residues((4, BATCH, k_mul - k, n), t_mul.p[new], gen), t_mul,
+           new, False),
+        k9("tensor parts", rand_residues((3, BATCH, k_mul, n), t_mul.p, gen),
+           t_mul, full, True),
+        k9("tail", rand_residues((2 + k, BATCH, k, n), t_ctx.p, gen), t_ctx,
+           full, False),
+    ], int32_rate, "per narrow mul+relin")
+    out["ntt32_rotation"] = run_cases("ntt32", [
+        k9("rotation c1", rand_residues((ROT_BATCH, k, n), t_ctx.p, gen),
+           t_ctx, full, True),
+        k9("rotation digits", rand_residues((k, ROT_BATCH, k, n), t_ctx.p, gen),
+           t_ctx, full, False),
+    ], int32_rate, "per narrow rotation")
+    moduli = BfvParametersBuilder.generate_moduli([30] * 3, 512)
+    t512 = Context(moduli, 512, narrow=True).tables
+    for inverse in (False, True):
+        x = rand_residues((4, 3, 512), t512.p, gen)
+        label, kfn, pfn, nbytes, ops = k9("N = 512", x, t512, full, inverse)
+        out[f"ntt32_512_{'inverse' if inverse else 'forward'}"] = run_case(
+            "ntt32", label, kfn, pfn, int32_rate, nbytes, ops)
+
+    ext, down = mp.extender.rns_scaler, mp.down_scaler.rns_scaler
+    s_ext = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
+    s_down = rand_residues((3, BATCH, k_mul, n), t_mul.p, gen)
+    out["rns_scale_int32"] = run_cases("rns_scale", [
+        (f"int32 extend {tuple(s_ext.shape)} -> {k_mul - k} limbs",
+         lambda: ext.scale_cuda(s_ext, k, k_mul - k),
+         lambda: ext.scale_plain(s_ext, k, k_mul - k),
+         (s_ext.numel() + 4 * BATCH * (k_mul - k) * n) * 4,
+         scale_ops(ext, k, k_mul - k, 4 * BATCH * n)),
+        (f"int32 down {tuple(s_down.shape)} -> {k} limbs",
+         lambda: down.scale_cuda(s_down, 0, k),
+         lambda: down.scale_plain(s_down, 0, k),
+         (s_down.numel() + 3 * BATCH * k * n) * 4,
+         scale_ops(down, k_mul, k, 3 * BATCH * n)),
+    ], int32_rate, "per narrow mul+relin")
+    for label in ("ntt32_512_forward", "ntt32_512_inverse"):
+        r = out[label]
+        log(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return out
+
+
 def main_path(par) -> SimpleNamespace:
     """Phase 4. Returns the keys, values, inputs, the step, its launch
     counts and output."""
@@ -696,6 +802,149 @@ def variants_path(par, mp: SimpleNamespace) -> dict:
     return out
 
 
+def narrow_path(par) -> dict:
+    """Phase 10, the narrow (w30) path: keygen (sk, rk and the inner sum's
+    Galois keys), 128 SIMD encryptions, the encryption and decryption
+    programs, then mul+relin and the square at batch 64, a column rotation
+    by 1 at batch 32 and the inner sum at batch 16. Each program runs with
+    the launch counters set to 0 just before it and must read its exact
+    counts (ntt32 and rns_scale only, no wide kernel); every slot of every
+    output is checked after decryption. Returns {program: (step, inputs,
+    launches)}."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.ops.rq import from_i64_coeffs, random_from_seed
+    from tpufhe_torch.pipeline import (
+        make_decrypt_phase,
+        make_encrypt_with_seed_expansion,
+        make_inner_sum,
+        make_mul_relin,
+        make_rotate,
+        make_square_relin,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+    from tpufhe_torch.utils.sampling import sample_vec_cbd
+
+    t, n = par.plaintext.value, par.degree()
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    log(f"  moduli {list(ctx.moduli)}, multiplication basis {mp.to_ctx.k} "
+        f"limbs, plaintext context "
+        f"{par.context_level_at(0).cipher_plain_context.plaintext_context.k} "
+        f"limbs, rows {ctx.dtype}")
+    rng = ChaCha8Rng(seed_from_u64(NARROW_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng)
+    ek = EvaluationKeyBuilder(sk).enable_inner_sum().build(rng)
+    torch.cuda.synchronize()
+    log(f"  keygen (sk + rk + {len(ek.gk)} Galois keys) "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    vals = np.random.default_rng(NARROW_SEED)
+    va = vals.integers(0, t, (BATCH, n), dtype=np.uint64)
+    vb = vals.integers(0, t, (BATCH, n), dtype=np.uint64)
+    t0 = time.perf_counter()
+    cas = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par), rng)
+           for v in va]
+    cbs = [sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par), rng)
+           for v in vb]
+    torch.cuda.synchronize()
+    log(f"  SIMD encode + encrypt {2 * BATCH} ciphertexts "
+        f"{time.perf_counter() - t0:.2f} s, noise fresh "
+        f"{sk.measure_noise(cas[0])} bits")
+    a0, a1, b0, b1 = (torch.stack([c[i] for c in cs])
+                      for cs in (cas, cbs) for i in (0, 1))
+    if a0.dtype != torch.int32:
+        raise SystemExit(f"narrow ciphertexts hold {a0.dtype}, not int32")
+
+    # the encryption core on fresh inputs, as SecretKey.encrypt_poly draws them
+    m = Plaintext.try_encode(va[0], Encoding.simd(), par).to_poly()
+    a = random_from_seed(ctx, rng.fill_bytes(32))
+    e = from_i64_coeffs(sample_vec_cbd(n, par.variance, rng), ctx)
+    b, _ = run_program("narrow encrypt", make_encrypt_with_seed_expansion(
+        par, sk), (a, e, m), {"ntt32": 1})
+    check_outputs("narrow encrypt", par, sk, b[None], a[None], va[:1],
+                  Encoding.simd())
+    # the decryption core on all 64 fresh ciphertexts at once
+    d, _ = run_program(f"narrow decrypt phase, batch {BATCH}",
+                       make_decrypt_phase(par, sk), (a0, a1),
+                       {"ntt32": 1, "rns_scale": 1})
+    q0 = par.moduli[0]
+    rows = ((d[:, 0].cpu().numpy().astype(np.uint64) + np.uint64(t))
+            % np.uint64(q0)) % np.uint64(t)
+    bad = sum(int((Plaintext(par, row, None, 0).try_decode(Encoding.simd())
+                   != want).sum()) for row, want in zip(rows, va))
+    log(f"  narrow decrypt phase: {BATCH} ciphertexts, wrong slots {bad}")
+    if bad:
+        raise SystemExit(f"narrow decrypt phase: {bad} slots wrong")
+
+    va_o, vb_o = va.astype(object), vb.astype(object)
+    h = n // 2
+    rot_in = (a0[:ROT_BATCH].contiguous(), a1[:ROT_BATCH].contiguous())
+    sum_in = (a0[:SUM_BATCH].contiguous(), a1[:SUM_BATCH].contiguous())
+    sums = (va_o[:SUM_BATCH].sum(axis=1) % t).astype(np.uint64)
+    rots = n.bit_length() - 1  # log2(N / 2) column rotations + the row one
+    cases = [
+        ("mul_relin", f"narrow mul+relin of {BATCH} pairs",
+         make_mul_relin(par, rk), (a0, a1, b0, b1), NARROW_MUL_LAUNCHES,
+         (va_o * vb_o % t).astype(np.uint64)),
+        ("square", f"narrow square of {BATCH}", make_square_relin(par, rk),
+         (a0, a1), NARROW_MUL_LAUNCHES, (va_o * va_o % t).astype(np.uint64)),
+        ("rotate", f"narrow rotate columns by 1, batch {ROT_BATCH}",
+         make_rotate(par, ek.gk[ek.rot_to_gk_exponent[1]]), rot_in,
+         NARROW_ROT_LAUNCHES,
+         np.concatenate([np.roll(va[:ROT_BATCH, :h], -1, axis=1),
+                         np.roll(va[:ROT_BATCH, h:], -1, axis=1)], axis=1)),
+        ("inner_sum", f"narrow inner sum, batch {SUM_BATCH}",
+         make_inner_sum(par, ek), sum_in,
+         {"ntt32": 2 * rots}, np.repeat(sums[:, None], n, axis=1)),
+    ]
+    out = {}
+    for key, name, step, inputs, expected, want in cases:
+        (c0, c1), launches = run_program(name, step, inputs, expected)
+        if (tuple(c0.shape) != (len(inputs[0]), ctx.k, n)
+                or c0.dtype != torch.int32):
+            raise SystemExit(f"{name}: output {tuple(c0.shape)} {c0.dtype}")
+        check_outputs(name, par, sk, c0, c1, want, Encoding.simd())
+        out[key] = (step, inputs, launches)
+    return out
+
+
+def narrow_rates(programs: dict, records: dict, card: str) -> dict:
+    """Phase 11: chained steps of each narrow program timed with CUDA events,
+    with the kernels' share of a mul+relin and a rotation step (their
+    phase-3 times) and the glue's (the rest). Returns {program: ms}."""
+    steps = {"mul_relin": RATE_STEPS, "square": RATE_STEPS,
+             "rotate": ROT_RATE_STEPS, "inner_sum": SUM_RATE_STEPS}
+    kernel_ms = {
+        "mul_relin": records["ntt32"]["ms"] + records["rns_scale_int32"]["ms"],
+        "rotate": records["ntt32_rotation"]["ms"]}
+    out = {}
+    for name, (step, inputs, _) in programs.items():
+        def chained(step=step, inputs=inputs, reps=steps[name]):
+            c0, c1 = inputs[:2]
+            for _ in range(reps):
+                c0, c1 = step(c0, c1, *inputs[2:])
+            return c0
+
+        ms = time_ms(chained, 1) / steps[name]
+        out[name] = ms
+        split = ""
+        if name in kernel_ms:
+            split = (f", kernels {kernel_ms[name]:.3f} ms, glue "
+                     f"{ms - kernel_ms[name]:.3f} ms")
+        log(f"  {steps[name]} chained narrow {name} steps at batch "
+            f"{len(inputs[0])}: {ms:.3f} ms/step, "
+            f"{len(inputs[0]) / ms * 1e3:.1f} ops/s{split} on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -732,6 +981,11 @@ def main() -> int:
     par_rot = (BfvParametersBuilder().set_degree(DEGREE)
                .set_plaintext_modulus(PLAINTEXT)
                .set_moduli_sizes(ROT_MODULI_SIZES).build())
+    par_w30 = (BfvParametersBuilder().set_degree(DEGREE)
+               .set_plaintext_modulus(PLAINTEXT)
+               .set_moduli_sizes(NARROW_MODULI_SIZES).build())
+    if not par_w30.context_at_level(0).narrow:
+        raise SystemExit("7 x 30-bit parameters did not select the narrow mode")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
@@ -742,6 +996,8 @@ def main() -> int:
     variant_records = check_variant_kernels(par, gen, int32_rate)
     records["tensor"] = variant_records["tensor"]
     records["intt_scale"] = variant_records["intt_scale"]
+    narrow_records = check_narrow_kernels(par_w30, gen, int32_rate)
+    records["ntt32"] = narrow_records["ntt32"]
 
     log("phase 4: main path")
     mp = main_path(par)
@@ -807,19 +1063,29 @@ def main() -> int:
         log(f"  {RATE_STEPS} chained {name} steps at batch {BATCH}: "
             f"{v_ms:.3f} ms/step, {BATCH / v_ms * 1e3:.1f} ops/s on {card}")
 
+    log(f"phase 10: narrow (w30) path, N = {DEGREE}, 7 x 30-bit")
+    narrow = narrow_path(par_w30)
+
+    log("phase 11: narrow rates")
+    narrow_rates(narrow, narrow_records, card)
+
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
             "tensor": ("square", variants["square"][1]),
             "intt_scale": ("default fused mul+relin",
-                           variants["default fused"][1])}
+                           variants["default fused"][1]),
+            "ntt32": ("narrow mul+relin", narrow["mul_relin"][2])}
     other_shapes = {
         "ntt": {label: side[label] for label in side
                 if label.startswith("ntt_")},
-        "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"]},
+        "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"],
+                      "narrow_int32": narrow_records["rns_scale_int32"]},
         "tensor_intt": {f"strategy2_kp{kp}":
                         variant_records[f"tensor_intt_s2_kp{kp}"]
                         for kp in (1, 2)},
         "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"]},
+        "ntt32": {label: narrow_records[label] for label in
+                  ("ntt32_rotation", "ntt32_512_forward", "ntt32_512_inverse")},
     }
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():

@@ -5,7 +5,8 @@ tpufhe's EvaluationKey and EvaluationKeyBuilder).
 The oblivious expansion is Angel et al. (eprint 2019/1483): log-depth
 doubling with Galois exponents (n >> l) + 1 and monomials x^{-2^l}
 (evaluation_key.rs:153-193). Only keys at the ciphertext's level are
-ported (see galois_key.py).
+ported (see galois_key.py), and the expansion only for wide contexts:
+narrow (w30) keys serve rotations and the inner sum.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from tpufhe_torch.errors import (
     ParametersError,
     UnsupportedOperation,
 )
-from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.rq import from_i64_coeffs, ntt_forward
+
+EXPANSION_NARROW = ("the oblivious expansion of narrow (w30) ciphertexts is "
+                    "not ported yet")
 
 
 class EvaluationKey:
@@ -99,7 +102,9 @@ class EvaluationKey:
         if not self.supports_expansion(level):
             raise UnsupportedOperation(
                 "This key does not support expansion at this level")
-        mod = self.par.context_at_level(ct.level).mod
+        ctx = self.par.context_at_level(ct.level)
+        if ctx.narrow:
+            raise UnsupportedOperation(EXPANSION_NARROW)
         out = [ct] + [None] * ((1 << level) - 1)
         for l in range(level):
             mono, mono_shoup = self.monomials[l]
@@ -112,7 +117,7 @@ class EvaluationKey:
                     target = ct_sub(out[i], sub)
                     out[j] = Ciphertext(
                         target.par,
-                        [zq.mul_shoup(p, mono, mono_shoup, mod)
+                        [ctx.mul_shoup(p, mono, mono_shoup)
                          for p in target.c],
                         target.level)
                 out[i] = ct_add(out[i], sub)
@@ -126,7 +131,10 @@ class EvaluationKey:
 
 def monomials(ctx) -> list:
     """x^{-2^l} for l < log2 N in the NTT domain of ctx, each as (values,
-    Shoup constants), both (k, N)."""
+    Shoup constants), both (k, N). Empty for a narrow context, where the
+    expansion is not ported."""
+    if ctx.narrow:
+        return []
     n = ctx.degree
     out = []
     for l in range(n.bit_length() - 1):

@@ -3,9 +3,10 @@
 
 c1_i are seed-chained uniform polynomials; c0_i = e_i - c1_i s + garner_i
 from over the key context. Both are kept in the NTT domain as (rows, k, N)
-int64 tensors beside their Shoup constants (floor(v 2^64 / p), stored by
-bit pattern), which the relin-tail kernel consumes. The single-modulus
-digit decomposition (k == 1) is not ported yet.
+tensors of the context's word type beside their Shoup constants
+(floor(v 2^64 / p), or floor(v 2^32 / p) for a narrow context, stored by
+bit pattern), which the key-switch accumulate consumes. The
+single-modulus digit decomposition (k == 1) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch.errors import InvalidContext, TooFewValues, UnsupportedOperation
-from tpufhe_torch.ops import zq
+from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.rns import RnsContext
 from tpufhe_torch.ops.rq import (
     from_i64_coeffs,
@@ -27,8 +28,13 @@ from tpufhe_torch.utils.sampling import sample_vec_cbd
 
 
 def shoup_of(x: torch.Tensor, moduli) -> torch.Tensor:
-    """Shoup constants of canonical (..., k, N) residues, same device."""
-    arr = zq.shoup_array(x.cpu().numpy().astype(np.uint64), moduli)
+    """Shoup constants of canonical (..., k, N) residues, same device and
+    word type: floor(v 2^64 / p) for int64 rows, floor(v 2^32 / p) for the
+    int32 rows of a narrow context (tpufhe's shoup32)."""
+    vals = x.cpu().numpy()
+    if x.dtype == torch.int32:
+        return torch.from_numpy(zq32.shoup_array(vals, moduli)).to(x.device)
+    arr = zq.shoup_array(vals.astype(np.uint64), moduli)
     return torch.from_numpy(zq.as_int64(arr)).to(x.device)
 
 
@@ -80,15 +86,14 @@ class KeySwitchingKey:
         size = c1.shape[0]
         if size == 0:
             raise TooFewValues(0, 1)
-        mod = ctx.mod
         garner = RnsContext(list(sk.par.moduli[:size])).garner
-        a_s = ntt_backward(ctx, zq.mul(c1, sk.s_ntt(ctx)[None], mod))
+        a_s = ntt_backward(ctx, ctx.mul(c1, sk.s_ntt(ctx)[None]))
         e = torch.stack([
             from_i64_coeffs(sample_vec_cbd(ctx.degree, sk.par.variance, rng), ctx)
             for _ in range(size)])
-        b = zq.sub(e, a_s, mod)
+        b = ctx.sub(e, a_s)
         scal = torch.tensor([[g % m for m in ctx.moduli] for g in garner],
-                            dtype=torch.int64, device=ctx.device)[..., None]
-        b = zq.add(b, zq.mul(from_poly[None], scal, mod), mod)
+                            dtype=ctx.dtype, device=ctx.device)[..., None]
+        b = ctx.add(b, ctx.mul(from_poly[None], scal))
         return ntt_forward(ctx, b)
 

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
 from tpufhe_torch.errors import UnsupportedOperation
-from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.rq import ntt_backward
 
 
@@ -25,6 +24,6 @@ class RelinearizationKey:
             raise UnsupportedOperation(
                 "These parameters do not support key switching")
         s = sk.s_ntt(ctx)
-        s2 = ntt_backward(ctx, zq.mul(s, s, ctx.mod))
+        s2 = ntt_backward(ctx, ctx.mul(s, s))
         ksk = KeySwitchingKey.new(sk, s2, ciphertext_level, key_level, rng)
         return RelinearizationKey(ksk)

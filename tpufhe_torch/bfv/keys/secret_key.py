@@ -17,7 +17,6 @@ from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.bfv.plaintext import Plaintext
 from tpufhe_torch.errors import ContextMismatch, UnsupportedOperation
-from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.rq import (
     from_i64_coeffs,
     lift_bigints,
@@ -97,14 +96,13 @@ class SecretKey:
         pt = self.try_decrypt(ct)
         m = pt.to_poly()
         ctx = self.par.context_at_level(ct.level)
-        mod = ctx.mod
         s = self.s_ntt(ctx)
         si = s
         c = ct[0]
         for i in range(1, len(ct)):
-            c = zq.add(c, zq.mul(ct[i], si, mod), mod)
-            si = zq.mul(si, s, mod)
-        c = ntt_backward(ctx, zq.sub(c, m, mod))
+            c = ctx.add(c, ctx.mul(ct[i], si))
+            si = ctx.mul(si, s)
+        c = ntt_backward(ctx, ctx.sub(c, m))
         q = ctx.modulus()
         noise = 0
         for coeff in lift_bigints(ctx, c):

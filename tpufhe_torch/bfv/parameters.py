@@ -3,11 +3,12 @@
 The port of tpufhe/bfv/parameters.py (fhe/src/bfv/parameters.rs):
 BfvParametersBuilder validates the degree and moduli, generates NTT-friendly primes
 from sizes, builds the per-level contexts with delta = lift((-t)^{-1} mod q),
-q mod t and the t/q decryption scaler, the extended 62-bit multiplication
-basis with each level's extender and down-scaler, and the SEAL batch-encoder
-permutation. Everything here is host-side precomputation with exact Python
-ints; `device` says where the contexts keep their tables and where every
-entry point built on these parameters runs.
+q mod t and the t/q decryption scaler, the extended multiplication basis
+(62-bit primes, or 30-bit ones for a narrow set whose moduli are all below
+2^30) with each level's extender and down-scaler, and the SEAL
+batch-encoder permutation. Everything here is host-side precomputation
+with exact Python ints; `device` says where the contexts keep their tables
+and where every entry point built on these parameters runs.
 """
 
 from __future__ import annotations
@@ -214,11 +215,10 @@ class BfvParametersBuilder:
             else list(self._moduli)
         )
         moduli_sizes = [m.bit_length() for m in moduli]
-        if all(m < (1 << 30) for m in moduli):
-            # tpufhe switches such sets to its single-lane w30 mode, whose
-            # multiplication basis differs; that mode is not ported yet
-            raise ParametersError("parameter sets with every modulus below "
-                                  "2^30 (w30 mode) are not supported yet")
+        # sets with every modulus below 2^30 use the narrow (w30) mode end
+        # to end: int32 rows, kernel K9 and ops/zq32.py; the SIMD context
+        # over t stays wide, as in tpufhe
+        narrow = all(m < (1 << 30) for m in moduli)
 
         # plaintext context: enough moduli so product > t by >= 60 bits
         t_bits = t.bit_length()
@@ -229,7 +229,8 @@ class BfvParametersBuilder:
             if acc >= t_bits + 60:
                 break
         count = min(max(count, 1), len(moduli))
-        plaintext_context = Context(tuple(moduli[:count]), degree, device)
+        plaintext_context = Context(tuple(moduli[:count]), degree, device,
+                                    narrow)
 
         # plaintext-space NTT for SIMD (None when t does not support it)
         try:
@@ -240,7 +241,7 @@ class BfvParametersBuilder:
         nodes = []
         for lvl in range(len(moduli)):
             level_moduli = tuple(moduli[: len(moduli) - lvl])
-            cipher_ctx = Context(level_moduli, degree, device)
+            cipher_ctx = Context(level_moduli, degree, device, narrow)
             delta_rests = []
             for m in level_moduli:
                 q = Modulus(m)
@@ -251,18 +252,23 @@ class BfvParametersBuilder:
             rns = cipher_ctx.rns
             delta_int = rns.lift(delta_rests)
             delta = torch.tensor([delta_int % m for m in level_moduli],
-                                 dtype=torch.int64, device=device)[:, None]
+                                 dtype=cipher_ctx.dtype, device=device)[:, None]
             scaler = Scaler(cipher_ctx, plaintext_context,
                             ScalingFactor(t, rns.product))
             cp = CipherPlainContext(plaintext_context, cipher_ctx, delta,
                                     rns.product % t, (t + 1) >> 1, scaler)
             nodes.append(ContextLevel(cipher_ctx, cp, lvl))
 
-        # extended basis for multiplication (parameters.rs:586-593)
-        ext_size = 62
+        # extended basis for multiplication (parameters.rs:586-593); its
+        # primes match the mode (62-bit, or 30-bit and more of them when
+        # narrow), so the multiplication context stays in the same
+        # representation
+        ext_size = 30 if narrow else 62
         extended_basis: list[int] = []
         upper_bound = 1 << ext_size
-        while len(extended_basis) != len(moduli) + 1:
+        n_ext_target = (-((-(sum(moduli_sizes) + 60)) // ext_size) + 1
+                        if narrow else len(moduli) + 1)
+        while len(extended_basis) != n_ext_target:
             upper_bound = generate_prime(ext_size, 2 * degree, upper_bound)
             if upper_bound not in extended_basis and upper_bound not in moduli:
                 extended_basis.append(upper_bound)
@@ -275,7 +281,7 @@ class BfvParametersBuilder:
                 mul_moduli = tuple(
                     moduli[: len(moduli_sizes) - i] + extended_basis[:n_extra]
                 )
-                mul_ctx = Context(mul_moduli, degree, device)
+                mul_ctx = Context(mul_moduli, degree, device, narrow)
                 return MultiplicationParameters(
                     extender=Scaler(node.poly_context, mul_ctx,
                                     ScalingFactor.one()),

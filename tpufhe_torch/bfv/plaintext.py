@@ -48,7 +48,7 @@ class Plaintext:
                        dtype=np.uint64)
         ctx = ctx_lvl.poly_context
         m = ntt_forward(ctx, from_u64_coeffs(m_v, ctx))
-        return zq.mul(m, cp.delta, ctx.mod)
+        return ctx.mul(m, cp.delta)
 
     @staticmethod
     def try_encode(values, encoding: Encoding, par: BfvParameters) -> "Plaintext":

@@ -2,10 +2,13 @@
 
 tpufhe keeps residues as lane-folded uint32 (lo, hi) planes shaped
 (..., k, 2, N/128, 128) (or (..., k, 2, 1, N) when N is not a multiple of
-128), because TPU lanes are 32-bit. tpufhe_torch keeps one int64 word per
-residue, (..., k, N). These functions convert between the two, and build
-tpufhe_torch key and ciphertext objects from the arrays of tpufhe's, so that
-both packages can be fed the same keys.
+128), because TPU lanes are 32-bit, and the residues of a narrow (w30)
+context as one plane, (..., k, 1, S, L). tpufhe_torch keeps one word per
+residue, (..., k, N): int64, or int32 for a narrow context. These
+functions convert between the two, and build tpufhe_torch key and
+ciphertext objects from the arrays of tpufhe's, so that both packages can
+be fed the same keys; a narrow key's Shoup arrays (shoup32) convert the
+same way.
 """
 
 from __future__ import annotations
@@ -24,20 +27,29 @@ def _lane_shape(n: int) -> tuple:
 
 def lanes_to_words(arr: np.ndarray) -> np.ndarray:
     """uint32 (..., 2, S, L) lane-folded pairs -> int64 (..., N) words
-    (the bit pattern of the uint64 value)."""
+    (the bit pattern of the uint64 value); a narrow single plane
+    (..., 1, S, L) -> int32 (..., N) words (the bit pattern of the uint32
+    value)."""
     arr = np.asarray(arr, dtype=np.uint32)
     flat = arr.reshape(arr.shape[:-2] + (arr.shape[-2] * arr.shape[-1],))
+    if flat.shape[-2] == 1:
+        return np.array(flat[..., 0, :]).view(np.int32)
     lo = flat[..., 0, :].astype(np.uint64)
     hi = flat[..., 1, :].astype(np.uint64)
     return as_int64(lo | (hi << np.uint64(32)))
 
 
 def words_to_lanes(words: np.ndarray) -> np.ndarray:
-    """int64 or uint64 (..., N) words -> uint32 (..., 2, S, L) pairs."""
-    u = np.ascontiguousarray(words).view(np.uint64)
-    lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    hi = (u >> np.uint64(32)).astype(np.uint32)
-    arr = np.stack([lo, hi], axis=-2)
+    """int64 or uint64 (..., N) words -> uint32 (..., 2, S, L) pairs; int32
+    words (narrow rows) -> a uint32 single plane (..., 1, S, L)."""
+    words = np.ascontiguousarray(words)
+    if words.dtype == np.int32:
+        arr = words.view(np.uint32)[..., None, :]
+    else:
+        u = words.view(np.uint64)
+        lo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (u >> np.uint64(32)).astype(np.uint32)
+        arr = np.stack([lo, hi], axis=-2)
     return arr.reshape(arr.shape[:-1] + _lane_shape(arr.shape[-1]))
 
 

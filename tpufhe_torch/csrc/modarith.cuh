@@ -83,3 +83,31 @@ TF_HD u64 mul_add_mod(u64 a0, u64 b0, u64 a1, u64 b1, Barrett br) {
   u64 hi = h0 + h1 + (lo < l0);
   return reduce_u128(lo, hi, br);
 }
+
+// The narrow (w30) words: one residue per 32-bit word, p < 2^30, Shoup
+// constants floor(b 2^32 / p) (tpufhe/ops/zq32.py). The functions below
+// overload the 64-bit ones on u32, so the transforms of ntt_device.cuh
+// serve both word sizes; Harvey's lazy bounds need 4p < 2^32.
+typedef unsigned int u32;
+
+// High 32 bits of the 64-bit product a * b.
+TF_HD u32 mulhi32(u32 a, u32 b) {
+#if defined(__CUDA_ARCH__)
+  return __umulhi(a, b);
+#else
+  return (u32)(((u64)a * b) >> 32);
+#endif
+}
+
+TF_HD u32 reduce1(u32 x, u32 p) { return x >= p ? x - p : x; }
+
+// a * b mod p in [0, 2p) for any u32 a, b < p and
+// b_shoup = floor(b 2^32 / p).
+TF_HD u32 lazy_mul_shoup(u32 a, u32 b, u32 b_shoup, u32 p) {
+  u32 q = mulhi32(a, b_shoup);
+  return a * b - q * p;
+}
+
+TF_HD u32 mul_shoup(u32 a, u32 b, u32 b_shoup, u32 p) {
+  return reduce1(lazy_mul_shoup(a, b, b_shoup, p), p);
+}

@@ -1,12 +1,15 @@
 // Block-cooperative negacyclic NTT of rows held in shared memory, shared by
-// the NTT, tensor+iNTT, relin-tail, rotate-tail and inverse NTT + scale
-// kernels.
+// the NTT (wide and narrow), tensor+iNTT, relin-tail, rotate-tail and
+// inverse NTT + scale kernels.
 //
 // Same transform as tpufhe/ops/ntt.py forward/backward (the Harvey
 // butterflies of fhe.rs ntt/native.rs:77-132): the bit-reversed twiddle
 // tables of NttOperator, the same stage order and the same bit-reversed
 // output order. Values stay lazy inside the transform (forward: [0, 4p),
-// inverse: [0, 2p)), which needs 4p < 2^64, true for p < 2^62.
+// inverse: [0, 2p)), which needs 4p below 2^64 for the 64-bit words W = u64
+// (p < 2^62) and below 2^32 for the narrow W = u32 words of ntt32.cu
+// (p < 2^30, tpufhe's forward32 / backward32); the arithmetic is the
+// overload of modarith.cuh for W.
 //
 // `a` points at `cnt` rows of n words each, laid out back to back; the rows
 // are transformed in lockstep so each stage costs one __syncthreads for all
@@ -18,10 +21,11 @@
 
 // Forward transform. Inputs < 4p, outputs < 4p (caller reduces).
 // w / ws: the limb's bit-reversed omegas and their Shoup constants.
-__device__ __forceinline__ void ntt_forward_rows(u64* a, int cnt, int n,
-                                                 int logn, const u64* w,
-                                                 const u64* ws, u64 p) {
-  const u64 p2 = 2 * p;
+template <typename W>
+__device__ __forceinline__ void ntt_forward_rows(W* a, int cnt, int n,
+                                                 int logn, const W* w,
+                                                 const W* ws, W p) {
+  const W p2 = 2 * p;
   const int half = n >> 1;
   for (int s = 0; s < logn; ++s) {
     const int logl = logn - 1 - s;  // half-length l = n >> (s + 1)
@@ -30,13 +34,13 @@ __device__ __forceinline__ void ntt_forward_rows(u64* a, int cnt, int n,
     for (int i = threadIdx.x; i < half; i += blockDim.x) {
       const int g = i >> logl;
       const int i0 = (g << (logl + 1)) + (i & (l - 1));
-      const u64 tw = w[m + g], tws = ws[m + g];
+      const W tw = w[m + g], tws = ws[m + g];
       for (int c = 0; c < cnt; ++c) {
-        u64* r = a + c * n;
-        u64 x = r[i0];
-        const u64 y = r[i0 + l];
+        W* r = a + c * n;
+        W x = r[i0];
+        const W y = r[i0 + l];
         x = x >= p2 ? x - p2 : x;
-        const u64 t = lazy_mul_shoup(y, tw, tws, p);
+        const W t = lazy_mul_shoup(y, tw, tws, p);
         r[i0] = x + t;
         r[i0 + l] = x + p2 - t;
       }
@@ -47,12 +51,13 @@ __device__ __forceinline__ void ntt_forward_rows(u64* a, int cnt, int n,
 
 // One Gentleman-Sande butterfly of the inverse transform on r[i0] and
 // r[i0 + l], inputs and outputs < 2p.
-__device__ __forceinline__ void inverse_butterfly(u64* r, int i0, int l,
-                                                  u64 tz, u64 tzs, u64 p) {
-  const u64 p2 = 2 * p;
-  const u64 x = r[i0];
-  const u64 y = r[i0 + l];
-  const u64 sum = x + y;
+template <typename W>
+__device__ __forceinline__ void inverse_butterfly(W* r, int i0, int l, W tz,
+                                                  W tzs, W p) {
+  const W p2 = 2 * p;
+  const W x = r[i0];
+  const W y = r[i0 + l];
+  const W sum = x + y;
   r[i0] = sum >= p2 ? sum - p2 : sum;
   r[i0 + l] = lazy_mul_shoup(x + p2 - y, tz, tzs, p);
 }
@@ -60,10 +65,11 @@ __device__ __forceinline__ void inverse_butterfly(u64* r, int i0, int l,
 // Inverse transform including the final n^{-1} fold. Inputs < 2p,
 // outputs canonical. z / zs: the limb's bit-reversed zetas_inv and Shoup
 // constants; ninv / ninv_s: n^{-1} mod p and its Shoup constant.
-__device__ __forceinline__ void ntt_inverse_rows(u64* a, int cnt, int n,
-                                                 int logn, const u64* z,
-                                                 const u64* zs, u64 ninv,
-                                                 u64 ninv_s, u64 p) {
+template <typename W>
+__device__ __forceinline__ void ntt_inverse_rows(W* a, int cnt, int n,
+                                                 int logn, const W* z,
+                                                 const W* zs, W ninv,
+                                                 W ninv_s, W p) {
   const int half = n >> 1;
   int k = 0;
   for (int s = 0; s < logn; ++s) {
@@ -73,7 +79,7 @@ __device__ __forceinline__ void ntt_inverse_rows(u64* a, int cnt, int n,
     for (int i = threadIdx.x; i < half; i += blockDim.x) {
       const int g = i >> logl;
       const int i0 = (g << (logl + 1)) + (i & (l - 1));
-      const u64 tz = z[k + g], tzs = zs[k + g];
+      const W tz = z[k + g], tzs = zs[k + g];
       for (int c = 0; c < cnt; ++c)
         inverse_butterfly(a + c * n, i0, l, tz, tzs, p);
     }
@@ -82,7 +88,7 @@ __device__ __forceinline__ void ntt_inverse_rows(u64* a, int cnt, int n,
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     for (int c = 0; c < cnt; ++c) {
-      u64* r = a + c * n;
+      W* r = a + c * n;
       r[i] = mul_shoup(r[i], ninv, ninv_s, p);
     }
   }
@@ -127,8 +133,9 @@ __device__ __forceinline__ void ntt_inverse_limbs(u64* a, int cnt, int n,
 }
 
 // Canonical form of a lazy forward output (< 4p).
-__device__ __forceinline__ u64 canon4(u64 x, u64 p) {
-  const u64 p2 = 2 * p;
+template <typename W>
+__device__ __forceinline__ W canon4(W x, W p) {
+  const W p2 = 2 * p;
   x = x >= p2 ? x - p2 : x;
   return x >= p ? x - p : x;
 }

@@ -106,11 +106,14 @@ __device__ __forceinline__ void ceil_half(u64& lo, u64& hi) {
 //                         shoup(gamma_j), then (omega_ji, shoup) for i
 //
 // r: the k_in canonical residues of one coefficient (entries from k_in on
-// are not read). Output j goes to out[j * stride], for j < size.
+// are not read). Output j goes to out[j * stride], for j < size, as a word
+// of type W: u64, or u32 for narrow (w30) rows, whose outputs are below
+// 2^30. The arithmetic is the same 64-bit code for both.
+template <typename W>
 __device__ __forceinline__ void rns_scale_coeff(
     const u64 (&r)[MAX_K_IN], int k_in, const u64* __restrict__ tab,
     int start, int size, int shift, int is_one, int theta_gamma_sign,
-    u64* __restrict__ out, long long stride) {
+    W* __restrict__ out, long long stride) {
   // v: the estimate of round(x / q)
   U256 acc = {{0, 0, 0, 0}};
 #pragma unroll
@@ -172,6 +175,6 @@ __device__ __forceinline__ void rns_scale_coeff(
         lo = s;
       }
     }
-    out[jj * stride] = reduce_u128(lo, hi, br);
+    out[jj * stride] = (W)reduce_u128(lo, hi, br);
   }
 }

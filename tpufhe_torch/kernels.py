@@ -41,11 +41,15 @@ KERNELS = {
                "tpufhe/ops/pallas/tensor_kernel.py:57 _tensor_kernel"),
     "intt_scale": ("intt_scale.cu",
                    "tpufhe/ops/pallas/intt_scale_kernel.py:59 _intt_scale_kernel"),
+    # the narrow (w30) transform; also stands for tpufhe's four-step
+    # ntt_mxu.forward_mxu32 / backward_mxu32, its TPU route at N >= 1024
+    "ntt32": ("ntt32.cu", "tpufhe/ops/pallas/ntt32_kernel.py:76 _ntt32_kernel"),
 }
 HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")
 # Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
-# the NTT-based kernels hold whole rows of N words in it.
+# the NTT-based kernels hold whole rows of N words in it (8 bytes a word,
+# 4 for the narrow rows of ntt32).
 SMEM_BYTES = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -148,14 +152,13 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def require_cuda_int64(name: str, *tensors) -> None:
-    """The checks every launching wrapper makes on its tensor arguments."""
-    import torch
-
+def require_cuda(name: str, dtype, *tensors) -> None:
+    """The checks every launching wrapper makes on its tensor arguments:
+    on the card, of the word type `dtype`, contiguous."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
-        if t.dtype != torch.int64:
-            raise ValueError(f"{name}: dtype {t.dtype}, expected torch.int64")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor is not contiguous")

@@ -57,7 +57,7 @@ def _check(ctx, scaler: RnsScaler, x: torch.Tensor, starting_index: int,
 def intt_scale_cuda(ctx, scaler: RnsScaler, x: torch.Tensor,
                     starting_index: int, size: int) -> torch.Tensor:
     """Launch K8."""
-    kernels.require_cuda_int64("intt_scale", x)
+    kernels.require_cuda("intt_scale", torch.int64, x)
     _check(ctx, scaler, x, starting_index, size)
     k, n = ctx.k, ctx.degree
     if not intt_scale_fits(k, n):

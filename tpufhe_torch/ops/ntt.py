@@ -1,4 +1,5 @@
-"""Negacyclic NTT: host tables, the plain torch transform, and kernel K1.
+"""Negacyclic NTT: host tables, the plain torch transforms, and kernels K1
+(wide) and K9 (narrow).
 
 - ``NttOperator.new`` builds the same tables as tpufhe.ops.ntt (fhe.rs
   ntt/native.rs): the seeded-ChaCha8 primitive-root search, bit-reversed
@@ -6,8 +7,11 @@
 - ``forward_plain`` / ``backward_plain`` run the same stages over int64
   tensors with canonical values at every stage (exact ``zq.mul``), so
   their outputs equal tpufhe's transforms word for word.
-- ``ntt_transform`` is the wrapper of kernel K1 (csrc/ntt.cu): it launches
-  the kernel for CUDA tensors and takes the plain version for CPU tensors.
+- ``forward32_plain`` / ``backward32_plain`` do the same for narrow
+  (w30) int32 rows, tpufhe's forward32 / backward32.
+- ``ntt_transform`` is the wrapper of kernels K1 (csrc/ntt.cu) and K9
+  (csrc/ntt32.cu): it launches the kernel of the tables' mode for CUDA
+  tensors and takes the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch import kernels
-from tpufhe_torch.ops import zq
+from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.zq import ModTable, Modulus
 from tpufhe_torch.utils.primes import is_prime
 from tpufhe_torch.utils.rngs import ChaChaRng, random_range_u64, seed_from_u64
@@ -118,22 +122,49 @@ def _new_operator(p: int, size: int) -> NttOperator | None:
 
 @dataclass
 class NttTables:
-    """Per-limb tables of one context on one device, all int64 words (Shoup
-    constants by bit pattern): (k, n) twiddles, (k,) scalars."""
+    """Per-limb tables of one context on one device: (k, n) twiddles, (k,)
+    scalars. Wide tables are int64 words with 2^64-scaled Shoup constants;
+    narrow (w30) tables are int32 words with 2^32-scaled ones (tpufhe's
+    ctx.dev.om32 / oms32 / zi32 / zis32 / ninv32 / ninvs32) and no Barrett
+    constants. Shoup constants are stored by bit pattern."""
 
     omegas: torch.Tensor
     omegas_shoup: torch.Tensor
     zetas_inv: torch.Tensor
     zetas_inv_shoup: torch.Tensor
     p: torch.Tensor
-    barrett_lo: torch.Tensor
-    barrett_hi: torch.Tensor
+    barrett_lo: torch.Tensor | None
+    barrett_hi: torch.Tensor | None
     ninv: torch.Tensor
     ninv_shoup: torch.Tensor
     mod: ModTable  # constants of the plain ops, shape (k, 1)
+    narrow: bool = False
 
     @staticmethod
-    def build(ops: list, device) -> "NttTables":
+    def build(ops: list, device, narrow: bool = False) -> "NttTables":
+        moduli = [op.q.p for op in ops]
+        if narrow:
+            def mat(attr):
+                arr = np.stack([getattr(op, attr) for op in ops])
+                return arr.astype(np.int32), zq32.shoup_array(arr, moduli)
+
+            def col(vals):
+                return torch.from_numpy(np.array(
+                    [int(v) for v in vals], dtype=np.uint32).view(np.int32)
+                ).to(device)
+
+            om, om_s = mat("omegas")
+            zi, zi_s = mat("zetas_inv")
+            return NttTables(
+                omegas=torch.from_numpy(om).to(device),
+                omegas_shoup=torch.from_numpy(om_s).to(device),
+                zetas_inv=torch.from_numpy(zi).to(device),
+                zetas_inv_shoup=torch.from_numpy(zi_s).to(device),
+                p=col(moduli), barrett_lo=None, barrett_hi=None,
+                ninv=col([op.size_inv for op in ops]),
+                ninv_shoup=col([op.q.shoup32(op.size_inv) for op in ops]),
+                mod=ModTable(moduli, device), narrow=True)
+
         def mat(attr):
             arr = np.stack([getattr(op, attr) for op in ops])
             return torch.from_numpy(zq.as_int64(arr)).to(device)
@@ -142,7 +173,6 @@ class NttTables:
             return torch.from_numpy(zq.as_int64(
                 np.array([int(v) for v in vals], dtype=np.uint64))).to(device)
 
-        moduli = [op.q.p for op in ops]
         return NttTables(
             omegas=mat("omegas"),
             omegas_shoup=mat("omegas_shoup"),
@@ -155,6 +185,11 @@ class NttTables:
             ninv_shoup=col([op.size_inv_shoup for op in ops]),
             mod=ModTable(moduli, device),
         )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The word type of the rows these tables transform."""
+        return torch.int32 if self.narrow else torch.int64
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +234,56 @@ def backward_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel K1 (csrc/ntt.cu)
+# Plain version of K9: the narrow transforms (int32 rows, int64 inside)
+# ---------------------------------------------------------------------------
+
+
+def forward32_plain(x: torch.Tensor, omegas: torch.Tensor, p: torch.Tensor):
+    """Forward negacyclic NTT of canonical int32 (..., k, n) rows, p < 2^30;
+    omegas (k, n), p (k,). The stages of tpufhe.ops.ntt.forward32 with
+    canonical values at every stage ((a w) % p, products below 2^60), so
+    the output equals its canonical output word for word."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    p3 = p.long()[:, None, None]
+    w = omegas.long()
+    x = x.long()
+    l, m = n >> 1, 1
+    while l > 0:
+        x = x.reshape(lead + (m, 2, l))
+        xl, xr = x[..., 0, :], x[..., 1, :]
+        t = torch.remainder(xr * w[:, m:2 * m, None], p3)
+        x = torch.stack([zq32.add(xl, t, p3), zq32.sub(xl, t, p3)], dim=-2)
+        x = x.reshape(lead + (n,))
+        l >>= 1
+        m <<= 1
+    return x.int()
+
+
+def backward32_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
+                     ninv: torch.Tensor, p: torch.Tensor):
+    """Inverse narrow NTT with the n^{-1} fold (tpufhe.ops.ntt.backward32),
+    canonical at every stage; ninv, p (k,)."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    p3 = p.long()[:, None, None]
+    z = zetas_inv.long()
+    x = x.long()
+    l, k = 1, 0
+    while l < n:
+        m = n // (2 * l)
+        x = x.reshape(lead + (m, 2, l))
+        xl, xr = x[..., 0, :], x[..., 1, :]
+        new_r = torch.remainder(zq32.sub(xl, xr, p3) * z[:, k:k + m, None], p3)
+        x = torch.stack([zq32.add(xl, xr, p3), new_r], dim=-2)
+        x = x.reshape(lead + (n,))
+        k += m
+        l <<= 1
+    return torch.remainder(x * ninv.long()[:, None], p.long()[:, None]).int()
+
+
+# ---------------------------------------------------------------------------
+# Kernels K1 (csrc/ntt.cu) and K9 (csrc/ntt32.cu)
 # ---------------------------------------------------------------------------
 
 _NTT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -208,44 +292,67 @@ _NTT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p]
 
 
-def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
-             inverse: bool) -> torch.Tensor:
-    """Launch K1 on (..., k_sel, n) canonical residues of a CUDA tensor."""
-    kernels.require_cuda_int64("ntt", x)
+def _launch(name: str, symbol: str, x: torch.Tensor, tables: NttTables,
+            limb_slice: slice, inverse: bool) -> torch.Tensor:
+    """Launch K1 or K9 (the same C interface) on (..., k_sel, n) rows."""
+    kernels.require_cuda(name, tables.dtype, x)
     k_ctx, n = tables.omegas.shape
     start, stop, _ = limb_slice.indices(k_ctx)
     k_sel = stop - start
     if x.shape[-1] != n or x.shape[-2] != k_sel:
-        raise ValueError(f"ntt: shape {tuple(x.shape)} does not match "
+        raise ValueError(f"{name}: shape {tuple(x.shape)} does not match "
                          f"{k_sel} limbs of degree {n}")
-    if n * 8 > kernels.SMEM_BYTES:
-        raise ValueError(f"ntt: degree {n} does not fit in shared memory")
+    if n * x.element_size() > kernels.SMEM_BYTES:
+        raise ValueError(f"{name}: degree {n} does not fit in shared memory")
     y = torch.empty_like(x)
     rows = x.numel() // n
     if rows == 0:
         return y
     tw = tables.zetas_inv if inverse else tables.omegas
     tws = tables.zetas_inv_shoup if inverse else tables.omegas_shoup
-    fn = kernels.function("ntt", "tpufhe_ntt", _NTT_ARGS)
-    kernels.count("ntt")
+    fn = kernels.function(name, symbol, _NTT_ARGS)
+    kernels.count(name)
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
              kernels.ptr(tws), kernels.ptr(tables.p), kernels.ptr(tables.ninv),
              kernels.ptr(tables.ninv_shoup), start, int(inverse),
              kernels.stream())
-    kernels.check(err, "ntt")
+    kernels.check(err, name)
     return y
+
+
+def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
+             inverse: bool) -> torch.Tensor:
+    """Launch K1 on (..., k_sel, n) canonical int64 residues of a CUDA
+    tensor."""
+    return _launch("ntt", "tpufhe_ntt", x, tables, limb_slice, inverse)
+
+
+def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
+               inverse: bool) -> torch.Tensor:
+    """Launch K9 on (..., k_sel, n) canonical int32 residues (p < 2^30) of
+    a CUDA tensor, with a narrow context's tables."""
+    return _launch("ntt32", "tpufhe_ntt32", x, tables, limb_slice, inverse)
 
 
 def ntt_transform(x: torch.Tensor, tables: NttTables,
                   limb_slice: slice | None = None,
                   inverse: bool = False) -> torch.Tensor:
     """Forward (or inverse) NTT of canonical (..., k_sel, n) rows; canonical
-    output. limb_slice selects the context limbs the rows belong to."""
+    output. limb_slice selects the context limbs the rows belong to. Narrow
+    tables take int32 rows (K9 on the card), wide ones int64 rows (K1)."""
     sl = slice(None) if limb_slice is None else limb_slice
     if x.device.type == "cuda":
-        return ntt_cuda(x, tables, sl, inverse)
+        launch = ntt32_cuda if tables.narrow else ntt_cuda
+        return launch(x, tables, sl, inverse)
     if x.device.type != "cpu":
         raise ValueError(f"ntt: unsupported device {x.device}")
+    if x.dtype != tables.dtype:
+        raise ValueError(f"ntt: dtype {x.dtype}, expected {tables.dtype}")
+    if tables.narrow:
+        if inverse:
+            return backward32_plain(x, tables.zetas_inv[sl], tables.ninv[sl],
+                                    tables.p[sl])
+        return forward32_plain(x, tables.omegas[sl], tables.p[sl])
     mod = tables.mod[sl]
     if inverse:
         return backward_plain(x, tables.zetas_inv[sl], tables.ninv[sl], mod)

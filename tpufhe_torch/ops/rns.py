@@ -6,7 +6,8 @@ scaler computes round(x num / den) in the `to` basis, with x read as
 centered. ``scale_plain`` computes the integers of tpufhe's exact
 Python-int oracle ``RnsScaler.scale_host`` (scaler.rs:249-352) with 31-bit
 digits on int64 tensors; kernel K2 (csrc/rns_scale.cu) computes them on
-the card.
+the card, on int64 rows or on the int32 rows of narrow (w30) contexts,
+where it serves tpufhe's XLA narrow scaler (the same integers).
 """
 
 from __future__ import annotations
@@ -111,13 +112,21 @@ def _extract_projection_and_theta(
 
 
 class RnsScaler:
-    """Fused RNS base conversion + rational scaling (rns/scaler.rs:52-352)."""
+    """Fused RNS base conversion + rational scaling (rns/scaler.rs:52-352).
+
+    `dtype` is the word type of the rows it takes and returns: torch.int64
+    between wide contexts, torch.int32 between narrow (w30) ones, whose
+    moduli are all below 2^30. Both compute the same integers."""
 
     def __init__(self, from_ctx: RnsContext, to_ctx: RnsContext,
-                 factor: ScalingFactor):
+                 factor: ScalingFactor, dtype: torch.dtype = torch.int64):
+        if dtype == torch.int32 and any(
+                m >= (1 << 30) for m in from_ctx.moduli_u64 + to_ctx.moduli_u64):
+            raise InvalidContext("int32 rows need every modulus below 2^30")
         self.from_ctx = from_ctx
         self.to_ctx = to_ctx
         self.factor = factor
+        self.dtype = dtype
         num, den = factor.numerator, factor.denominator
 
         gamma, theta_gamma, tg_sign = _extract_projection_and_theta(
@@ -208,16 +217,18 @@ class RnsScaler:
             return self.scale_cuda(x, starting_index, size)
         if x.device.type != "cpu":
             raise ValueError(f"rns_scale: unsupported device {x.device}")
+        if x.dtype != self.dtype:
+            raise ValueError(f"rns_scale: dtype {x.dtype}, expected {self.dtype}")
         return self.scale_plain(x, starting_index, size)
 
     def scale_cuda(self, x: torch.Tensor, starting_index: int,
                    size: int) -> torch.Tensor:
-        """Launch K2 (csrc/rns_scale.cu)."""
-        kernels.require_cuda_int64("rns_scale", x)
+        """Launch K2 (csrc/rns_scale.cu) on rows of the scaler's dtype."""
+        kernels.require_cuda("rns_scale", self.dtype, x)
         if self._k_in > 16:
             raise ValueError("rns_scale: the kernel takes at most 16 input limbs")
         n = x.shape[-1]
-        y = torch.empty(x.shape[:-2] + (size, n), dtype=torch.int64,
+        y = torch.empty(x.shape[:-2] + (size, n), dtype=self.dtype,
                         device=x.device)
         total = x.numel() // self._k_in
         if total == 0 or size == 0:
@@ -228,14 +239,18 @@ class RnsScaler:
         err = fn(kernels.ptr(x), kernels.ptr(y), total, n, self._k_in,
                  kernels.ptr(tab), starting_index, size,
                  self.theta_garner_shift, int(self.factor.is_one),
-                 int(self.theta_gamma_sign), kernels.stream())
+                 int(self.theta_gamma_sign), x.element_size(),
+                 kernels.stream())
         kernels.check(err, "rns_scale")
         return y
 
     def scale_plain(self, x: torch.Tensor, starting_index: int,
                     size: int) -> torch.Tensor:
         """The plain version of K2: the integers of scale_host, computed with
-        31-bit digits on int64 tensors. Inputs must be below 2^62."""
+        31-bit digits on int64 tensors (narrow rows are widened on the way
+        in and narrowed on the way out). Inputs must be below 2^62."""
+        if x.dtype != torch.int64:
+            return self.scale_plain(x.long(), starting_index, size).to(x.dtype)
         k_in = self._k_in
         r = [zq.to_digits(x[..., i, :], 2) for i in range(k_in)]
 
@@ -285,7 +300,7 @@ class RnsScaler:
 _SCALE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_void_p]
 
 
 def _col(vals, device) -> torch.Tensor:

@@ -2,10 +2,10 @@
 subset of tpufhe.ops.rq that the multiply + relinearize and the Galois
 rotation paths need.
 
-Coefficients are int64 tensors shaped (..., k, N), one canonical residue
-per word, in power basis or in bit-reversed NTT order; leading dimensions
-are batch. A ``Context`` holds the moduli, their NTT operators and the
-per-limb tables on its device.
+Coefficients are tensors shaped (..., k, N), one canonical residue per
+word (int64, or int32 for a narrow w30 context), in power basis or in
+bit-reversed NTT order; leading dimensions are batch. A ``Context`` holds
+the moduli, their NTT operators and the per-limb tables on its device.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from tpufhe_torch.device import resolve_device
 from tpufhe_torch.errors import InvalidContext, InvalidGaloisElement
 from tpufhe_torch.ops import ntt as ntt_mod
-from tpufhe_torch.ops import zq
+from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
 from tpufhe_torch.ops.zq import Modulus
 from tpufhe_torch.utils.rngs import expand_seed
@@ -28,23 +28,34 @@ class Context:
     """Moduli + NTT operators + RNS context of one ring, on one device.
 
     Mirrors rq/context.rs:9-156 without the switch-down chain. Cached by
-    (moduli, degree, device).
+    (moduli, degree, device, narrow).
+
+    ``narrow=True`` selects tpufhe's single-word w30 representation (every
+    modulus below 2^30): rows are int32 (``dtype``), the NTT is kernel K9
+    and the elementwise arithmetic ops/zq32.py. Wide and narrow contexts
+    over the same moduli are distinct objects. ``add``, ``sub``, ``neg``,
+    ``mul`` and ``mul_shoup`` are the elementwise ring operations on rows
+    of the context's word type, in either mode.
     """
 
-    def __new__(cls, moduli, degree: int, device=None):
+    def __new__(cls, moduli, degree: int, device=None, narrow: bool = False):
         device = resolve_device(device)
-        key = (tuple(int(m) for m in moduli), int(degree), str(device))
+        key = (tuple(int(m) for m in moduli), int(degree), str(device),
+               bool(narrow))
         if key in _CONTEXT_CACHE:
             return _CONTEXT_CACHE[key]
         self = super().__new__(cls)
-        self._init(key[0], key[1], device)
+        self._init(key[0], key[1], device, key[3])
         _CONTEXT_CACHE[key] = self
         return self
 
-    def _init(self, moduli, degree, device):
+    def _init(self, moduli, degree, device, narrow):
         if degree < 8 or (degree & (degree - 1)) != 0:
             raise InvalidContext(
                 "The degree is not a power of two larger or equal to 8")
+        if narrow and any(m >= (1 << 30) for m in moduli):
+            raise InvalidContext("narrow contexts need all moduli < 2^30")
+        self.narrow = narrow
         self.moduli = moduli
         self.degree = degree
         self.device = device
@@ -66,42 +77,73 @@ class Context:
         return self.rns.product
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The word type of the context's rows."""
+        return torch.int32 if self.narrow else torch.int64
+
+    @property
     def tables(self) -> ntt_mod.NttTables:
         """Per-limb device tables (built on first use)."""
         if self._tables is None:
-            self._tables = ntt_mod.NttTables.build(self.ops, self.device)
+            self._tables = ntt_mod.NttTables.build(self.ops, self.device,
+                                                   self.narrow)
         return self._tables
 
     @property
     def mod(self) -> zq.ModTable:
-        """Constants of the plain elementwise ops, shape (k, 1)."""
+        """Constants of the int64 elementwise ops of ops/zq.py, shape (k, 1)
+        (in either mode; the narrow rows' own ops take ``p_col``)."""
         return self.tables.mod
+
+    @property
+    def p_col(self) -> torch.Tensor:
+        """The moduli as a (k, 1) tensor of the context's word type."""
+        return self.tables.p[:, None] if self.narrow else self.mod.p
+
+    def add(self, a, b):
+        return zq32.add(a, b, self.p_col) if self.narrow else zq.add(a, b, self.mod)
+
+    def sub(self, a, b):
+        return zq32.sub(a, b, self.p_col) if self.narrow else zq.sub(a, b, self.mod)
+
+    def neg(self, a):
+        return zq32.neg(a, self.p_col) if self.narrow else zq.neg(a, self.mod)
+
+    def mul(self, a, b):
+        return zq32.mul(a, b, self.p_col) if self.narrow else zq.mul(a, b, self.mod)
+
+    def mul_shoup(self, a, b, b_shoup):
+        """a b mod p with b's Shoup constants (2^32-scaled when narrow)."""
+        if self.narrow:
+            return zq32.mul_shoup(a, b, b_shoup, self.p_col)
+        return zq.mul_shoup(a, b, b_shoup, self.mod)
 
     def __repr__(self):
         return (f"Context(moduli={self.moduli}, degree={self.degree}, "
-                f"device={self.device})")
+                f"device={self.device}, narrow={self.narrow})")
 
 
 def ntt_forward(ctx: Context, x: torch.Tensor,
                 limb_slice: slice | None = None) -> torch.Tensor:
-    """Forward NTT of canonical (..., k_sel, N) rows (K1 on the card).
-    Counterpart of tpufhe.ops.rq.ntt_forward_any (non-lazy)."""
+    """Forward NTT of canonical (..., k_sel, N) rows (K1 on the card, K9
+    for a narrow context). Counterpart of tpufhe.ops.rq.ntt_forward_any
+    (non-lazy)."""
     return ntt_mod.ntt_transform(x, ctx.tables, limb_slice, inverse=False)
 
 
 def ntt_backward(ctx: Context, x: torch.Tensor) -> torch.Tensor:
-    """Inverse NTT of canonical (..., k, N) rows (K1 on the card).
-    Counterpart of tpufhe.ops.rq.ntt_backward_any."""
+    """Inverse NTT of canonical (..., k, N) rows (K1 on the card, K9 for a
+    narrow context). Counterpart of tpufhe.ops.rq.ntt_backward_any."""
     return ntt_mod.ntt_transform(x, ctx.tables, None, inverse=True)
 
 
 def from_i64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
     """Signed coefficients (N,) reduced into every limb: (k, N) power basis
-    (rq/convert.rs TryConvertFrom<&[i64]>)."""
+    of the context's word type (rq/convert.rs TryConvertFrom<&[i64]>)."""
     v = np.zeros(ctx.degree, dtype=np.int64)
     v[: len(coeffs)] = np.asarray(coeffs, dtype=np.int64)
     t = torch.from_numpy(v).to(ctx.device)
-    return torch.remainder(t[None, :], ctx.mod.p)
+    return torch.remainder(t[None, :], ctx.mod.p).to(ctx.dtype)
 
 
 def from_u64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
@@ -112,13 +154,14 @@ def from_u64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
     t = torch.from_numpy(zq.as_int64(v)).to(ctx.device)
     if (t < 0).any():
         raise ValueError("coefficients must be below 2^63")
-    return torch.remainder(t[None, :], ctx.mod.p)
+    return torch.remainder(t[None, :], ctx.mod.p).to(ctx.dtype)
 
 
 def random_rows(ctx: Context, rng) -> torch.Tensor:
     """Uniform (k, N) residues sampled limb by limb (rq/mod.rs:226-237)."""
     rows = np.stack([q.random_vec(ctx.degree, rng) for q in ctx.q])
-    return torch.from_numpy(zq.as_int64(rows)).to(ctx.device)
+    words = rows.astype(np.int32) if ctx.narrow else zq.as_int64(rows)
+    return torch.from_numpy(words).to(ctx.device)
 
 
 def random_from_seed(ctx: Context, seed: bytes) -> torch.Tensor:
@@ -171,7 +214,7 @@ def substitute(x: torch.Tensor, exp: SubstitutionExponent,
     if ntt:
         return x[..., exp.perm_ntt]
     gathered = x[..., exp.perm_power]
-    return torch.where(exp.sign_power, zq.neg(gathered, exp.ctx.mod), gathered)
+    return torch.where(exp.sign_power, exp.ctx.neg(gathered), gathered)
 
 
 class Scaler:
@@ -191,4 +234,8 @@ class Scaler:
                     break
                 ncm += 1
         self.number_common_moduli = ncm
-        self.rns_scaler = RnsScaler(from_ctx.rns, to_ctx.rns, factor)
+        if from_ctx.narrow != to_ctx.narrow:
+            raise InvalidContext("a scaler joins two narrow or two wide "
+                                 "contexts")
+        self.rns_scaler = RnsScaler(from_ctx.rns, to_ctx.rns, factor,
+                                    from_ctx.dtype)

@@ -68,6 +68,16 @@ class Modulus:
         assert 0 <= a < self.p
         return (a << 64) // self.p
 
+    def shoup32(self, a: int) -> int:
+        """floor(a * 2^32 / p), the single-word (w30) Shoup constant."""
+        assert 0 <= a < self.p < (1 << 30)
+        return (a << 32) // self.p
+
+    @property
+    def mu64(self) -> int:
+        """floor(2^64 / p), the w30 Barrett constant (< 2^35 for p >= 2^29)."""
+        return (1 << 64) // self.p
+
     def inv(self, a: int) -> int | None:
         if not is_prime(self.p) or a == 0:
             return None

@@ -27,9 +27,17 @@ permutation (plain torch, as tpufhe's XLA take), then runs two launches:
 K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
 its Garner digits, key-switch accumulate and the add of the substituted c0.
 
-Tensors are int64 (..., k, N) on the parameters' device; leading dimensions
-are the batch. K3, K4, K5 and K7 sit in this module beside their plain
-versions.
+On narrow (w30) parameters, whose moduli are all below 2^30, the rows are
+int32 and every transform is K9 (ops/ntt.py ntt32_cuda); the extend and
+down-scale stay K2, on int32 rows. tpufhe turns its other kernels off for
+narrow contexts, and so does the port: the tensor product, the key-switch
+digits and accumulate and the adds are zq32 glue (``tensor32``,
+``relin_tail32``, ``_ksk_digits``, ``_ksk_accumulate``). Launches: ntt32 4
+and rns_scale 2 per mul+relin or square, ntt32 2 per rotation.
+
+Tensors are (..., k, N) on the parameters' device, int64 (int32 when
+narrow); leading dimensions are the batch. K3, K4, K5 and K7 sit in this
+module beside their plain versions.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from dataclasses import dataclass
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.bfv.keys.evaluation_key import EXPANSION_NARROW
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
@@ -64,23 +73,47 @@ from tpufhe_torch.utils.primes import generate_prime
 def _ksk_digits(ctx: Context, c2_pb: torch.Tensor) -> torch.Tensor:
     """Garner decomposition rows of power-basis c2 (..., k, N): row i is
     c2's limb i reduced modulo every limb modulus p_j, canonical.
-    Returns (k, ..., k, N)."""
+    Returns (k, ..., k, N), contiguous (a kernel's input on the narrow
+    path)."""
     rows = torch.movedim(c2_pb, -2, 0)[..., None, :]  # (k, ..., 1, N)
-    return torch.remainder(rows, ctx.mod.p)
+    return torch.remainder(rows, ctx.p_col).contiguous()
 
 
 def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
     """sum_i d_i ksk.c{0,1}_i with Shoup products on NTT-domain rows
     (key_switching_key.rs:227-239); the plain version of K4's
-    accumulate."""
-    mod = ctx.mod
+    accumulate, and the narrow path's own."""
     acc0 = acc1 = None
     for i in range(ksk.c0.shape[0]):
-        t0 = zq.mul_shoup(lifted[i], ksk.c0[i], ksk.c0_shoup[i], mod)
-        t1 = zq.mul_shoup(lifted[i], ksk.c1[i], ksk.c1_shoup[i], mod)
-        acc0 = t0 if acc0 is None else zq.add(acc0, t0, mod)
-        acc1 = t1 if acc1 is None else zq.add(acc1, t1, mod)
+        t0 = ctx.mul_shoup(lifted[i], ksk.c0[i], ksk.c0_shoup[i])
+        t1 = ctx.mul_shoup(lifted[i], ksk.c1[i], ksk.c1_shoup[i])
+        acc0 = t0 if acc0 is None else ctx.add(acc0, t0)
+        acc1 = t1 if acc1 is None else ctx.add(acc1, t1)
     return acc0, acc1
+
+
+# ---------------------------------------------------------------------------
+# The narrow (w30) glue: zq32 on int32 rows, any device
+# ---------------------------------------------------------------------------
+
+
+def tensor32(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
+    """NTT-domain (..., k, N) int32 parts of a narrow context -> stacked
+    (3, ..., k, N) (a0 b0, a0 b1 + a1 b0, a1 b1): tpufhe's narrow tensor
+    (pipeline.py:129-148, _tensor_for)."""
+    c1 = ctx.add(ctx.mul(a0, b1), ctx.mul(a1, b0))
+    return torch.stack([ctx.mul(a0, b0), c1, ctx.mul(a1, b1)])
+
+
+def relin_tail32(ctx: Context, dsc: torch.Tensor, ksk):
+    """(3, ..., k, N) power-basis (c0, c1, c2) of a narrow context ->
+    NTT-domain (c0 + ks0, c1 + ks1): the Garner digits of c2, one forward
+    NTT (K9) of the stacked (2 + k) parts, the Shoup accumulate and the
+    adds, as tpufhe merges them (pipeline.py:553-569)."""
+    digits = _ksk_digits(ctx, dsc[2])
+    ntts = ntt_forward(ctx, torch.cat([dsc[:2], digits]))
+    ks0, ks1 = _ksk_accumulate(ctx, ntts[2:], ksk)
+    return ctx.add(ntts[0], ks0), ctx.add(ntts[1], ks1)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +136,7 @@ def tensor_plain(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
 
 def tensor_cuda(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
     """Launch K7."""
-    kernels.require_cuda_int64("tensor", a0, a1, b0, b1)
+    kernels.require_cuda("tensor", torch.int64, a0, a1, b0, b1)
     k, n = ctx.k, ctx.degree
     shapes = [tuple(t.shape) for t in (a0, a1, b0, b1)]
     if shapes[0][-2:] != (k, n) or len(set(shapes)) != 1:
@@ -150,7 +183,7 @@ def tensor_intt_plain(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
 
 def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     """Launch K3."""
-    kernels.require_cuda_int64("tensor_intt", ext)
+    kernels.require_cuda("tensor_intt", torch.int64, ext)
     k, n = ctx_mul.k, ctx_mul.degree
     if ext.shape[0] != 4 or ext.shape[-2:] != (k, n):
         raise ValueError(f"tensor_intt: shape {tuple(ext.shape)}, expected "
@@ -203,8 +236,8 @@ def relin_tail_plain(ctx: Context, dsc: torch.Tensor, ksk):
 
 def relin_tail_cuda(ctx: Context, dsc: torch.Tensor, ksk):
     """Launch K4; returns the two output parts."""
-    kernels.require_cuda_int64("relin_tail", dsc, ksk.c0, ksk.c0_shoup,
-                               ksk.c1, ksk.c1_shoup)
+    kernels.require_cuda("relin_tail", torch.int64, dsc, ksk.c0,
+                         ksk.c0_shoup, ksk.c1, ksk.c1_shoup)
     k, n = ctx.k, ctx.degree
     if dsc.shape[0] != 3 or dsc.shape[-2:] != (k, n):
         raise ValueError(f"relin_tail: shape {tuple(dsc.shape)}, expected "
@@ -262,8 +295,8 @@ def rotate_tail_plain(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
 
 def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     """Launch K5; returns the two output parts."""
-    kernels.require_cuda_int64("rotate_tail", s0, c2_pb, ksk.c0, ksk.c0_shoup,
-                               ksk.c1, ksk.c1_shoup)
+    kernels.require_cuda("rotate_tail", torch.int64, s0, c2_pb, ksk.c0,
+                         ksk.c0_shoup, ksk.c1, ksk.c1_shoup)
     k, n = ctx.k, ctx.degree
     if s0.shape != c2_pb.shape or s0.shape[-2:] != (k, n):
         raise ValueError(f"rotate_tail: shapes {tuple(s0.shape)} and "
@@ -329,6 +362,11 @@ def mul_basis(par: BfvParameters, level: int = 0,
         assert mp.extender.number_common_moduli == ctx.k
         return MulBasis(mp.to_ctx, mp.extender.rns_scaler, None,
                         mp.down_scaler.rns_scaler)
+    if ctx.narrow:
+        # tpufhe builds a wide 62-bit basis here, which its narrow scaler
+        # cannot target (pipeline.py:458-466, rns.py:456)
+        raise UnsupportedOperation(
+            "strategy 2 is not defined for narrow (w30) parameters")
     basis = list(ctx.moduli)
     upper = 1 << 62
     p_prod = 1
@@ -358,10 +396,20 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     launch; it raises UnsupportedOperation where intt_scale_fits is false.
     Launches per step: default 6 (ntt 2, rns_scale 2, tensor_intt 1,
     relin_tail 1), fused 5; strategy 2 split 8 (ntt 3, rns_scale 3), fused
-    7 (intt_scale 2, ntt 2, rns_scale 1)."""
+    7 (intt_scale 2, ntt 2, rns_scale 1).
+
+    On narrow (w30) parameters the default strategy runs as tpufhe's narrow
+    composition (pipeline.py:509-569 with its tail, tensor+iNTT and fused
+    extend kernels off): K9 inverse, K2 extend, K9 forward of the new
+    limbs, tensor32, K9 inverse over the basis, K2 down-scale, then
+    relin_tail32 (one K9 forward): ntt32 4, rns_scale 2. Strategy 2 and
+    ext_fuse raise UnsupportedOperation there (K8 is a wide kernel)."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
+    if ext_fuse and ctx.narrow:
+        raise UnsupportedOperation(
+            "the fused extend is not defined for narrow (w30) parameters")
     mb = mul_basis(par, level, strategy2_primes)
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
@@ -395,6 +443,10 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
                 rhs = mb.rhs.scale(x_pb[2:], starting_index=0, size=k_mul)
             ext = torch.cat([lhs, ntt_forward(ctx_mul, rhs)])
         # tensor product + inverse NTT, then the down-scale
+        if ctx.narrow:
+            t_pb = ntt_backward(ctx_mul, tensor32(ctx_mul, *ext))
+            dsc = mb.down.scale(t_pb, starting_index=0, size=k)
+            return relin_tail32(ctx, dsc, ksk)
         t_pb = tensor_intt(ctx_mul, ext)
         dsc = mb.down.scale(t_pb, starting_index=0, size=k)
         return relin_tail(ctx, dsc, ksk)
@@ -407,13 +459,17 @@ def make_square_relin(par: BfvParameters, rk, level: int = 0):
     pipeline.py:584-621) in seven launches: K1 inverse of (a0, a1), K2
     extend, K1 forward of the new limbs, K7 on (a0, a1, a0, a1), K1 inverse
     of the three parts over k_mul, K2 down-scale, then the K4 tail (the
-    function of tpufhe's forward NTT + accumulate + adds there)."""
+    function of tpufhe's forward NTT + accumulate + adds there). On narrow
+    parameters tensor32 and relin_tail32 take the places of K7 and K4:
+    ntt32 4, rns_scale 2."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
     mb = mul_basis(par, level)
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
+    square, tail = ((tensor32, relin_tail32) if ctx.narrow
+                    else (tensor, relin_tail))
 
     def step(a0, a1):
         x = torch.stack([a0, a1])
@@ -421,9 +477,9 @@ def make_square_relin(par: BfvParameters, rk, level: int = 0):
                                 size=k_mul - k)
         new_rows = ntt_forward(ctx_mul, new_rows, limb_slice=slice(k, k_mul))
         ext = torch.cat([x, new_rows], dim=-2)
-        t = tensor(ctx_mul, ext[0], ext[1], ext[0], ext[1])
+        t = square(ctx_mul, ext[0], ext[1], ext[0], ext[1])
         dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
-        return relin_tail(ctx, dsc, ksk)
+        return tail(ctx, dsc, ksk)
 
     return step
 
@@ -435,10 +491,9 @@ def make_decrypt_phase(par: BfvParameters, sk, level: int = 0):
     ctx = par.context_at_level(level)
     scaler = par.context_level_at(level).cipher_plain_context.scaler
     s = sk.s_ntt(ctx)
-    mod = ctx.mod
 
     def step(c0, c1):
-        phase = zq.add(c0, zq.mul(c1, s, mod), mod)
+        phase = ctx.add(c0, ctx.mul(c1, s))
         return scaler.rns_scaler.scale(ntt_backward(ctx, phase))
 
     return step
@@ -450,11 +505,10 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
     (secret_key.rs:102-137)."""
     ctx = par.context_at_level(level)
     s = sk.s_ntt(ctx)
-    mod = ctx.mod
 
     def step(a, e_pb, m):
         e = ntt_forward(ctx, e_pb)
-        return zq.add(zq.sub(e, zq.mul(a, s, mod), mod), m, mod)
+        return ctx.add(ctx.sub(e, ctx.mul(a, s)), m)
 
     return step
 
@@ -462,8 +516,12 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
 def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     """(c0, c1) -> the Galois-rotated ciphertext (galois_key.rs:62-87):
     substitute both parts, inverse NTT of the substituted c1 (K1), then
-    the key switch and the add of the substituted c0 (K5). Only keys at
-    the ciphertext's level are ported; leveled keys need the switch-down."""
+    the key switch and the add of the substituted c0 (K5). On a narrow
+    context the key switch is tpufhe's narrow composition
+    (_key_switch_batched, pipeline.py:778-779): the Garner digits, their
+    forward NTT (K9, after K9's inverse) and the zq32 accumulate. Only keys
+    at the ciphertext's level are ported; leveled keys need the
+    switch-down."""
     if ksk.ciphertext_level != ksk.ksk_level or ksk.ctx_ciphertext is not ctx:
         raise UnsupportedOperation(
             "only Galois keys at the ciphertext's level are ported")
@@ -471,6 +529,10 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     def rot(c0, c1):
         s0 = substitute(c0, exp, ntt=True)
         c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
+        if ctx.narrow:
+            lifted = ntt_forward(ctx, _ksk_digits(ctx, c2_pb))
+            ks0, ks1 = _ksk_accumulate(ctx, lifted, ksk)
+            return ctx.add(ks0, s0), ks1
         return rotate_tail(ctx, s0, c2_pb, ksk)
 
     return rot
@@ -478,7 +540,8 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
 
 def make_rotate(par: BfvParameters, gk, level: int = 0):
     """(c0, c1) -> Galois rotation of NTT-domain (..., k, N) parts by the
-    key's element: two launches per call, K1 then K5."""
+    key's element: two launches per call, K1 then K5 (ntt32 twice on
+    narrow parameters)."""
     return _rotate_step(par.context_at_level(level), gk.element, gk.ksk)
 
 
@@ -489,7 +552,6 @@ def make_inner_sum(par: BfvParameters, ek, level: int = 0):
         raise UnsupportedOperation("This key does not support the inner sum")
     ctx = par.context_at_level(level)
     n = par.degree()
-    mod = ctx.mod
     exps = [ek.rot_to_gk_exponent[1 << i] for i in range(n.bit_length() - 2)]
     rots = [_rotate_step(ctx, ek.gk[e].element, ek.gk[e].ksk)
             for e in exps + [2 * n - 1]]
@@ -497,7 +559,7 @@ def make_inner_sum(par: BfvParameters, ek, level: int = 0):
     def step(c0, c1):
         for rot in rots:
             r0, r1 = rot(c0, c1)
-            c0, c1 = zq.add(c0, r0, mod), zq.add(c1, r1, mod)
+            c0, c1 = ctx.add(c0, r0), ctx.add(c1, r1)
         return c0, c1
 
     return step
@@ -509,10 +571,12 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     rotate in one batched step, and the monomial x^{-2^l} fold is one
     Shoup multiply. (c0, c1) of shape (B, k, N) -> a pair of
     (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands."""
+    ctx = par.context_at_level(level)
+    if ctx.narrow:
+        raise UnsupportedOperation(EXPANSION_NARROW)
     if not ek.supports_expansion(level_count):
         raise UnsupportedOperation(
             "This key does not support expansion at this level")
-    ctx = par.context_at_level(level)
     n = par.degree()
     mod = ctx.mod
     levels = []
