@@ -5,7 +5,7 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the eight CUDA kernels (one nvcc per source, in
+2. build: compile the nine CUDA kernels (one nvcc per source, in
    parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
    does not build;
 3. kernels: each kernel against its plain torch version, compared with
@@ -18,7 +18,14 @@ Phases, in order; any failure exits nonzero before the last line:
    small degrees tpufhe's other NTT kernel serves); ntt32 at the four
    transforms of the narrow N = 8192, 7 x 30-bit, batch-64 mul+relin, at
    the narrow rotation's two and at N = 512, and rns_scale on its int32
-   rows (extend 7 -> 9 new limbs, down-scale 16 -> 7);
+   rows (extend 7 -> 9 new limbs, down-scale 16 -> 7); at N = 16384,
+   6 x 62-bit, batch 16 (phase 12's shapes) ntt at the mul+relin's four
+   transforms and the rotation's two, rns_scale at the extend (6 -> 7)
+   and the down-scale (13 -> 6), tensor over the 13-limb basis and
+   ks_accumulate (two addends, and the rotation's one); rns_scale at
+   phase 13's extends and down-scales from 17 limbs (int64) and 18
+   (int32), its general instance; ks_accumulate on the int32 rows of the
+   narrow mul+relin (two addends) and rotation (one);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -45,14 +52,27 @@ Phases, in order; any failure exits nonzero before the last line:
     int32 rows; keygen (sk, rk, the inner sum's 13 Galois keys), 128 SIMD
     encryptions, the encryption core (ntt32 1) and the decryption core on
     64 ciphertexts (ntt32 1, rns_scale 1), then mul+relin and the square
-    at batch 64 (ntt32 4, rns_scale 2 each), a column rotation by 1 at
-    batch 32 (ntt32 2) and the inner sum at batch 16 (ntt32 26), each run
-    with the counters set to 0 just before it and held to exactly those
-    counts (no wide kernel), every slot of every output checked;
+    at batch 64 (ntt32 4, rns_scale 2, ks_accumulate 1 each), a column
+    rotation by 1 at batch 32 (ntt32 2, ks_accumulate 1) and the inner sum
+    at batch 16 (ntt32 26, ks_accumulate 13), each run with the counters
+    set to 0 just before it and held to exactly those counts (no wide
+    kernel), every slot of every output checked;
 11. narrow rates: chained steps of the four narrow programs, with the
-    kernels' and the glue's share of a mul+relin and a rotation.
+    kernels' and the glue's share of a mul+relin and a rotation;
+12. N = 16384 (seed 2029): BASELINE config 5's ring, 6 x 62-bit,
+    t = 65537, where K3, K4 and K5 do not fit one block; keygen (sk, rk,
+    a column-rotation key), 2 x 16 SIMD encryptions, then mul+relin and
+    the square (ntt 4, rns_scale 2, tensor 1, ks_accumulate 1 each) and a
+    column rotation by 1 (ntt 2, ks_accumulate 1) at batch 16, each held
+    to exactly those counts, every slot checked, the noise held to leave
+    at least the N = 8192 product's margin of q; chained steps timed,
+    with the kernels' and the glue's share;
+13. wider bases at N = 8192: mul+relin at batch 16 on 8 x 62-bit
+    (multiplication basis 17 limbs) and 8 x 30-bit narrow (18 limbs),
+    whose down-scales run K2's general instance, held to the launch
+    counts of phases 4 and 10, every slot checked, chained steps timed.
 
-The second-to-last line is {"kernels": [...]} (eight entries), the last
+The second-to-last line is {"kernels": [...]} (nine entries), the last
 one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
 """
 
@@ -101,11 +121,26 @@ MUL_VARIANTS = [
 ]
 MUL_LAUNCHES = {"ntt": 2, "rns_scale": 2, "tensor_intt": 1, "relin_tail": 1}
 SQUARE_LAUNCHES = {"ntt": 3, "rns_scale": 2, "tensor": 1, "relin_tail": 1}
-# narrow (w30) path: every modulus below 2^30, int32 rows, K9 and K2 only
+# narrow (w30) path: every modulus below 2^30, int32 rows; K9, K2 and
+# ks_accumulate only
 NARROW_MODULI_SIZES = [30] * 7
 NARROW_SEED = SEED + 2
-NARROW_MUL_LAUNCHES = {"ntt32": 4, "rns_scale": 2}
-NARROW_ROT_LAUNCHES = {"ntt32": 2}
+NARROW_MUL_LAUNCHES = {"ntt32": 4, "rns_scale": 2, "ks_accumulate": 1}
+NARROW_ROT_LAUNCHES = {"ntt32": 2, "ks_accumulate": 1}
+# phase 12: BASELINE config 5's ring (bench.py:702-705), where K3, K4 and
+# K5 do not fit one block: the unfused route (K7 + K1 inverse, K1 forward
+# + ks_accumulate)
+N16K = 16384
+N16K_MODULI_SIZES = [62] * 6
+N16K_SEED = SEED + 3
+N16K_BATCH = 16
+N16K_MUL_LAUNCHES = {"ntt": 4, "rns_scale": 2, "tensor": 1, "ks_accumulate": 1}
+N16K_ROT_LAUNCHES = {"ntt": 2, "ks_accumulate": 1}
+# phase 13: multiplication bases above 16 limbs (K2's general instance)
+WIDER_SETS = [("8 x 62-bit", [62] * 8, MUL_LAUNCHES),
+              ("8 x 30-bit narrow", [30] * 8, NARROW_MUL_LAUNCHES)]
+WIDER_SEED = SEED + 4
+WIDER_BATCH = 16
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -156,10 +191,12 @@ SHOUP32 = 3
 
 def scale_ops(sc, k_in: int, size: int, coeffs: int) -> int:
     """int32 multiplies of the HPS scaler body on `coeffs` coefficients
-    (csrc/rns_scale_device.cuh)."""
-    # mac_64x128: two low and two high products per input limb
+    (csrc/rns_scale_device.cuh, its fixed form; the chunked form adds one
+    reduction per output and chunk after the first)."""
+    # mul_64x128: two low and two high products per input limb; each
+    # output sums plain 64 x 64 -> 128-bit products
     per = 2 * k_in * (LO + HI)
-    per_out = 2 * RED128 + SHOUP + k_in * SHOUP
+    per_out = 2 * RED128 + SHOUP + k_in * (LO + HI)
     if not sc.factor.is_one:
         # the theta_omega sum, and v * theta_gamma (128 x 128 bits)
         per += 2 * k_in * (LO + HI) + 4 * (LO + HI)
@@ -235,9 +272,57 @@ def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops) -> dict:
     bound = Bound(int32_rate)
     bound.add(nbytes, ops)
     bound_ms, bound_by = bound.result()
-    return {"label": label, "ms": time_ms(kfn, 20), "plain_ms": time_ms(pfn, 3),
+    return {"label": label, "ms": time_ms(kfn, 20), "plain_ms": time_ms(pfn, 1),
             "max_abs_err": err, "bytes": nbytes, "int32_muls": ops,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def k1_case(label, x, tables, sl, inverse):
+    """A run_cases item for K1 on (..., k_sel, n) rows of `tables` (limbs
+    `sl`): each row read and written once, plus its twiddle tables."""
+    from tpufhe_torch.ops import ntt as ntt_mod
+
+    k_sel, n = x.shape[-2:]
+    mod = tables.mod[sl]
+    if inverse:
+        pfn = (lambda: ntt_mod.backward_plain(x, tables.zetas_inv[sl],
+                                              tables.ninv[sl], mod))
+    else:
+        pfn = lambda: ntt_mod.forward_plain(x, tables.omegas[sl], mod)  # noqa: E731
+    direction = "inverse" if inverse else "forward"
+    return (f"{direction} {label} {tuple(x.shape)}",
+            lambda: ntt_mod.ntt_cuda(x, tables, sl, inverse), pfn,
+            2 * x.numel() * 8 + 2 * k_sel * n * 8,
+            x.numel() // n * ntt_ops(n, inverse))
+
+
+def k2_case(label, scaler, x, start, size):
+    """A run_cases item for K2 on x (..., k_in, n) into `size` rows."""
+    k_in, n = x.shape[-2:]
+    coeffs = x.numel() // k_in
+    return (f"{label} {tuple(x.shape)} -> {size} limbs",
+            lambda: scaler.scale_cuda(x, start, size),
+            lambda: scaler.scale_plain(x, start, size),
+            (x.numel() + coeffs * size) * x.element_size(),
+            scale_ops(scaler, k_in, size, coeffs))
+
+
+def ks_case(label, ctx, d, key, add0, add1):
+    """A run_cases item for ks_accumulate on int64 or int32 (narrow) words:
+    the digits and addends read once, the two outputs written once, the key
+    read once (it stays in L2)."""
+    from tpufhe_torch import pipeline
+
+    k, n = ctx.k, ctx.degree
+    plane = d[0].numel()
+    addends = sum(t is not None for t in (add0, add1))
+    shoup = SHOUP32 if ctx.narrow else SHOUP
+    return (f"{label} d {tuple(d.shape)} + {addends} addends -> "
+            f"(2, {', '.join(map(str, d.shape[1:]))})",
+            lambda: pipeline.ks_accumulate_cuda(ctx, d, key, add0, add1),
+            lambda: pipeline.ks_accumulate_plain(ctx, d, key, add0, add1),
+            (plane * (k + addends + 2) + 4 * k * k * n) * d.element_size(),
+            plane * k * 2 * shoup)
 
 
 def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
@@ -333,18 +418,8 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
     s_ext = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
     s_down = rand_residues((3, BATCH, k_mul, n), t_mul.p, gen)
 
-    cases["rns_scale"] = [
-        (f"extend {tuple(s_ext.shape)} -> {k_mul - k} limbs",
-         lambda: ext_rns.scale_cuda(s_ext, k, k_mul - k),
-         lambda: ext_rns.scale_plain(s_ext, k, k_mul - k),
-         (s_ext.numel() + 4 * BATCH * (k_mul - k) * n) * 8,
-         scale_ops(ext_rns, k, k_mul - k, 4 * BATCH * n)),
-        (f"down {tuple(s_down.shape)} -> {k} limbs",
-         lambda: down_rns.scale_cuda(s_down, 0, k),
-         lambda: down_rns.scale_plain(s_down, 0, k),
-         (s_down.numel() + 3 * BATCH * k * n) * 8,
-         scale_ops(down_rns, k_mul, k, 3 * BATCH * n)),
-    ]
+    cases["rns_scale"] = [k2_case("extend", ext_rns, s_ext, k, k_mul - k),
+                          k2_case("down", down_rns, s_down, 0, k)]
 
     # K3: tensor + iNTT over the multiplication basis
     ext = rand_residues((4, BATCH, k_mul, n), t_mul.p, gen)
@@ -386,6 +461,7 @@ def run_cases(name, items, int32_rate, per: str) -> dict:
         bound.add(r["bytes"], r["int32_muls"])
     bound_ms, bound_by = bound.result()
     rec = {"ms": sum(r["ms"] for r in runs),
+           "item_ms": [r["ms"] for r in runs],
            "plain_ms": sum(r["plain_ms"] for r in runs),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "max_abs_err": max(r["max_abs_err"] for r in runs),
@@ -466,21 +542,9 @@ def check_variant_kernels(par, gen, int32_rate: float) -> dict:
     down = rand_residues((3, BATCH, k2, n), t2.p, gen)
     lhs, rhs = x_pb[:2], x_pb[2:]
     out["rns_scale_s2"] = run_cases("rns_scale", [
-        (f"kP=2 lhs extend {tuple(lhs.shape)} -> {k2 - k} limbs",
-         lambda: s2[2].ext.scale_cuda(lhs, k, k2 - k),
-         lambda: s2[2].ext.scale_plain(lhs, k, k2 - k),
-         (lhs.numel() + 2 * BATCH * (k2 - k) * n) * 8,
-         scale_ops(s2[2].ext, k, k2 - k, 2 * BATCH * n)),
-        (f"kP=2 rhs P/q {tuple(rhs.shape)} -> {k2} limbs",
-         lambda: s2[2].rhs.scale_cuda(rhs, 0, k2),
-         lambda: s2[2].rhs.scale_plain(rhs, 0, k2),
-         (rhs.numel() + 2 * BATCH * k2 * n) * 8,
-         scale_ops(s2[2].rhs, k, k2, 2 * BATCH * n)),
-        (f"kP=2 down t/P {tuple(down.shape)} -> {k} limbs",
-         lambda: s2[2].down.scale_cuda(down, 0, k),
-         lambda: s2[2].down.scale_plain(down, 0, k),
-         (down.numel() + 3 * BATCH * k * n) * 8,
-         scale_ops(s2[2].down, k2, k, 3 * BATCH * n)),
+        k2_case("kP=2 lhs extend", s2[2].ext, lhs, k, k2 - k),
+        k2_case("kP=2 rhs P/q", s2[2].rhs, rhs, 0, k2),
+        k2_case("kP=2 down t/P", s2[2].down, down, 0, k),
     ], int32_rate, "per kP=2 split mul+relin")
 
     # K3 over the strategy-2 bases
@@ -505,7 +569,9 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
     parts over the 16-limb basis, the tail's forward of 2 + 7 stacked
     parts), at a rotation's two (batch 32) and at N = 512, where tpufhe
     runs its K9; K2 on int32 rows at the extend (7 -> 9 new limbs) and the
-    down-scale (16 -> 7). Returns {label: record}."""
+    down-scale (16 -> 7); ks_accumulate on int32 rows with the relin tail's
+    two addends (batch 64) and the rotation's one (batch 32). Returns
+    {label: record}."""
     from tpufhe_torch.bfv import BfvParametersBuilder
     from tpufhe_torch.ops import ntt as ntt_mod
     from tpufhe_torch.ops.rq import Context
@@ -561,21 +627,103 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
     s_ext = rand_residues((4, BATCH, k, n), t_ctx.p, gen)
     s_down = rand_residues((3, BATCH, k_mul, n), t_mul.p, gen)
     out["rns_scale_int32"] = run_cases("rns_scale", [
-        (f"int32 extend {tuple(s_ext.shape)} -> {k_mul - k} limbs",
-         lambda: ext.scale_cuda(s_ext, k, k_mul - k),
-         lambda: ext.scale_plain(s_ext, k, k_mul - k),
-         (s_ext.numel() + 4 * BATCH * (k_mul - k) * n) * 4,
-         scale_ops(ext, k, k_mul - k, 4 * BATCH * n)),
-        (f"int32 down {tuple(s_down.shape)} -> {k} limbs",
-         lambda: down.scale_cuda(s_down, 0, k),
-         lambda: down.scale_plain(s_down, 0, k),
-         (s_down.numel() + 3 * BATCH * k * n) * 4,
-         scale_ops(down, k_mul, k, 3 * BATCH * n)),
+        k2_case("int32 extend", ext, s_ext, k, k_mul - k),
+        k2_case("int32 down", down, s_down, 0, k),
     ], int32_rate, "per narrow mul+relin")
+    key = random_key(ctx, gen)
+    for name, batch, addends in (("", BATCH, 2), ("_rotation", ROT_BATCH, 1)):
+        d = rand_residues((k, batch, k, n), t_ctx.p, gen)
+        adds = [rand_residues((batch, k, n), t_ctx.p, gen)
+                for _ in range(addends)] + [None] * (2 - addends)
+        out[f"ks_accumulate_int32{name}"] = run_cases("ks_accumulate", [
+            ks_case(f"int32{name.replace('_', ' ')}", ctx, d, key, *adds)],
+            int32_rate, f"per narrow {'rotation' if name else 'mul+relin'}")
     for label in ("ntt32_512_forward", "ntt32_512_inverse"):
         r = out[label]
         log(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return out
+
+
+def check_n16k_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3, the kernels of the N = 16384, 6 x 62-bit programs at batch
+    16, where K3, K4 and K5 do not fit: K1 at a mul+relin's four
+    transforms (the extend's inverse, the forward of the 7 new limbs, the
+    inverse of the 3 tensor parts over the 13-limb basis, the tail's
+    forward of 2 + 6 stacked parts) and at a rotation's two, K2 at the
+    extend (6 -> 7 new limbs) and the down-scale (13 -> 6), K7 over the
+    13-limb basis, ks_accumulate with the relin tail's two addends and with
+    the rotation's one. Returns {label: record of one step's launches}."""
+    from tpufhe_torch import pipeline
+
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n, b = ctx.k, ctx_mul.k, ctx.degree, N16K_BATCH
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+    full, new = slice(None), slice(k, k_mul)
+    out = {}
+    out["ntt"] = run_cases("ntt", [
+        k1_case("extend", rand_residues((4, b, k, n), t_ctx.p, gen), t_ctx,
+                full, True),
+        k1_case(f"new limbs {k}..{k_mul}",
+                rand_residues((4, b, k_mul - k, n), t_mul.p[new], gen), t_mul,
+                new, False),
+        k1_case("tensor parts", rand_residues((3, b, k_mul, n), t_mul.p, gen),
+                t_mul, full, True),
+        k1_case("tail", rand_residues((2 + k, b, k, n), t_ctx.p, gen), t_ctx,
+                full, False),
+    ], int32_rate, "per N = 16384 mul+relin")
+    out["ntt_rotation"] = run_cases("ntt", [
+        k1_case("rotation c1", rand_residues((b, k, n), t_ctx.p, gen), t_ctx,
+                full, True),
+        k1_case("rotation digits", rand_residues((k, b, k, n), t_ctx.p, gen),
+                t_ctx, full, False),
+    ], int32_rate, "per N = 16384 rotation")
+    out["rns_scale"] = run_cases("rns_scale", [
+        k2_case("N = 16384 extend", mp.extender.rns_scaler,
+                rand_residues((4, b, k, n), t_ctx.p, gen), k, k_mul - k),
+        k2_case("N = 16384 down", mp.down_scaler.rns_scaler,
+                rand_residues((3, b, k_mul, n), t_mul.p, gen), 0, k),
+    ], int32_rate, "per N = 16384 mul+relin")
+    ops = [rand_residues((b, k_mul, n), t_mul.p, gen) for _ in range(4)]
+    out["tensor"] = run_cases("tensor", [
+        (f"{tuple(ops[0].shape)} x 4 -> (3, {b}, {k_mul}, {n})",
+         lambda: pipeline.tensor_cuda(ctx_mul, *ops),
+         lambda: pipeline.tensor_plain(ctx_mul, *ops),
+         (7 * b * k_mul * n + 3 * k_mul) * 8, b * k_mul * n * TENSOR_OPS)],
+        int32_rate, "per N = 16384 mul+relin")
+    key = random_key(ctx, gen)
+    d = rand_residues((k, b, k, n), t_ctx.p, gen)
+    a0 = rand_residues((b, k, n), t_ctx.p, gen)
+    a1 = rand_residues((b, k, n), t_ctx.p, gen)
+    out["ks_accumulate"] = run_cases("ks_accumulate", [
+        ks_case("relin", ctx, d, key, a0, a1)], int32_rate,
+        "per N = 16384 mul+relin")
+    out["ks_accumulate_rotation"] = run_cases("ks_accumulate", [
+        ks_case("rotation", ctx, d, key, a0, None)], int32_rate,
+        "per N = 16384 rotation")
+    return out
+
+
+def check_wider_kernels(pars, gen, int32_rate: float) -> dict:
+    """Phase 3, K2 on the multiplication bases above 16 limbs at N = 8192,
+    batch 16 (phase 13's sets): the extend (fixed instances) and the
+    down-scale from 17 limbs (8 x 62-bit, int64 rows) and from 18 (8 x 30
+    narrow, int32 rows), the general instance. Returns {label: record}."""
+    out = {}
+    for (label, _, _), par in zip(WIDER_SETS, pars):
+        ctx = par.context_at_level(0)
+        mp = par.context_level_at(0).mul_params()
+        k, k_mul, n = ctx.k, mp.to_ctx.k, ctx.degree
+        out[label] = run_cases("rns_scale", [
+            k2_case(f"{label} extend", mp.extender.rns_scaler,
+                    rand_residues((4, WIDER_BATCH, k, n), ctx.tables.p, gen),
+                    k, k_mul - k),
+            k2_case(f"{label} down", mp.down_scaler.rns_scaler,
+                    rand_residues((3, WIDER_BATCH, k_mul, n),
+                                  mp.to_ctx.tables.p, gen), 0, k),
+        ], int32_rate, f"per {label} mul+relin")
     return out
 
 
@@ -643,7 +791,8 @@ def main_path(par) -> SimpleNamespace:
         raise SystemExit("product noise leaves no budget")
     return SimpleNamespace(sk=sk, rk=rk, va=va, vb=vb,
                            inputs=(a0, a1, b0, b1), step=step,
-                           launches=launches, product=(c0, c1))
+                           launches=launches, product=(c0, c1),
+                           margin=sum(MODULI_SIZES) - prod)
 
 
 def run_program(name: str, fn, args, expected: dict):
@@ -808,9 +957,9 @@ def narrow_path(par) -> dict:
     programs, then mul+relin and the square at batch 64, a column rotation
     by 1 at batch 32 and the inner sum at batch 16. Each program runs with
     the launch counters set to 0 just before it and must read its exact
-    counts (ntt32 and rns_scale only, no wide kernel); every slot of every
-    output is checked after decryption. Returns {program: (step, inputs,
-    launches)}."""
+    counts (ntt32, rns_scale and ks_accumulate only, no wide kernel);
+    every slot of every output is checked after decryption. Returns
+    {program: (step, inputs, launches)}."""
     from tpufhe_torch.bfv import (
         Encoding,
         EvaluationKeyBuilder,
@@ -903,7 +1052,8 @@ def narrow_path(par) -> dict:
                          np.roll(va[:ROT_BATCH, h:], -1, axis=1)], axis=1)),
         ("inner_sum", f"narrow inner sum, batch {SUM_BATCH}",
          make_inner_sum(par, ek), sum_in,
-         {"ntt32": 2 * rots}, np.repeat(sums[:, None], n, axis=1)),
+         {"ntt32": 2 * rots, "ks_accumulate": rots},
+         np.repeat(sums[:, None], n, axis=1)),
     ]
     out = {}
     for key, name, step, inputs, expected, want in cases:
@@ -923,8 +1073,10 @@ def narrow_rates(programs: dict, records: dict, card: str) -> dict:
     steps = {"mul_relin": RATE_STEPS, "square": RATE_STEPS,
              "rotate": ROT_RATE_STEPS, "inner_sum": SUM_RATE_STEPS}
     kernel_ms = {
-        "mul_relin": records["ntt32"]["ms"] + records["rns_scale_int32"]["ms"],
-        "rotate": records["ntt32_rotation"]["ms"]}
+        "mul_relin": records["ntt32"]["ms"] + records["rns_scale_int32"]["ms"]
+        + records["ks_accumulate_int32"]["ms"],
+        "rotate": records["ntt32_rotation"]["ms"]
+        + records["ks_accumulate_int32_rotation"]["ms"]}
     out = {}
     for name, (step, inputs, _) in programs.items():
         def chained(step=step, inputs=inputs, reps=steps[name]):
@@ -942,6 +1094,159 @@ def narrow_rates(programs: dict, records: dict, card: str) -> dict:
         log(f"  {steps[name]} chained narrow {name} steps at batch "
             f"{len(inputs[0])}: {ms:.3f} ms/step, "
             f"{len(inputs[0]) / ms * 1e3:.1f} ops/s{split} on {card}")
+    return out
+
+
+def chained_ms(step, inputs, reps: int) -> float:
+    """Device ms per step of `reps` chained steps (outputs fed back as the
+    first two inputs), by CUDA events after a warm-up."""
+    def run():
+        c0, c1 = inputs[:2]
+        for _ in range(reps):
+            c0, c1 = step(c0, c1, *inputs[2:])
+        return c0
+
+    return time_ms(run, 1) / reps
+
+
+def n16k_path(par, margin: int) -> dict:
+    """Phase 12, BASELINE config 5's ring at full width (N = 16384, 6 x
+    62-bit, t = 65537, seed 2029): secret, relinearization and column
+    rotation keys, 2 x 16 SIMD encryptions, then mul+relin, the square and
+    a column rotation by 1 at batch 16 on the unfused route, each run with
+    the counters set to 0 just before it and held to its exact counts;
+    every slot of every output checked, the noise printed and held to
+    leave at least `margin` bits of q (the N = 8192 product's). Returns
+    {program: (step, inputs, launches)}."""
+    from tpufhe_torch import kernels, pipeline
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n, b = par.plaintext.value, par.degree(), N16K_BATCH
+    ctx = par.context_at_level(0)
+    if kernels.tail_fits(n):
+        raise SystemExit(f"K3-K5 unexpectedly fit at N = {n}")
+    log(f"  multiplication basis {par.context_level_at(0).mul_params().to_ctx.k}"
+        f" limbs; route unfused (kernels.tail_fits({n}) is false)")
+    rng = ChaCha8Rng(seed_from_u64(N16K_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng)
+    ek = EvaluationKeyBuilder(sk).enable_column_rotation(1).build(rng)
+    torch.cuda.synchronize()
+    log(f"  keygen (sk + rk + {len(ek.gk)} Galois key) "
+        f"{time.perf_counter() - t0:.2f} s")
+    vals = np.random.default_rng(N16K_SEED)
+    va = vals.integers(0, t, (b, n), dtype=np.uint64)
+    vb = vals.integers(0, t, (b, n), dtype=np.uint64)
+    t0 = time.perf_counter()
+    cas, cbs = ([sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par),
+                                rng) for v in vs] for vs in (va, vb))
+    torch.cuda.synchronize()
+    log(f"  SIMD encode + encrypt {2 * b} ciphertexts "
+        f"{time.perf_counter() - t0:.2f} s, noise fresh "
+        f"{sk.measure_noise(cas[0])} bits")
+    a0, a1, b0, b1 = (torch.stack([c[i] for c in cs])
+                      for cs in (cas, cbs) for i in (0, 1))
+    va_o, vb_o = va.astype(object), vb.astype(object)
+    h = n // 2
+    cases = [
+        ("mul_relin", f"N = {n} mul+relin of {b} pairs",
+         pipeline.make_mul_relin(par, rk), (a0, a1, b0, b1), N16K_MUL_LAUNCHES,
+         (va_o * vb_o % t).astype(np.uint64)),
+        ("square", f"N = {n} square of {b}", pipeline.make_square_relin(par, rk),
+         (a0, a1), N16K_MUL_LAUNCHES, (va_o * va_o % t).astype(np.uint64)),
+        ("rotate", f"N = {n} rotate columns by 1, batch {b}",
+         pipeline.make_rotate(par, ek.gk[ek.rot_to_gk_exponent[1]]), (a0, a1),
+         N16K_ROT_LAUNCHES,
+         np.concatenate([np.roll(va[:, :h], -1, axis=1),
+                         np.roll(va[:, h:], -1, axis=1)], axis=1)),
+    ]
+    out = {}
+    q_bits = sum(N16K_MODULI_SIZES)
+    for key, name, step, inputs, expected, want in cases:
+        (c0, c1), launches = run_program(name, step, inputs, expected)
+        if tuple(c0.shape) != (b, ctx.k, n):
+            raise SystemExit(f"{name}: output shape {tuple(c0.shape)}")
+        check_outputs(name, par, sk, c0, c1, want, Encoding.simd())
+        noise = sk.measure_noise(Ciphertext(par, [c0[0], c1[0]], 0))
+        if q_bits - noise < margin:
+            raise SystemExit(f"{name}: noise {noise} bits leaves "
+                             f"{q_bits - noise} of q, below {margin}")
+        out[key] = (step, inputs, launches)
+    return out
+
+
+def n16k_rates(programs: dict, records: dict, card: str) -> dict:
+    """Phase 12's rates: chained batch-16 steps of each program, with the
+    kernels' share (their phase-3 times; the square extends 2 parts where
+    the mul+relin extends 4, so its extend's K1 pair and K2 take half the
+    mul+relin's) and the glue's (the rest). Returns {program: ms}."""
+    mul_kernels = sum(records[key]["ms"] for key in
+                      ("ntt", "rns_scale", "tensor", "ks_accumulate"))
+    ntt_ms, scale_ms = records["ntt"]["item_ms"], records["rns_scale"]["item_ms"]
+    square_kernels = mul_kernels - (ntt_ms[0] + ntt_ms[1] + scale_ms[0]) / 2
+    kernel_ms = {"mul_relin": mul_kernels, "square": square_kernels,
+                 "rotate": records["ntt_rotation"]["ms"]
+                 + records["ks_accumulate_rotation"]["ms"]}
+    reps = {"mul_relin": RATE_STEPS, "square": RATE_STEPS,
+            "rotate": ROT_RATE_STEPS}
+    out = {}
+    for name, (step, inputs, _) in programs.items():
+        ms = out[name] = chained_ms(step, inputs, reps[name])
+        log(f"  {reps[name]} chained N = {N16K} {name} steps at batch "
+            f"{N16K_BATCH}: {ms:.3f} ms/step, {N16K_BATCH / ms * 1e3:.1f} "
+            f"ops/s, kernels {kernel_ms[name]:.3f} ms, glue "
+            f"{ms - kernel_ms[name]:.3f} ms on {card}")
+    return out
+
+
+def wider_path(pars, card: str) -> dict:
+    """Phase 13: mul+relin at batch 16 on the N = 8192 sets whose
+    multiplication basis has more than 16 limbs (8 x 62-bit: 17, int64
+    rows; 8 x 30-bit narrow: 18, int32 rows), where the down-scale runs
+    K2's general instance: keygen, 2 x 16 SIMD encryptions, one step held
+    to its exact launch counts, every slot checked, then chained steps
+    timed. Returns {label: launches}."""
+    from tpufhe_torch.bfv import Encoding, Plaintext, RelinearizationKey, SecretKey
+    from tpufhe_torch.pipeline import make_mul_relin
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    out = {}
+    for (label, _, expected), par in zip(WIDER_SETS, pars):
+        t, n, b = par.plaintext.value, par.degree(), WIDER_BATCH
+        ctx = par.context_at_level(0)
+        k_mul = par.context_level_at(0).mul_params().to_ctx.k
+        log(f"  {label}: moduli {list(ctx.moduli)}, multiplication basis "
+            f"{k_mul} limbs, rows {ctx.dtype}")
+        rng = ChaCha8Rng(seed_from_u64(WIDER_SEED))
+        sk = SecretKey.random(par, rng)
+        rk = RelinearizationKey.new(sk, rng)
+        vals = np.random.default_rng(WIDER_SEED)
+        va = vals.integers(0, t, (b, n), dtype=np.uint64)
+        vb = vals.integers(0, t, (b, n), dtype=np.uint64)
+        cas, cbs = ([sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(),
+                                                         par), rng)
+                     for v in vs] for vs in (va, vb))
+        inputs = tuple(torch.stack([c[i] for c in cs])
+                       for cs in (cas, cbs) for i in (0, 1))
+        step = make_mul_relin(par, rk)
+        (c0, c1), launches = run_program(f"{label} mul+relin of {b} pairs",
+                                         step, inputs, expected)
+        check_outputs(f"{label} mul+relin", par, sk, c0, c1,
+                      (va.astype(object) * vb.astype(object) % t
+                       ).astype(np.uint64), Encoding.simd())
+        ms = chained_ms(step, inputs, RATE_STEPS)
+        log(f"  {RATE_STEPS} chained {label} mul+relin steps at batch {b}: "
+            f"{ms:.3f} ms/step, {b / ms * 1e3:.1f} mul+relin/s on {card}")
+        out[label] = launches
     return out
 
 
@@ -986,6 +1291,12 @@ def main() -> int:
                .set_moduli_sizes(NARROW_MODULI_SIZES).build())
     if not par_w30.context_at_level(0).narrow:
         raise SystemExit("7 x 30-bit parameters did not select the narrow mode")
+    par_16k = (BfvParametersBuilder().set_degree(N16K)
+               .set_plaintext_modulus(PLAINTEXT)
+               .set_moduli_sizes(N16K_MODULI_SIZES).build())
+    par_wider = [BfvParametersBuilder().set_degree(DEGREE)
+                 .set_plaintext_modulus(PLAINTEXT).set_moduli_sizes(sizes)
+                 .build() for _, sizes, _ in WIDER_SETS]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
@@ -998,6 +1309,9 @@ def main() -> int:
     records["intt_scale"] = variant_records["intt_scale"]
     narrow_records = check_narrow_kernels(par_w30, gen, int32_rate)
     records["ntt32"] = narrow_records["ntt32"]
+    n16k_records = check_n16k_kernels(par_16k, gen, int32_rate)
+    records["ks_accumulate"] = n16k_records["ks_accumulate"]
+    wider_records = check_wider_kernels(par_wider, gen, int32_rate)
 
     log("phase 4: main path")
     mp = main_path(par)
@@ -1069,17 +1383,33 @@ def main() -> int:
     log("phase 11: narrow rates")
     narrow_rates(narrow, narrow_records, card)
 
+    log(f"phase 12: N = {N16K}, 6 x 62-bit (unfused route)")
+    n16k = n16k_path(par_16k, mp.margin)
+    n16k_rates(n16k, n16k_records, card)
+
+    log(f"phase 13: multiplication bases above 16 limbs, N = {DEGREE}")
+    wider_path(par_wider, card)
+
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
             "tensor": ("square", variants["square"][1]),
             "intt_scale": ("default fused mul+relin",
                            variants["default fused"][1]),
-            "ntt32": ("narrow mul+relin", narrow["mul_relin"][2])}
+            "ntt32": ("narrow mul+relin", narrow["mul_relin"][2]),
+            "ks_accumulate": (f"N = {N16K} mul+relin", n16k["mul_relin"][2])}
     other_shapes = {
         "ntt": {label: side[label] for label in side
-                if label.startswith("ntt_")},
+                if label.startswith("ntt_")}
+        | {"n16384": n16k_records["ntt"],
+           "n16384_rotation": n16k_records["ntt_rotation"]},
         "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"],
-                      "narrow_int32": narrow_records["rns_scale_int32"]},
+                      "narrow_int32": narrow_records["rns_scale_int32"],
+                      "n16384": n16k_records["rns_scale"]}
+        | {label: rec for label, rec in wider_records.items()},
+        "tensor": {"n16384": n16k_records["tensor"]},
+        "ks_accumulate": {"rotation": n16k_records["ks_accumulate_rotation"]}
+        | {label: narrow_records[label] for label in
+           ("ks_accumulate_int32", "ks_accumulate_int32_rotation")},
         "tensor_intt": {f"strategy2_kp{kp}":
                         variant_records[f"tensor_intt_s2_kp{kp}"]
                         for kp in (1, 2)},

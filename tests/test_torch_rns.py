@@ -81,6 +81,31 @@ def test_plain_scaler_matches_scale_host(params_1024, shape):
             assert [int(v) for v in got[r, :, c]] == want, (shape, r, c)
 
 
+@pytest.mark.parametrize("sizes,k_in", [([62] * 8, 17), ([30] * 8, 18)])
+def test_plain_down_scale_above_16_limbs_matches_scale_host(sizes, k_in):
+    """The t/q down-scales whose multiplication basis has more than 16
+    limbs (8 x 62-bit, and the narrow 8 x 30-bit on int32 rows), which the
+    card runs on K2's general instance."""
+    n = 1024
+    jp = (J.BfvParametersBuilder().set_degree(n).set_plaintext_modulus(65537)
+          .set_moduli_sizes(sizes).build())
+    tp = (T.BfvParametersBuilder().set_degree(n).set_plaintext_modulus(65537)
+          .set_moduli_sizes(sizes).set_device("cpu").build())
+    jsc, start, size = _scalers(jp)["down"]
+    tsc, _, _ = _scalers(tp)["down"]
+    assert tsc._k_in == k_in and tsc.theta_garner_shift == jsc.theta_garner_shift
+    dtype = tp.context_at_level(0).dtype
+    x = _inputs(tsc, 3, n, 13, adversarial=True)
+    got = tsc.scale(torch.from_numpy(x).to(dtype), start, size)
+    assert got.dtype == dtype and got.shape == (3, size, n)
+    got = got.numpy()
+    for r in range(3):
+        for c in (range(n) if r < 2 else range(0, n, 7)):
+            want = jsc.scale_host([int(v) for v in x[r, :, c]], size=size,
+                                  starting_index=start)
+            assert [int(v) for v in got[r, :, c]] == want, (r, c)
+
+
 @pytest.mark.parametrize("shape", ["extend", "down", "decrypt"])
 def test_plain_scaler_matches_tpufhe_scale(params_8192, shape):
     jp, tp = params_8192

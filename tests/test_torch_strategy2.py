@@ -327,7 +327,8 @@ def test_intt_scale_fits():
     assert intt_scale_fits(3, 8192)
     assert not intt_scale_fits(4, 8192)  # 256 KB of shared memory
     assert intt_scale_fits(16, 1024)
-    assert not intt_scale_fits(17, 16)  # the scaler's register array
+    assert intt_scale_fits(17, 16)  # the scaler body takes any k_in
+    assert not intt_scale_fits(0, 16)
 
 
 def test_ext_fuse_refused_where_limbs_do_not_fit():

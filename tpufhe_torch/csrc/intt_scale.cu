@@ -14,17 +14,17 @@
 // are loaded once into shared memory (k_in n words: 192 KB for 3 limbs at
 // n = 8192), inverse-transformed in lockstep, each limb with its own
 // modulus and twiddles (one barrier per stage for all limbs), and then
-// each thread runs the scaler body of rns_scale_device.cuh (shared with
-// K2) on the residues of its coefficients, read from shared memory, and
-// writes the size outputs once. The power-basis residues never reach
-// device memory.
+// each thread runs the scaler body of rns_scale_device.cuh (its general
+// form, rns_scale_chunked, shared with K2) on the residues of its
+// coefficients, read from shared memory in chunks, and writes the size
+// outputs once. The power-basis residues never reach device memory.
 //
 // Bound on this card: per coefficient it reads 8 k_in bytes and writes
 // 8 size bytes; it runs k_in inverse transforms (3 log2(n) / 2 + 3 64-bit
 // products per element) and the scaler's products, so at n = 8192 the
 // integer-multiply bound is the larger. One block fills an SM's shared
-// memory, so 512 threads per block (up to 128 registers each for the
-// scaler's 256-bit sums) and one wave of rows per 132 blocks.
+// memory, so 512 threads per block (up to 128 registers each) and one wave
+// of rows per 132 blocks.
 #include <cuda_runtime.h>
 
 #include "ntt_device.cuh"
@@ -39,8 +39,8 @@ __global__ void __launch_bounds__(INTT_SCALE_THREADS, 1)
                       const u64* __restrict__ limb_p,
                       const u64* __restrict__ ninv,
                       const u64* __restrict__ ninv_s,
-                      const u64* __restrict__ tab, int start, int size,
-                      int shift, int is_one, int theta_gamma_sign) {
+                      const u64* __restrict__ tab, int size, int shift,
+                      int is_one, int theta_gamma_sign) {
   extern __shared__ u64 smem[];
   const long long row = blockIdx.x;
   const u64* src = x + row * k_in * n;
@@ -48,33 +48,30 @@ __global__ void __launch_bounds__(INTT_SCALE_THREADS, 1)
   __syncthreads();
   ntt_inverse_limbs(smem, k_in, n, logn, zi, zis, ninv, ninv_s, limb_p);
   u64* dst = y + row * size * n;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    u64 r[MAX_K_IN];
-#pragma unroll
-    for (int i = 0; i < MAX_K_IN; ++i)
-      if (i < k_in) r[i] = smem[i * n + c];
-    rns_scale_coeff(r, k_in, tab, start, size, shift, is_one,
-                    theta_gamma_sign, dst + c, n);
-  }
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    rns_scale_chunked<K2_CHUNK>(smem + c, (long long)n, k_in, tab, size,
+                                shift, is_one, theta_gamma_sign, dst + c,
+                                (long long)n);
 }
 
 // rows: batch rows (one block each). zi / zis: the `from` context's
 // (k_in, n) inverse twiddles; limb_p, ninv, ninv_s: its (k_in,) scalars;
-// tab: the scaler's table (layout in rns_scale_device.cuh).
+// tab: the scaler's table for the outputs start .. start + size - 1
+// (layout in rns_scale_device.cuh).
 extern "C" int tpufhe_intt_scale(const void* x, void* y, long long rows,
                                  int k_in, int n, const void* zi,
                                  const void* zis, const void* limb_p,
                                  const void* ninv, const void* ninv_s,
-                                 const void* tab, int start, int size,
-                                 int shift, int is_one, int theta_gamma_sign,
+                                 const void* tab, int size, int shift,
+                                 int is_one, int theta_gamma_sign,
                                  void* stream) {
-  if (k_in > MAX_K_IN || k_in < 1) return (int)cudaErrorInvalidValue;
+  if (k_in < 1) return (int)cudaErrorInvalidValue;
   int logn = 0;
   while ((1 << logn) < n) ++logn;
   const size_t smem = (size_t)k_in * n * sizeof(u64);
   cudaError_t err = cudaFuncSetAttribute(intt_scale_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = n / 2 < INTT_SCALE_THREADS ? n / 2 : INTT_SCALE_THREADS;
-  intt_scale_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>((const u64*)x, (u64*)y, k_in, n, logn, (const u64*)zi, (const u64*)zis, (const u64*)limb_p, (const u64*)ninv, (const u64*)ninv_s, (const u64*)tab, start, size, shift, is_one, theta_gamma_sign);
+  intt_scale_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>((const u64*)x, (u64*)y, k_in, n, logn, (const u64*)zi, (const u64*)zis, (const u64*)limb_p, (const u64*)ninv, (const u64*)ninv_s, (const u64*)tab, size, shift, is_one, theta_gamma_sign);
   return (int)cudaGetLastError();
 }

@@ -101,6 +101,8 @@ TF_HD u32 mulhi32(u32 a, u32 b) {
 
 TF_HD u32 reduce1(u32 x, u32 p) { return x >= p ? x - p : x; }
 
+TF_HD u32 add_mod(u32 a, u32 b, u32 p) { return reduce1(a + b, p); }
+
 // a * b mod p in [0, 2p) for any u32 a, b < p and
 // b_shoup = floor(b 2^32 / p).
 TF_HD u32 lazy_mul_shoup(u32 a, u32 b, u32 b_shoup, u32 p) {

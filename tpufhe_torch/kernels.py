@@ -44,6 +44,11 @@ KERNELS = {
     # the narrow (w30) transform; also stands for tpufhe's four-step
     # ntt_mxu.forward_mxu32 / backward_mxu32, its TPU route at N >= 1024
     "ntt32": ("ntt32.cu", "tpufhe/ops/pallas/ntt32_kernel.py:76 _ntt32_kernel"),
+    # no Pallas counterpart: tpufhe's unfused tail runs this accumulate in
+    # XLA wherever its fused tail kernel does not fit
+    "ks_accumulate": ("ks_accumulate.cu",
+                      "tpufhe/pipeline.py:564-569 _ksk_accumulate (XLA, where "
+                      "tail_kernel_fits is false)"),
 }
 HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")
@@ -51,6 +56,16 @@ HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh",
 # the NTT-based kernels hold whole rows of N words in it (8 bytes a word,
 # 4 for the narrow rows of ntt32).
 SMEM_BYTES = 232448
+
+
+def tail_fits(n: int, word_bytes: int = 8) -> bool:
+    """Whether three rows of n words fit in one block's shared memory: the
+    fused tensor + iNTT (K3) and tail (K4, K5) kernels need it. Where it is
+    false the programs take the unfused composition (K7, K1 and
+    ks_accumulate), as tpufhe does where its tail kernel does not fit."""
+    return 3 * n * word_bytes <= SMEM_BYTES
+
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -21,18 +21,15 @@ from tpufhe_torch import kernels
 from tpufhe_torch.ops.ntt import backward_plain
 from tpufhe_torch.ops.rns import RnsScaler
 
-# the scaler body's register array (MAX_K_IN in csrc/rns_scale_device.cuh)
-MAX_K_IN = 16
-
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-          ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+          ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
          + [ctypes.c_void_p])
 
 
 def intt_scale_fits(k_in: int, n: int) -> bool:
     """Whether K8 takes k_in limbs of degree n: a row's k_in n words must
     fit in one block's shared memory (3 x 8192 words do, 4 do not)."""
-    return 1 <= k_in <= MAX_K_IN and k_in * n * 8 <= kernels.SMEM_BYTES
+    return 1 <= k_in and k_in * n * 8 <= kernels.SMEM_BYTES
 
 
 def intt_scale_plain(ctx, scaler: RnsScaler, x: torch.Tensor,
@@ -70,12 +67,12 @@ def intt_scale_cuda(ctx, scaler: RnsScaler, x: torch.Tensor,
         return y
     tb = ctx.tables
     fn = kernels.function("intt_scale", "tpufhe_intt_scale", _ARGS)
-    tab = scaler.table(x.device)
+    tab = scaler.table(x.device, starting_index, size)
     kernels.count("intt_scale")
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k, n,
              kernels.ptr(tb.zetas_inv), kernels.ptr(tb.zetas_inv_shoup),
              kernels.ptr(tb.p), kernels.ptr(tb.ninv), kernels.ptr(tb.ninv_shoup),
-             kernels.ptr(tab), starting_index, size, scaler.theta_garner_shift,
+             kernels.ptr(tab), size, scaler.theta_garner_shift,
              int(scaler.factor.is_one), int(scaler.theta_gamma_sign),
              kernels.stream())
     kernels.check(err, "intt_scale")

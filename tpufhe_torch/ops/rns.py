@@ -178,22 +178,29 @@ class RnsScaler:
         self._k_out = k_out
         self._tables: dict = {}
 
-    def table(self, device) -> torch.Tensor:
-        """The constant table of K2 and K8 (layout in
-        csrc/rns_scale_device.cuh)."""
-        key = str(device)
+    def table_host(self, starting_index: int, size: int) -> np.ndarray:
+        """The constant table of K2 and K8 for the output rows
+        starting_index .. starting_index + size - 1, as host int64 words
+        (layout in csrc/rns_scale_device.cuh)."""
+        key = (starting_index, size)
         if key not in self._tables:
             words = [self.theta_gamma & _M64, self.theta_gamma >> 64]
             for tg, to, sign in zip(self.theta_garner, self.theta_omega,
                                     self.theta_omega_sign):
                 words += [tg & _M64, tg >> 64, to & _M64, to >> 64, int(sign)]
-            for j, q in enumerate(self.to_ctx.moduli):
+            for j in range(starting_index, starting_index + size):
+                q = self.to_ctx.moduli[j]
                 words += [q.p, q.barrett_lo, q.barrett_hi, self.gamma[j],
-                          self.gamma_shoup[j]]
-                for i in range(self._k_in):
-                    words += [self.omega[j][i], self.omega_shoup[j][i]]
-            arr = zq.as_int64(np.array(words, dtype=np.uint64))
-            self._tables[key] = torch.from_numpy(arr).to(device)
+                          self.gamma_shoup[j]] + self.omega[j]
+            self._tables[key] = zq.as_int64(np.array(words, dtype=np.uint64))
+        return self._tables[key]
+
+    def table(self, device, starting_index: int, size: int) -> torch.Tensor:
+        """table_host's words on `device`."""
+        key = (str(device), starting_index, size)
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(
+                self.table_host(starting_index, size)).to(device)
         return self._tables[key]
 
     def check_rows(self, x: torch.Tensor, starting_index: int,
@@ -225,8 +232,6 @@ class RnsScaler:
                    size: int) -> torch.Tensor:
         """Launch K2 (csrc/rns_scale.cu) on rows of the scaler's dtype."""
         kernels.require_cuda("rns_scale", self.dtype, x)
-        if self._k_in > 16:
-            raise ValueError("rns_scale: the kernel takes at most 16 input limbs")
         n = x.shape[-1]
         y = torch.empty(x.shape[:-2] + (size, n), dtype=self.dtype,
                         device=x.device)
@@ -234,11 +239,13 @@ class RnsScaler:
         if total == 0 or size == 0:
             return y
         fn = kernels.function("rns_scale", "tpufhe_rns_scale", _SCALE_ARGS)
-        tab = self.table(x.device)
+        host = self.table_host(starting_index, size)
+        tab = self.table(x.device, starting_index, size)
         kernels.count("rns_scale")
         err = fn(kernels.ptr(x), kernels.ptr(y), total, n, self._k_in,
-                 kernels.ptr(tab), starting_index, size,
-                 self.theta_garner_shift, int(self.factor.is_one),
+                 kernels.ptr(tab), ctypes.c_void_p(host.ctypes.data),
+                 host.size, size, self.theta_garner_shift,
+                 int(self.factor.is_one),
                  int(self.theta_gamma_sign), x.element_size(),
                  kernels.stream())
         kernels.check(err, "rns_scale")
@@ -297,10 +304,9 @@ class RnsScaler:
         return y
 
 
-_SCALE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p]
+_SCALE_ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+               + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _col(vals, device) -> torch.Tensor:

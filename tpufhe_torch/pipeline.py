@@ -27,17 +27,28 @@ permutation (plain torch, as tpufhe's XLA take), then runs two launches:
 K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
 its Garner digits, key-switch accumulate and the add of the substituted c0.
 
+K3, K4 and K5 hold three rows of N words in one block's shared memory.
+Where they do not fit (``kernels.tail_fits``, false at N = 16384), the
+programs take tpufhe's unfused composition, chosen when they are built
+(tpufhe pipeline.py:476-486, 545-569, 763-779): K7 then K1 inverse over
+the multiplication basis in place of K3; one K1 forward of the stacked
+rows (c0, c1 and the Garner digits of c2, or the digits alone for a
+rotation) then the ``ks_accumulate`` kernel in place of K4 and K5. A
+default mul+relin or square then runs ntt 4, rns_scale 2, tensor 1,
+ks_accumulate 1; a rotation ntt 2, ks_accumulate 1.
+
 On narrow (w30) parameters, whose moduli are all below 2^30, the rows are
 int32 and every transform is K9 (ops/ntt.py ntt32_cuda); the extend and
 down-scale stay K2, on int32 rows. tpufhe turns its other kernels off for
-narrow contexts, and so does the port: the tensor product, the key-switch
-digits and accumulate and the adds are zq32 glue (``tensor32``,
-``relin_tail32``, ``_ksk_digits``, ``_ksk_accumulate``). Launches: ntt32 4
-and rns_scale 2 per mul+relin or square, ntt32 2 per rotation.
+narrow contexts, and so does the port: the programs take the unfused
+composition, with the tensor product (``tensor32``) as zq32 glue and the
+key-switch accumulate and adds as ``ks_accumulate`` on int32 words.
+Launches: ntt32 4, rns_scale 2 and ks_accumulate 1 per mul+relin or
+square, ntt32 2 and ks_accumulate 1 per rotation.
 
 Tensors are (..., k, N) on the parameters' device, int64 (int32 when
-narrow); leading dimensions are the batch. K3, K4, K5 and K7 sit in this
-module beside their plain versions.
+narrow); leading dimensions are the batch. K3, K4, K5, K7 and
+ks_accumulate sit in this module beside their plain versions.
 """
 
 from __future__ import annotations
@@ -81,8 +92,8 @@ def _ksk_digits(ctx: Context, c2_pb: torch.Tensor) -> torch.Tensor:
 
 def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
     """sum_i d_i ksk.c{0,1}_i with Shoup products on NTT-domain rows
-    (key_switching_key.rs:227-239); the plain version of K4's
-    accumulate, and the narrow path's own."""
+    (key_switching_key.rs:227-239); the plain version of the accumulate
+    of K4, K5 and ks_accumulate."""
     acc0 = acc1 = None
     for i in range(ksk.c0.shape[0]):
         t0 = ctx.mul_shoup(lifted[i], ksk.c0[i], ksk.c0_shoup[i])
@@ -90,6 +101,14 @@ def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
         acc0 = t0 if acc0 is None else ctx.add(acc0, t0)
         acc1 = t1 if acc1 is None else ctx.add(acc1, t1)
     return acc0, acc1
+
+
+def _check_key(name: str, ksk, k: int, n: int) -> None:
+    """Raise unless the key's four tables are (k, k, n)."""
+    for t in (ksk.c0, ksk.c0_shoup, ksk.c1, ksk.c1_shoup):
+        if tuple(t.shape) != (k, k, n):
+            raise ValueError(f"{name}: key shape {tuple(t.shape)}, "
+                             f"expected ({k}, {k}, {n})")
 
 
 # ---------------------------------------------------------------------------
@@ -103,17 +122,6 @@ def tensor32(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
     (pipeline.py:129-148, _tensor_for)."""
     c1 = ctx.add(ctx.mul(a0, b1), ctx.mul(a1, b0))
     return torch.stack([ctx.mul(a0, b0), c1, ctx.mul(a1, b1)])
-
-
-def relin_tail32(ctx: Context, dsc: torch.Tensor, ksk):
-    """(3, ..., k, N) power-basis (c0, c1, c2) of a narrow context ->
-    NTT-domain (c0 + ks0, c1 + ks1): the Garner digits of c2, one forward
-    NTT (K9) of the stacked (2 + k) parts, the Shoup accumulate and the
-    adds, as tpufhe merges them (pipeline.py:553-569)."""
-    digits = _ksk_digits(ctx, dsc[2])
-    ntts = ntt_forward(ctx, torch.cat([dsc[:2], digits]))
-    ks0, ks1 = _ksk_accumulate(ctx, ntts[2:], ksk)
-    return ctx.add(ntts[0], ks0), ctx.add(ntts[1], ks1)
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +196,7 @@ def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     if ext.shape[0] != 4 or ext.shape[-2:] != (k, n):
         raise ValueError(f"tensor_intt: shape {tuple(ext.shape)}, expected "
                          f"(4, ..., {k}, {n})")
-    if 3 * n * 8 > kernels.SMEM_BYTES:
+    if not kernels.tail_fits(n):
         raise ValueError(f"tensor_intt: degree {n} does not fit in shared memory")
     out = torch.empty((3,) + ext.shape[1:], dtype=torch.int64, device=ext.device)
     rows_k = ext[0].numel() // n
@@ -242,11 +250,8 @@ def relin_tail_cuda(ctx: Context, dsc: torch.Tensor, ksk):
     if dsc.shape[0] != 3 or dsc.shape[-2:] != (k, n):
         raise ValueError(f"relin_tail: shape {tuple(dsc.shape)}, expected "
                          f"(3, ..., {k}, {n})")
-    for t in (ksk.c0, ksk.c0_shoup, ksk.c1, ksk.c1_shoup):
-        if tuple(t.shape) != (k, k, n):
-            raise ValueError(f"relin_tail: key shape {tuple(t.shape)}, "
-                             f"expected ({k}, {k}, {n})")
-    if 3 * n * 8 > kernels.SMEM_BYTES:
+    _check_key("relin_tail", ksk, k, n)
+    if not kernels.tail_fits(n):
         raise ValueError(f"relin_tail: degree {n} does not fit in shared memory")
     out = torch.empty((2,) + dsc.shape[1:], dtype=torch.int64, device=dsc.device)
     rows_k = dsc[0].numel() // n
@@ -301,11 +306,8 @@ def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     if s0.shape != c2_pb.shape or s0.shape[-2:] != (k, n):
         raise ValueError(f"rotate_tail: shapes {tuple(s0.shape)} and "
                          f"{tuple(c2_pb.shape)}, expected (..., {k}, {n})")
-    for t in (ksk.c0, ksk.c0_shoup, ksk.c1, ksk.c1_shoup):
-        if tuple(t.shape) != (k, k, n):
-            raise ValueError(f"rotate_tail: key shape {tuple(t.shape)}, "
-                             f"expected ({k}, {k}, {n})")
-    if 3 * n * 8 > kernels.SMEM_BYTES:
+    _check_key("rotate_tail", ksk, k, n)
+    if not kernels.tail_fits(n):
         raise ValueError(f"rotate_tail: degree {n} does not fit in shared memory")
     out = torch.empty((2,) + s0.shape, dtype=torch.int64, device=s0.device)
     rows_k = s0.numel() // n
@@ -333,8 +335,100 @@ def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
 
 
 # ---------------------------------------------------------------------------
+# The unfused tails: ks_accumulate (csrc/ks_accumulate.cu)
+# ---------------------------------------------------------------------------
+
+_KS_ACCUMULATE_ARGS = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def ks_accumulate_plain(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
+                        add1=None) -> torch.Tensor:
+    """NTT-domain digit rows (k, ..., k, N) -> stacked (2, ..., k, N)
+    (add0 + sum_i d_i ksk0_i, add1 + sum_i d_i ksk1_i), no add where an
+    addend is None: _ksk_accumulate and the adds, the plain version of
+    ks_accumulate."""
+    ks0, ks1 = _ksk_accumulate(ctx, lifted, ksk)
+    if add0 is not None:
+        ks0 = ctx.add(add0, ks0)
+    if add1 is not None:
+        ks1 = ctx.add(add1, ks1)
+    return torch.stack([ks0, ks1])
+
+
+def ks_accumulate_cuda(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
+                       add1=None) -> torch.Tensor:
+    """Launch ks_accumulate on the context's words (int64, or int32 for a
+    narrow context)."""
+    addends = [t for t in (add0, add1) if t is not None]
+    kernels.require_cuda("ks_accumulate", ctx.dtype, lifted, ksk.c0,
+                         ksk.c0_shoup, ksk.c1, ksk.c1_shoup, *addends)
+    k, n = ctx.k, ctx.degree
+    if lifted.shape[0] != k or lifted.shape[-2:] != (k, n):
+        raise ValueError(f"ks_accumulate: shape {tuple(lifted.shape)}, "
+                         f"expected ({k}, ..., {k}, {n})")
+    if any(t.shape != lifted.shape[1:] for t in addends):
+        raise ValueError("ks_accumulate: addends must be "
+                         f"{tuple(lifted.shape[1:])}")
+    _check_key("ks_accumulate", ksk, k, n)
+    out = torch.empty((2,) + lifted.shape[1:], dtype=ctx.dtype,
+                      device=lifted.device)
+    plane = lifted[0].numel()
+    if plane == 0:
+        return out
+    fn = kernels.function("ks_accumulate", "tpufhe_ks_accumulate",
+                          _KS_ACCUMULATE_ARGS)
+    kernels.count("ks_accumulate")
+    err = fn(kernels.ptr(lifted),
+             None if add0 is None else kernels.ptr(add0),
+             None if add1 is None else kernels.ptr(add1), kernels.ptr(out),
+             plane, k, n, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
+             kernels.ptr(ctx.tables.p), lifted.element_size(),
+             kernels.stream())
+    kernels.check(err, "ks_accumulate")
+    return out
+
+
+def ks_accumulate(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
+                  add1=None) -> torch.Tensor:
+    if lifted.device.type == "cuda":
+        return ks_accumulate_cuda(ctx, lifted, ksk, add0, add1)
+    if lifted.device.type != "cpu":
+        raise ValueError(f"ks_accumulate: unsupported device {lifted.device}")
+    return ks_accumulate_plain(ctx, lifted, ksk, add0, add1)
+
+
+def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk):
+    """What K4 computes, unfused: the Garner digits of c2, one forward NTT
+    of the stacked (c0, c1, digits) and the accumulate with the two adds,
+    as tpufhe merges them (pipeline.py:559-569)."""
+    digits = _ksk_digits(ctx, dsc[2])
+    ntts = ntt_forward(ctx, torch.cat([dsc[:2], digits]))
+    c0, c1 = ks_accumulate(ctx, ntts[2:], ksk, ntts[0], ntts[1])
+    return c0, c1
+
+
+def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
+                        ksk):
+    """What K5 computes, unfused: the forward NTT of c2's Garner digits and
+    the accumulate with the add of s0 (tpufhe pipeline.py:778-779,
+    _key_switch_batched)."""
+    lifted = ntt_forward(ctx, _ksk_digits(ctx, c2_pb))
+    c0, c1 = ks_accumulate(ctx, lifted, ksk, s0)
+    return c0, c1
+
+
+# ---------------------------------------------------------------------------
 # Programs
 # ---------------------------------------------------------------------------
+
+
+def _fused_tail(ctx: Context) -> bool:
+    """Whether the programs over ctx run the fused kernels K3, K4 and K5:
+    wide rows whose three rows of N words fit one block."""
+    return not ctx.narrow and kernels.tail_fits(ctx.degree)
 
 
 @dataclass(frozen=True)
@@ -396,14 +490,17 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     launch; it raises UnsupportedOperation where intt_scale_fits is false.
     Launches per step: default 6 (ntt 2, rns_scale 2, tensor_intt 1,
     relin_tail 1), fused 5; strategy 2 split 8 (ntt 3, rns_scale 3), fused
-    7 (intt_scale 2, ntt 2, rns_scale 1).
+    7 (intt_scale 2, ntt 2, rns_scale 1). Where kernels.tail_fits is false
+    (N = 16384) K7 + K1 inverse and K1 forward + ks_accumulate replace K3
+    and K4: default 8 (ntt 4, rns_scale 2, tensor 1, ks_accumulate 1).
 
     On narrow (w30) parameters the default strategy runs as tpufhe's narrow
     composition (pipeline.py:509-569 with its tail, tensor+iNTT and fused
     extend kernels off): K9 inverse, K2 extend, K9 forward of the new
     limbs, tensor32, K9 inverse over the basis, K2 down-scale, then
-    relin_tail32 (one K9 forward): ntt32 4, rns_scale 2. Strategy 2 and
-    ext_fuse raise UnsupportedOperation there (K8 is a wide kernel)."""
+    relin_tail_unfused (one K9 forward, ks_accumulate): ntt32 4,
+    rns_scale 2, ks_accumulate 1. Strategy 2 and ext_fuse raise UnsupportedOperation there
+    (K8 is a wide kernel)."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
@@ -416,6 +513,8 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     if ext_fuse and not intt_scale_fits(k, ctx.degree):
         raise UnsupportedOperation(
             f"the fused extend does not take {k} limbs of degree {ctx.degree}")
+    fused = _fused_tail(ctx)
+    square = tensor32 if ctx.narrow else tensor
 
     def new_limbs(x, x_pb):
         """The extend's new limbs k .. k_mul of x in the NTT domain, from
@@ -442,14 +541,14 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
             else:
                 rhs = mb.rhs.scale(x_pb[2:], starting_index=0, size=k_mul)
             ext = torch.cat([lhs, ntt_forward(ctx_mul, rhs)])
-        # tensor product + inverse NTT, then the down-scale
-        if ctx.narrow:
-            t_pb = ntt_backward(ctx_mul, tensor32(ctx_mul, *ext))
-            dsc = mb.down.scale(t_pb, starting_index=0, size=k)
-            return relin_tail32(ctx, dsc, ksk)
-        t_pb = tensor_intt(ctx_mul, ext)
+        # tensor product + inverse NTT, the down-scale, then the tail
+        if fused:
+            dsc = mb.down.scale(tensor_intt(ctx_mul, ext), starting_index=0,
+                                size=k)
+            return relin_tail(ctx, dsc, ksk)
+        t_pb = ntt_backward(ctx_mul, square(ctx_mul, *ext))
         dsc = mb.down.scale(t_pb, starting_index=0, size=k)
-        return relin_tail(ctx, dsc, ksk)
+        return relin_tail_unfused(ctx, dsc, ksk)
 
     return step
 
@@ -459,17 +558,19 @@ def make_square_relin(par: BfvParameters, rk, level: int = 0):
     pipeline.py:584-621) in seven launches: K1 inverse of (a0, a1), K2
     extend, K1 forward of the new limbs, K7 on (a0, a1, a0, a1), K1 inverse
     of the three parts over k_mul, K2 down-scale, then the K4 tail (the
-    function of tpufhe's forward NTT + accumulate + adds there). On narrow
-    parameters tensor32 and relin_tail32 take the places of K7 and K4:
-    ntt32 4, rns_scale 2."""
+    function of tpufhe's forward NTT + accumulate + adds there). Where
+    kernels.tail_fits is false, relin_tail_unfused takes K4's place: ntt 4,
+    rns_scale 2, tensor 1, ks_accumulate 1. On narrow parameters tensor32
+    and relin_tail_unfused take the places of K7 and K4: ntt32 4,
+    rns_scale 2, ks_accumulate 1."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
     mb = mul_basis(par, level)
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
-    square, tail = ((tensor32, relin_tail32) if ctx.narrow
-                    else (tensor, relin_tail))
+    square = tensor32 if ctx.narrow else tensor
+    tail = relin_tail if _fused_tail(ctx) else relin_tail_unfused
 
     def step(a0, a1):
         x = torch.stack([a0, a1])
@@ -516,32 +617,30 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
 def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     """(c0, c1) -> the Galois-rotated ciphertext (galois_key.rs:62-87):
     substitute both parts, inverse NTT of the substituted c1 (K1), then
-    the key switch and the add of the substituted c0 (K5). On a narrow
-    context the key switch is tpufhe's narrow composition
-    (_key_switch_batched, pipeline.py:778-779): the Garner digits, their
-    forward NTT (K9, after K9's inverse) and the zq32 accumulate. Only keys
-    at the ciphertext's level are ported; leveled keys need the
-    switch-down."""
+    the key switch and the add of the substituted c0 (K5). Where K5 does
+    not fit (kernels.tail_fits false) and on a narrow context, the key
+    switch is tpufhe's unfused composition (_key_switch_batched,
+    pipeline.py:778-779): the Garner digits, their forward NTT (K1, or K9
+    when narrow) and ks_accumulate. Only keys at the ciphertext's level are ported; leveled keys
+    need the switch-down."""
     if ksk.ciphertext_level != ksk.ksk_level or ksk.ctx_ciphertext is not ctx:
         raise UnsupportedOperation(
             "only Galois keys at the ciphertext's level are ported")
+    tail = rotate_tail if _fused_tail(ctx) else rotate_tail_unfused
 
     def rot(c0, c1):
         s0 = substitute(c0, exp, ntt=True)
         c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
-        if ctx.narrow:
-            lifted = ntt_forward(ctx, _ksk_digits(ctx, c2_pb))
-            ks0, ks1 = _ksk_accumulate(ctx, lifted, ksk)
-            return ctx.add(ks0, s0), ks1
-        return rotate_tail(ctx, s0, c2_pb, ksk)
+        return tail(ctx, s0, c2_pb, ksk)
 
     return rot
 
 
 def make_rotate(par: BfvParameters, gk, level: int = 0):
     """(c0, c1) -> Galois rotation of NTT-domain (..., k, N) parts by the
-    key's element: two launches per call, K1 then K5 (ntt32 twice on
-    narrow parameters)."""
+    key's element: two launches per call, K1 then K5. Where
+    kernels.tail_fits is false: ntt 2, ks_accumulate 1; on narrow
+    parameters ntt32 2, ks_accumulate 1."""
     return _rotate_step(par.context_at_level(level), gk.element, gk.ksk)
 
 
