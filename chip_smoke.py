@@ -9,12 +9,17 @@ Phases, in order; any failure exits nonzero before the last line:
    parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
    does not build;
 3. kernels: each kernel against its plain torch version, compared with
-   torch.equal, and both timed with CUDA events: ntt, rns_scale,
-   tensor_intt and relin_tail at the shapes of the N = 8192, L = 3 x 62-bit,
-   batch-64 mul+relin; tensor at the square's shapes, intt_scale at the
+   torch.equal, and both timed with CUDA events: ntt, rns_scale and
+   tensor_intt at the shapes of the N = 8192, L = 3 x 62-bit, batch-64
+   mul+relin; relin_tail at that mul+relin's (3, 64, 3, 8192), at phase
+   13's 8 x 62-bit (3, 16, 8, 8192) and at BASELINE config 2's ring
+   (3, 8, 2, 4096), rotate_tail at the N = 8192, 4 x 62-bit batch-32
+   rotation (32, 4, 8192) and at (8, 2, 4096), each tail beside its
+   unfused composition on the same inputs (unfused_ms) with its cluster
+   and CTAs per SM; tensor at the square's shapes, intt_scale at the
    fused extend's (default and strategy 2), rns_scale and tensor_intt at
-   strategy 2's; rotate_tail and the rotation's inverse ntt at the
-   N = 8192, 4 x 62-bit, batch-32 rotation; ntt at N = 16 and 512 (the
+   strategy 2's; the rotation's inverse ntt at the batch-32 rotation;
+   ntt at N = 16 and 512 (the
    small degrees tpufhe's other NTT kernel serves); ntt32 at the four
    transforms of the narrow N = 8192, 7 x 30-bit, batch-64 mul+relin, at
    the narrow rotation's two and at N = 512, and rns_scale on its int32
@@ -60,7 +65,8 @@ Phases, in order; any failure exits nonzero before the last line:
 11. narrow rates: chained steps of the four narrow programs, with the
     kernels' and the glue's share of a mul+relin and a rotation;
 12. N = 16384 (seed 2029): BASELINE config 5's ring, 6 x 62-bit,
-    t = 65537, where K3, K4 and K5 do not fit one block; keygen (sk, rk,
+    t = 65537, where three rows do not fit one block (kernels.tail_fits),
+    so the programs take the unfused route for K3, K4 and K5; keygen (sk, rk,
     a column-rotation key), 2 x 16 SIMD encryptions, then mul+relin and
     the square (ntt 4, rns_scale 2, tensor 1, ks_accumulate 1 each) and a
     column rotation by 1 (ntt 2, ks_accumulate 1) at batch 16, each held
@@ -72,12 +78,15 @@ Phases, in order; any failure exits nonzero before the last line:
     whose down-scales run K2's general instance, held to the launch
     counts of phases 4 and 10, every slot checked, chained steps timed.
 
-The second-to-last line is {"kernels": [...]} (nine entries), the last
-one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
+The second-to-last line is {"kernels": [...]} (nine entries; relin_tail
+and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
+clusters), the last one {"ok": true, "device": {...}}. Exits nonzero
+without a CUDA card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -141,6 +150,9 @@ WIDER_SETS = [("8 x 62-bit", [62] * 8, MUL_LAUNCHES),
               ("8 x 30-bit narrow", [30] * 8, NARROW_MUL_LAUNCHES)]
 WIDER_SEED = SEED + 4
 WIDER_BATCH = 16
+# phase 3's third K4 and K5 shape: BASELINE config 2's ring (bench.py:235-236)
+TAIL_N4096 = 4096
+TAIL_N4096_MODULI_SIZES = [62, 62]
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -325,12 +337,97 @@ def ks_case(label, ctx, d, key, add0, add1):
             plane * k * 2 * shoup)
 
 
+# a tail's occupancy entry point: n, cluster, threads -> CTAs per SM, clusters
+OCC_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+def occupancy(fn, rows: int, n: int) -> dict:
+    """A tail's launch plan at `rows` rows a cluster and degree n, with the
+    CTAs one SM holds and the clusters the card holds at once, from the
+    kernel's occupancy entry point `fn` (cudaOccupancyMax*)."""
+    from tpufhe_torch import kernels
+
+    cluster, threads, smem = kernels.tail_plan(rows, n)
+    fn.argtypes, fn.restype = OCC_ARGS, ctypes.c_int
+    blocks, clusters = ctypes.c_int(), ctypes.c_int()
+    kernels.check(fn(n, cluster, threads, ctypes.byref(blocks),
+                     ctypes.byref(clusters)), "occupancy")
+    return {"cluster": cluster, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": blocks.value, "clusters": clusters.value}
+
+
+def ks_digit_ops(ctx) -> int:
+    """int32 multiplies of one digit row of a tail: its forward transform and
+    two Shoup products per coefficient, and its reduce_u64 (two low and two
+    high products a word) where a limb of c2 can reach 4 p_j (the kernel
+    transforms words below 4 p_j unreduced; with moduli within a factor 4
+    of each other none can)."""
+    n = ctx.degree
+    reduce = any(p_i >= 4 * p_j for p_i in ctx.moduli for p_j in ctx.moduli)
+    return n * (2 * (LO + HI) * reduce + 2 * SHOUP) + ntt_ops(n, False)
+
+
+def check_tails(ctxs, gen, int32_rate: float) -> dict:
+    """Phase 3, K4 and K5 against their plain versions with random keys:
+    K4 at the N = 8192, 3 x 62-bit batch-64 mul+relin (3, 64, 3, 8192),
+    phase 13's 8 x 62-bit (3, 16, 8, 8192) and BASELINE config 2's ring
+    (3, 8, 2, 4096); K5 at the batch-32 rotation (32, 4, 8192) and at
+    (8, 2, 4096). Each record carries the unfused composition's time on
+    the same inputs (relin_tail_unfused / rotate_tail_unfused: K1 forward
+    of the stacked rows, ks_accumulate and the glue) and the kernel's
+    occupancy. Returns {label: record}; "relin_tail" and "rotate_tail" are
+    the main shapes."""
+    from tpufhe_torch import kernels, pipeline
+
+    out = {}
+    for label, ctx, batch in (("relin_tail", ctxs["main"], BATCH),
+                              ("relin_tail_8x62", ctxs["8x62"], WIDER_BATCH),
+                              ("relin_tail_n4096", ctxs["n4096"], 8)):
+        k, n = ctx.k, ctx.degree
+        dsc = rand_residues((3, batch, k, n), ctx.tables.p, gen)
+        key = random_key(ctx, gen)
+        rec = run_cases("relin_tail", [
+            (f"{tuple(dsc.shape)} + ksk 4 x {(k, k, n)} -> (2, {batch}, {k}, {n})",
+             lambda ctx=ctx, dsc=dsc, key=key: pipeline.relin_tail_cuda(ctx, dsc, key),
+             lambda ctx=ctx, dsc=dsc, key=key: pipeline.relin_tail_plain(ctx, dsc, key),
+             (5 * batch * k * n + 4 * k * k * n + 2 * k * n) * 8,
+             batch * k * (k * ks_digit_ops(ctx) + 2 * ntt_ops(n, False)))],
+            int32_rate, "per call")
+        rec["unfused_ms"] = time_ms(
+            lambda: pipeline.relin_tail_unfused(ctx, dsc, key), 20)
+        out[label] = rec | occupancy(kernels.function(
+            "relin_tail", "tpufhe_relin_tail_occupancy", OCC_ARGS), k + 2, n)
+    for label, ctx, batch in (("rotate_tail", ctxs["rot"], ROT_BATCH),
+                              ("rotate_tail_n4096", ctxs["n4096"], 8)):
+        k, n = ctx.k, ctx.degree
+        s0 = rand_residues((batch, k, n), ctx.tables.p, gen)
+        c2 = rand_residues((batch, k, n), ctx.tables.p, gen)
+        key = random_key(ctx, gen)
+        rec = run_cases("rotate_tail", [
+            (f"s0, c2 {tuple(s0.shape)} + ksk 4 x {(k, k, n)} -> "
+             f"(2, {batch}, {k}, {n})",
+             lambda ctx=ctx, s0=s0, c2=c2, key=key:
+                 pipeline.rotate_tail_cuda(ctx, s0, c2, key),
+             lambda ctx=ctx, s0=s0, c2=c2, key=key:
+                 pipeline.rotate_tail_plain(ctx, s0, c2, key),
+             (4 * batch * k * n + 4 * k * k * n + 2 * k * n) * 8,
+             batch * k * k * ks_digit_ops(ctx))], int32_rate, "per call")
+        rec["unfused_ms"] = time_ms(
+            lambda: pipeline.rotate_tail_unfused(ctx, s0, c2, key), 20)
+        out[label] = rec | occupancy(kernels.function(
+            "rotate_tail", "tpufhe_rotate_tail_occupancy", OCC_ARGS), k, n)
+    for label, r in out.items():
+        log(f"  {label}: unfused {r['unfused_ms']:.4f} ms; cluster "
+            f"{r['cluster']} x {r['threads']} threads, {r['smem_bytes']} "
+            f"shared bytes, {r['blocks_per_sm']} CTAs per SM, "
+            f"{r['clusters']} clusters at once")
+    return out
+
+
 def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
-    """Phase 3, the rotation's kernels and the small-degree NTT: K5 and the
-    rotation's inverse NTT at the batch-32 rotation shapes, and K1 at
-    N = 16 and 512 (k = 3, 4 rows), forward and inverse. Returns
+    """Phase 3, the rotation's inverse NTT at the batch-32 rotation shapes,
+    and K1 at N = 16 and 512 (k = 3, 4 rows), forward and inverse. Returns
     {label: case record}."""
-    from tpufhe_torch import pipeline
     from tpufhe_torch.bfv import BfvParametersBuilder
     from tpufhe_torch.ops import ntt as ntt_mod
     from tpufhe_torch.ops.rq import Context
@@ -340,16 +437,6 @@ def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
     k, n = ctx.k, ctx.degree
     tb = ctx.tables
     s0 = rand_residues((ROT_BATCH, k, n), tb.p, gen)
-    c2 = rand_residues((ROT_BATCH, k, n), tb.p, gen)
-    key = random_key(ctx, gen)
-    out["rotate_tail"] = run_case(
-        "rotate_tail", f"s0, c2 {tuple(s0.shape)} + ksk 4 x {(k, k, n)} -> "
-        f"(2, {ROT_BATCH}, {k}, {n})",
-        lambda: pipeline.rotate_tail_cuda(ctx, s0, c2, key),
-        lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key), int32_rate,
-        (4 * ROT_BATCH * k * n + 4 * k * k * n + 2 * k * n) * 8,
-        ROT_BATCH * k * k * (n * (2 * (LO + HI) + 2 * SHOUP)
-                             + ntt_ops(n, False)))
     out["ntt_rotation"] = run_case(
         "ntt", f"inverse {tuple(s0.shape)} (rotation)",
         lambda: ntt_mod.ntt_cuda(s0, tb, slice(None), True),
@@ -429,21 +516,6 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
          lambda: pipeline.tensor_intt_plain(ctx_mul, ext),
          (7 * BATCH * k_mul * n + 2 * k_mul * n) * 8,
          BATCH * k_mul * (n * TENSOR_OPS + 3 * ntt_ops(n, True))),
-    ]
-
-    # K4: relin tail with a random key (values and their Shoup constants)
-    dsc = rand_residues((3, BATCH, k, n), t_ctx.p, gen)
-    key = random_key(ctx, gen)
-    # a digit's reduce_u64 is reduce_u128 with a zero high word: two low and
-    # two high products
-    cases["relin_tail"] = [
-        (f"{tuple(dsc.shape)} + ksk 4 x {(k, k, n)} -> (2, {BATCH}, {k}, {n})",
-         lambda: pipeline.relin_tail_cuda(ctx, dsc, key),
-         lambda: pipeline.relin_tail_plain(ctx, dsc, key),
-         (5 * BATCH * k * n + 4 * k * k * n + 2 * k * n) * 8,
-         BATCH * k * (k * (n * (2 * (LO + HI) + 2 * SHOUP)
-                           + ntt_ops(n, False))
-                      + 2 * ntt_ops(n, False))),
     ]
 
     return {name: run_cases(name, items, int32_rate, "per mul+relin")
@@ -647,7 +719,7 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
 
 def check_n16k_kernels(par, gen, int32_rate: float) -> dict:
     """Phase 3, the kernels of the N = 16384, 6 x 62-bit programs at batch
-    16, where K3, K4 and K5 do not fit: K1 at a mul+relin's four
+    16, on the unfused route (no K3, K4, K5): K1 at a mul+relin's four
     transforms (the extend's inverse, the forward of the 7 new limbs, the
     inverse of the 3 tensor parts over the 13-limb basis, the tail's
     forward of 2 + 6 stacked parts) and at a rotation's two, K2 at the
@@ -1132,7 +1204,7 @@ def n16k_path(par, margin: int) -> dict:
     t, n, b = par.plaintext.value, par.degree(), N16K_BATCH
     ctx = par.context_at_level(0)
     if kernels.tail_fits(n):
-        raise SystemExit(f"K3-K5 unexpectedly fit at N = {n}")
+        raise SystemExit(f"tail_fits({n}) is unexpectedly true")
     log(f"  multiplication basis {par.context_level_at(0).mul_params().to_ctx.k}"
         f" limbs; route unfused (kernels.tail_fits({n}) is false)")
     rng = ChaCha8Rng(seed_from_u64(N16K_SEED))
@@ -1297,13 +1369,21 @@ def main() -> int:
     par_wider = [BfvParametersBuilder().set_degree(DEGREE)
                  .set_plaintext_modulus(PLAINTEXT).set_moduli_sizes(sizes)
                  .build() for _, sizes, _ in WIDER_SETS]
+    par_4096 = (BfvParametersBuilder().set_degree(TAIL_N4096)
+                .set_plaintext_modulus(PLAINTEXT)
+                .set_moduli_sizes(TAIL_N4096_MODULI_SIZES).build())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
     records = check_kernels(par, gen, int32_rate)
+    tails = check_tails({"main": par.context_at_level(0),
+                         "rot": par_rot.context_at_level(0),
+                         "8x62": par_wider[0].context_at_level(0),
+                         "n4096": par_4096.context_at_level(0)},
+                        gen, int32_rate)
+    records["relin_tail"] = tails["relin_tail"]
+    records["rotate_tail"] = tails["rotate_tail"]
     side = check_side_kernels(par_rot, gen, int32_rate)
-    records["rotate_tail"] = dict(side["rotate_tail"],
-                                  shapes=[side["rotate_tail"]["label"]])
     variant_records = check_variant_kernels(par, gen, int32_rate)
     records["tensor"] = variant_records["tensor"]
     records["intt_scale"] = variant_records["intt_scale"]
@@ -1344,7 +1424,7 @@ def main() -> int:
         return c0
 
     rot_ms = time_ms(chained_rot, 1) / ROT_RATE_STEPS
-    rot_kernels = side["ntt_rotation"]["ms"] + side["rotate_tail"]["ms"]
+    rot_kernels = side["ntt_rotation"]["ms"] + records["rotate_tail"]["ms"]
     log(f"  {ROT_RATE_STEPS} chained rotations at batch {ROT_BATCH}: "
         f"{rot_ms:.3f} ms/step, {ROT_BATCH / rot_ms * 1e3:.1f} rotations/s, "
         f"kernels {rot_kernels:.3f} ms, glue {rot_ms - rot_kernels:.3f} ms "
@@ -1416,7 +1496,11 @@ def main() -> int:
         "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"]},
         "ntt32": {label: narrow_records[label] for label in
                   ("ntt32_rotation", "ntt32_512_forward", "ntt32_512_inverse")},
+        "relin_tail": {label: tails[label] for label in
+                       ("relin_tail_8x62", "relin_tail_n4096")},
+        "rotate_tail": {"rotate_tail_n4096": tails["rotate_tail_n4096"]},
     }
+    tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters")
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
         r = records[name]
@@ -1436,11 +1520,10 @@ def main() -> int:
             entry["other_shapes"] = {
                 label: {k: rec[k] for k in
                         ("ms", "plain_ms", "bound_ms", "bound_by", "split_ms")
-                        if k in rec}
+                        + tail_keys if k in rec}
                 | {"shape": rec.get("shapes", rec.get("label"))}
                 for label, rec in other_shapes[name].items()}
-        if "split_ms" in r:
-            entry["split_ms"] = r["split_ms"]
+        entry |= {k: r[k] for k in ("split_ms",) + tail_keys if k in r}
         out.append(entry)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

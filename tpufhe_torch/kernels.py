@@ -60,10 +60,52 @@ SMEM_BYTES = 232448
 
 def tail_fits(n: int, word_bytes: int = 8) -> bool:
     """Whether three rows of n words fit in one block's shared memory: the
-    fused tensor + iNTT (K3) and tail (K4, K5) kernels need it. Where it is
-    false the programs take the unfused composition (K7, K1 and
-    ks_accumulate), as tpufhe does where its tail kernel does not fit."""
+    fused tensor + iNTT kernel (K3) needs it. Where it is false the programs
+    take the unfused composition (K7, K1 and ks_accumulate in place of K3,
+    K4 and K5), as tpufhe does where its tail kernel does not fit. The
+    tails K4 and K5 hold one row a CTA, but follow the same route."""
     return 3 * n * word_bytes <= SMEM_BYTES
+
+
+# The tails' CTAs (csrc/keyswitch_device.cuh): at most TAIL_THREADS threads,
+# clusters of at most TAIL_CLUSTER_MAX CTAs (above 8 the card's
+# non-portable cluster size), TAIL_STAGES butterfly stages a transform pass.
+TAIL_THREADS = 512
+TAIL_CLUSTER_MAX = 16
+TAIL_STAGES = 2
+
+
+def tail_passes(logn: int) -> list[tuple[int, int]]:
+    """(first stage, stages) of each pass of the tails' forward transform at
+    n = 2^logn: one pass of logn mod TAIL_STAGES stages, then TAIL_STAGES
+    a pass."""
+    lead = logn % TAIL_STAGES
+    return ([(0, lead)] if lead else []) + [
+        (s0, TAIL_STAGES) for s0 in range(lead, logn, TAIL_STAGES)]
+
+
+def tail_twiddle_order(n: int) -> list[int]:
+    """Indices into a limb's bit-reversed omegas in the order the tails'
+    transform reads them: per pass (s0, S) and stage-s0 group g, the
+    2^S - 1 twiddles of the group's unit, stage s0 + r's j-th at
+    2^(s0+r) + g 2^r + j. Every index 1 .. n - 1 once, then 0 to pad the
+    table to n entries."""
+    order = []
+    for s0, s in tail_passes(n.bit_length() - 1):
+        for g in range(1 << s0):
+            for r in range(s):
+                order.extend((1 << (s0 + r)) + (g << r) + j
+                             for j in range(1 << r))
+    return order + [0]
+
+
+def tail_plan(rows: int, n: int) -> tuple[int, int, int]:
+    """Launch plan of the key-switch tails K4 (rows = k + 2 transformed
+    rows per batch row and limb) and K5 (rows = k): (CTAs per cluster,
+    threads per CTA, shared bytes per CTA). One CTA per row; above
+    TAIL_CLUSTER_MAX rows the cluster takes them in rounds."""
+    return (min(rows, TAIL_CLUSTER_MAX), max(1, min(n // 2, TAIL_THREADS)),
+            8 * n)
 
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -27,9 +27,10 @@ permutation (plain torch, as tpufhe's XLA take), then runs two launches:
 K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
 its Garner digits, key-switch accumulate and the add of the substituted c0.
 
-K3, K4 and K5 hold three rows of N words in one block's shared memory.
-Where they do not fit (``kernels.tail_fits``, false at N = 16384), the
-programs take tpufhe's unfused composition, chosen when they are built
+K3 holds three rows of N words in one block's shared memory; K4 and K5
+run a cluster of one-row CTAs per (batch row, limb). Where three rows do
+not fit (``kernels.tail_fits``, false at N = 16384), the programs take
+tpufhe's unfused composition for all three, chosen when they are built
 (tpufhe pipeline.py:476-486, 545-569, 763-779): K7 then K1 inverse over
 the multiplication basis in place of K3; one K1 forward of the stacked
 rows (c0, c1 and the Garner digits of c2, or the digits alone for a
@@ -55,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -226,8 +228,21 @@ def tensor_intt(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
 # K4: relin tail (csrc/relin_tail.cu)
 # ---------------------------------------------------------------------------
 
-_RELIN_TAIL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+_RELIN_TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
+
+
+@lru_cache(maxsize=None)
+def tail_twiddles(ctx: Context) -> torch.Tensor:
+    """K4 and K5's twiddle table over ctx: (k, N, 2) words, limb j's omegas
+    and their Shoup constants side by side in the order its transform reads
+    them (kernels.tail_twiddle_order), so that each pair is one 16-byte
+    load and a unit's pairs lie together."""
+    tb = ctx.tables
+    idx = torch.tensor(kernels.tail_twiddle_order(ctx.degree),
+                       device=tb.omegas.device)
+    return torch.stack((tb.omegas[:, idx], tb.omegas_shoup[:, idx]),
+                       -1).contiguous()
 
 
 def relin_tail_plain(ctx: Context, dsc: torch.Tensor, ksk):
@@ -258,13 +273,14 @@ def relin_tail_cuda(ctx: Context, dsc: torch.Tensor, ksk):
     if rows_k == 0:
         return out[0], out[1]
     tb = ctx.tables
+    tw = tail_twiddles(ctx)
+    cluster, threads, _ = kernels.tail_plan(k + 2, n)
     fn = kernels.function("relin_tail", "tpufhe_relin_tail", _RELIN_TAIL_ARGS)
     kernels.count("relin_tail")
-    err = fn(kernels.ptr(dsc), kernels.ptr(out), rows_k, k, n,
-             kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+    err = fn(kernels.ptr(dsc), kernels.ptr(out), rows_k, k, n, cluster,
+             threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
              kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
-             kernels.ptr(tb.omegas), kernels.ptr(tb.omegas_shoup),
-             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+             kernels.ptr(tw), kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
              kernels.ptr(tb.barrett_hi), kernels.stream())
     kernels.check(err, "relin_tail")
     return out[0], out[1]
@@ -282,8 +298,8 @@ def relin_tail(ctx: Context, dsc: torch.Tensor, ksk):
 # K5: rotate tail (csrc/rotate_tail.cu)
 # ---------------------------------------------------------------------------
 
-_ROTATE_TAIL_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                              ctypes.c_int] + [ctypes.c_void_p] * 10
+_ROTATE_TAIL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
 
 
 def rotate_tail_plain(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
@@ -314,13 +330,14 @@ def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     if rows_k == 0:
         return out[0], out[1]
     tb = ctx.tables
+    tw = tail_twiddles(ctx)
+    cluster, threads, _ = kernels.tail_plan(k, n)
     fn = kernels.function("rotate_tail", "tpufhe_rotate_tail", _ROTATE_TAIL_ARGS)
     kernels.count("rotate_tail")
     err = fn(kernels.ptr(s0), kernels.ptr(c2_pb), kernels.ptr(out), rows_k, k, n,
-             kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+             cluster, threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
              kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
-             kernels.ptr(tb.omegas), kernels.ptr(tb.omegas_shoup),
-             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+             kernels.ptr(tw), kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
              kernels.ptr(tb.barrett_hi), kernels.stream())
     kernels.check(err, "rotate_tail")
     return out[0], out[1]
@@ -427,7 +444,8 @@ def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
 
 def _fused_tail(ctx: Context) -> bool:
     """Whether the programs over ctx run the fused kernels K3, K4 and K5:
-    wide rows whose three rows of N words fit one block."""
+    wide rows whose three rows of N words fit one block (K3's need; the
+    tails follow the same route)."""
     return not ctx.narrow and kernels.tail_fits(ctx.degree)
 
 
