@@ -19,15 +19,17 @@ Phases, in order; any failure exits nonzero before the last line:
    and CTAs per SM; tensor at the square's shapes, intt_scale at the
    fused extend's (default and strategy 2), rns_scale and tensor_intt at
    strategy 2's; the rotation's inverse ntt at the batch-32 rotation;
-   ntt at N = 16 and 512 (the
-   small degrees tpufhe's other NTT kernel serves); ntt32 at the four
-   transforms of the narrow N = 8192, 7 x 30-bit, batch-64 mul+relin, at
-   the narrow rotation's two and at N = 512, and rns_scale on its int32
-   rows (extend 7 -> 9 new limbs, down-scale 16 -> 7); at N = 16384,
-   6 x 62-bit, batch 16 (phase 12's shapes) ntt at the mul+relin's four
-   transforms and the rotation's two, rns_scale at the extend (6 -> 7)
-   and the down-scale (13 -> 6), tensor over the 13-limb basis and
-   ks_accumulate (two addends, and the rotation's one); rns_scale at
+   ntt at BASELINE config 2's ring (8, 2, 4096) and at N = 16 and 512
+   (the small degrees tpufhe's other NTT kernel serves), each ntt and
+   tensor_intt record with its launch plan (cluster, threads, CTAs per SM
+   and clusters at once from the kernel's occupancy entry point); ntt32
+   at the four transforms of the narrow N = 8192, 7 x 30-bit, batch-64
+   mul+relin, at the narrow rotation's two and at N = 512, and rns_scale
+   on its int32 rows (extend 7 -> 9 new limbs, down-scale 16 -> 7); at
+   N = 16384, 6 x 62-bit, batch 16 (phase 12's shapes) ntt at the
+   mul+relin's four transforms and the rotation's two, rns_scale at the
+   extend (6 -> 7) and the down-scale (13 -> 6), tensor over the 13-limb
+   basis and ks_accumulate (two addends, and the rotation's one); rns_scale at
    phase 13's extends and down-scales from 17 limbs (int64) and 18
    (int32), its general instance; ks_accumulate on the int32 rows of the
    narrow mul+relin (two addends) and rotation (one);
@@ -80,8 +82,8 @@ Phases, in order; any failure exits nonzero before the last line:
 
 The second-to-last line is {"kernels": [...]} (nine entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
-clusters), the last one {"ok": true, "device": {...}}. Exits nonzero
-without a CUDA card.
+clusters, ntt and tensor_intt their plan), the last one {"ok": true,
+"device": {...}}. Exits nonzero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -356,6 +358,41 @@ def occupancy(fn, rows: int, n: int) -> dict:
             "blocks_per_sm": blocks.value, "clusters": clusters.value}
 
 
+def plan_record(kernel: str, n: int, inverse: bool = False) -> dict:
+    """K1's (per direction) or K3's launch plan at degree n with the CTAs
+    one SM holds and the clusters the card holds at once, from the kernel's
+    occupancy entry point; logged."""
+    from tpufhe_torch import kernels
+
+    if kernel == "ntt":
+        cluster, threads, smem = kernels.ntt_plan(n)
+        fn = kernels.function("ntt", "tpufhe_ntt_occupancy", OCC_ARGS)
+        first = int(inverse)
+        label = f"ntt n={n} {'inverse' if inverse else 'forward'}"
+    else:
+        cluster, threads, smem = kernels.tensor_intt_plan(n)
+        fn = kernels.function("tensor_intt", "tpufhe_tensor_intt_occupancy",
+                              OCC_ARGS)
+        first = cluster
+        label = f"tensor_intt n={n}"
+    fn.argtypes, fn.restype = OCC_ARGS, ctypes.c_int
+    blocks, clusters = ctypes.c_int(), ctypes.c_int()
+    kernels.check(fn(n, first, threads, ctypes.byref(blocks),
+                     ctypes.byref(clusters)), "occupancy")
+    rec = {"cluster": cluster, "threads": threads, "smem_bytes": smem,
+           "blocks_per_sm": blocks.value, "clusters": clusters.value}
+    log(f"  plan {label}: cluster {cluster} x {threads} threads, {smem} "
+        f"shared bytes, {blocks.value} CTAs per SM, {clusters.value} "
+        f"clusters at once")
+    return rec
+
+
+def ntt_plans(n: int) -> dict:
+    """K1's plan at degree n in both directions."""
+    return {d: plan_record("ntt", n, d == "inverse")
+            for d in ("forward", "inverse")}
+
+
 def ks_digit_ops(ctx) -> int:
     """int32 multiplies of one digit row of a tail: its forward transform and
     two Shoup products per coefficient, and its reduce_u64 (two low and two
@@ -424,10 +461,10 @@ def check_tails(ctxs, gen, int32_rate: float) -> dict:
     return out
 
 
-def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
+def check_side_kernels(par_rot, par_4096, gen, int32_rate: float) -> dict:
     """Phase 3, the rotation's inverse NTT at the batch-32 rotation shapes,
-    and K1 at N = 16 and 512 (k = 3, 4 rows), forward and inverse. Returns
-    {label: case record}."""
+    K1 at BASELINE config 2's ring (8, 2, 4096) and at N = 16 and 512
+    (k = 3, 4 rows), forward and inverse. Returns {label: case record}."""
     from tpufhe_torch.bfv import BfvParametersBuilder
     from tpufhe_torch.ops import ntt as ntt_mod
     from tpufhe_torch.ops.rq import Context
@@ -443,10 +480,19 @@ def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
         lambda: ntt_mod.backward_plain(s0, tb.zetas_inv, tb.ninv, tb.mod),
         int32_rate, 2 * s0.numel() * 8 + 2 * k * n * 8,
         ROT_BATCH * k * ntt_ops(n, True))
+    t4096 = par_4096.context_at_level(0).tables
+    x4096 = rand_residues((8, 2, TAIL_N4096), t4096.p, gen)
+    plans = ntt_plans(TAIL_N4096)
+    for inverse in (False, True):
+        label, kfn, pfn, nbytes, ops = k1_case("N = 4096", x4096, t4096,
+                                               slice(None), inverse)
+        out[f"ntt_4096_{'inverse' if inverse else 'forward'}"] = run_case(
+            "ntt", label, kfn, pfn, int32_rate, nbytes, ops) | {"plan": plans}
     for small in (16, 512):
         moduli = BfvParametersBuilder.generate_moduli([62] * 3, small)
         t_small = Context(moduli, small).tables
         x = rand_residues((4, 3, small), t_small.p, gen)
+        plans = ntt_plans(small)
         for inverse in (False, True):
             direction = "inverse" if inverse else "forward"
             if inverse:
@@ -460,7 +506,7 @@ def check_side_kernels(par_rot, gen, int32_rate: float) -> dict:
                 lambda x=x, t=t_small, inv=inverse: ntt_mod.ntt_cuda(
                     x, t, slice(None), inv),
                 pfn, int32_rate, 2 * x.numel() * 8 + 2 * 3 * small * 8,
-                4 * 3 * ntt_ops(small, inverse))
+                4 * 3 * ntt_ops(small, inverse)) | {"plan": plans}
     for label, r in out.items():
         log(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
@@ -518,8 +564,11 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
          BATCH * k_mul * (n * TENSOR_OPS + 3 * ntt_ops(n, True))),
     ]
 
-    return {name: run_cases(name, items, int32_rate, "per mul+relin")
-            for name, items in cases.items()}
+    out = {name: run_cases(name, items, int32_rate, "per mul+relin")
+           for name, items in cases.items()}
+    out["ntt"]["plan"] = ntt_plans(n)
+    out["tensor_intt"]["plan"] = plan_record("tensor_intt", n)
+    return out
 
 
 def run_cases(name, items, int32_rate, per: str) -> dict:
@@ -752,6 +801,7 @@ def check_n16k_kernels(par, gen, int32_rate: float) -> dict:
         k1_case("rotation digits", rand_residues((k, b, k, n), t_ctx.p, gen),
                 t_ctx, full, False),
     ], int32_rate, "per N = 16384 rotation")
+    out["ntt"]["plan"] = out["ntt_rotation"]["plan"] = ntt_plans(n)
     out["rns_scale"] = run_cases("rns_scale", [
         k2_case("N = 16384 extend", mp.extender.rns_scaler,
                 rand_residues((4, b, k, n), t_ctx.p, gen), k, k_mul - k),
@@ -1383,7 +1433,7 @@ def main() -> int:
                         gen, int32_rate)
     records["relin_tail"] = tails["relin_tail"]
     records["rotate_tail"] = tails["rotate_tail"]
-    side = check_side_kernels(par_rot, gen, int32_rate)
+    side = check_side_kernels(par_rot, par_4096, gen, int32_rate)
     variant_records = check_variant_kernels(par, gen, int32_rate)
     records["tensor"] = variant_records["tensor"]
     records["intt_scale"] = variant_records["intt_scale"]
@@ -1500,7 +1550,7 @@ def main() -> int:
                        ("relin_tail_8x62", "relin_tail_n4096")},
         "rotate_tail": {"rotate_tail_n4096": tails["rotate_tail_n4096"]},
     }
-    tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters")
+    tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters", "plan")
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
         r = records[name]

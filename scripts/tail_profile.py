@@ -5,10 +5,11 @@ K1's per-row rate, with their registers, occupancy and phases, on one card.
 
 tpufhe_torch/csrc/relin_tail.cu and rotate_tail.cu run one cluster of
 one-row CTAs per (batch row, limb), each CTA transforming its row two
-butterfly stages a pass (keyswitch_device.cuh). This script builds both
-sources into one library with nvcc -Xptxas -v, which prints every
-instance's registers and spills (K1's too), prints each tail's CTAs per SM
-and co-resident clusters (cudaOccupancyMax*), holds both torch.equal to the
+butterfly stages a pass (ntt_pass_device.cuh, shared with K1 and K3).
+This script builds both sources into one library with nvcc -Xptxas -v,
+which prints every instance's registers and spills (K1's and K3's too),
+prints each tail's CTAs per SM and co-resident clusters
+(cudaOccupancyMax*), holds both torch.equal to the
 plain versions at the shapes chip_smoke.py checks plus one shape with more
 than 16 rows a cluster (taken in rounds), and times each twice with CUDA
 events beside the unfused composition (relin_tail_unfused /
@@ -89,8 +90,8 @@ def ptxas(log: str) -> dict:
 
 
 def build(out_dir: str, stamps: bool):
-    """nvcc of both tails (and again with stamps), and of K1 for its
-    registers, all at once. Returns ({name: library path}, {entry: ptxas
+    """nvcc of both tails (and again with stamps), and of K1 and K3 for
+    their registers, all at once. Returns ({name: library path}, {entry: ptxas
     summary})."""
     from tpufhe_torch import kernels
 
@@ -101,8 +102,9 @@ def build(out_dir: str, stamps: bool):
         with open(src, "w") as f:
             f.write(text)
         outs[name] = (src, os.path.join(out_dir, f"tail_profile_{name}.so"))
-    outs["ntt"] = (os.path.join(kernels.CSRC, "ntt.cu"),
-                   os.path.join(out_dir, "tail_profile_ntt.so"))
+    for name in ("ntt", "tensor_intt"):
+        outs[name] = (os.path.join(kernels.CSRC, f"{name}.cu"),
+                      os.path.join(out_dir, f"tail_profile_{name}.so"))
 
     def nvcc(item):
         name, (src, lib) = item
@@ -119,7 +121,7 @@ def build(out_dir: str, stamps: bool):
         for r in pool.map(nvcc, outs.items()):
             regs.update(r)
     return {name: lib for name, (_, lib) in outs.items()
-            if name != "ntt"}, regs
+            if name not in ("ntt", "tensor_intt")}, regs
 
 
 def cases(gen):

@@ -149,21 +149,21 @@ def test_tail_plan_within_card_limits():
 
 
 def _slot(i):
-    """keyswitch_device.cuh tail_slot."""
+    """ntt_pass_device.cuh pass_slot."""
     return i ^ (((i >> 4) & 3) * 5)
 
 
 def _unit_slots(first, ls, S):
-    """The slots of a unit's words first + t 2^ls as tail_pass computes
-    them: one tail_slot call and an XOR where bits ls .. ls + S - 1 miss
-    bits 4, 5 (the bits tail_slot reads), else one call a word."""
+    """The slots of a unit's words first + t 2^ls as ntt_pass computes
+    them: one pass_slot call and an XOR where bits ls .. ls + S - 1 miss
+    bits 4, 5 (the bits pass_slot reads), else one call a word."""
     if ls + S <= 4 or ls >= 6:
         return [_slot(first) ^ (t << ls) for t in range(1 << S)]
     return [_slot(first | (t << ls)) for t in range(1 << S)]
 
 
 def _passes_forward(x, table, p):
-    """tail_forward on one row, in exact arithmetic mod p, on words kept at
+    """forward_passes (the tails' transform) on one row, in exact arithmetic mod p, on words kept at
     their slots: unit q of pass (s0, S) is the 2^S words first + t 2^ls of
     stage-s0 group g; stage s0 + r pairs t with t + 2^(S-1-r) under the
     group's twiddle t // 2^(S-r) of that stage, read from the pass-ordered
@@ -174,7 +174,7 @@ def _passes_forward(x, table, p):
     for i, v in enumerate(x):
         row[_slot(i)] = int(v)
     off = 0
-    for s0, S in kernels.tail_passes(logn):
+    for s0, S in kernels.ntt_passes(logn):
         ls = logn - s0 - S
         for q in range(n >> S):
             g, first = q >> ls, ((q >> ls) << (ls + S)) | (q & ((1 << ls) - 1))
@@ -198,7 +198,7 @@ def _passes_forward(x, table, p):
 @pytest.mark.parametrize("n", [16, 32, 256, 1024, 4096, 8192])
 def test_pass_schedule_matches_forward_plain(n):
     """The tails' transform schedule, on swizzled words, with its twiddles
-    from pipeline.tail_twiddles, gives the port's forward NTT (ops/ntt.py
+    from NttTables.pass_twiddles, gives the port's forward NTT (ops/ntt.py
     forward_plain, held against tpufhe) word for word, at degrees with
     log2(n) odd and even, the fixed instances' 4096 and 8192 among them."""
     (p,) = T.BfvParametersBuilder.generate_moduli([62], n)
@@ -208,9 +208,9 @@ def test_pass_schedule_matches_forward_plain(n):
     x = x.astype(np.int64)
     want = forward_plain(torch.from_numpy(x)[None], tctx.tables.omegas,
                          tctx.tables.mod)[0].numpy()
-    tw = tpl.tail_twiddles(tctx)
+    tw = tctx.tables.pass_twiddles(False)
     assert tw.shape == (1, n, 2) and tw.dtype == torch.int64
-    order = kernels.tail_twiddle_order(n)
+    order = kernels.forward_twiddle_order(n)
     np.testing.assert_array_equal(tw[0, :, 1].numpy(),
                                   tctx.tables.omegas_shoup[0, order].numpy())
     got = _passes_forward(x, tw[0, :, 0].tolist(), p)
@@ -218,16 +218,16 @@ def test_pass_schedule_matches_forward_plain(n):
 
 
 def test_tail_twiddle_order_is_pass_ordered():
-    """kernels.tail_twiddle_order lists every bit-reversed omega index
+    """kernels.forward_twiddle_order lists every bit-reversed omega index
     1 .. n - 1 once (then the pad 0), each pass's twiddles in one block of
     2^s0 (2^S - 1) entries from its own stages, at every degree 8 .. 8192."""
     for logn in range(3, 14):
         n = 1 << logn
-        order = kernels.tail_twiddle_order(n)
+        order = kernels.forward_twiddle_order(n)
         assert len(order) == n and order[-1] == 0
         assert sorted(order[:-1]) == list(range(1, n))
         off = 0
-        for s0, S in kernels.tail_passes(logn):
+        for s0, S in kernels.ntt_passes(logn):
             size = ((1 << S) - 1) << s0
             assert all(s0 <= i.bit_length() - 1 < s0 + S
                        for i in order[off:off + size])
@@ -236,14 +236,14 @@ def test_tail_twiddle_order_is_pass_ordered():
 
 
 def test_slots_free_of_bank_conflicts():
-    """tail_slot is a permutation of every row, and each pass's half-warp of
+    """pass_slot is a permutation of every row, and each pass's half-warp of
     sixteen 8-byte words (and the row's load and slice reads, sixteen
     consecutive words) lands in sixteen distinct bank pairs (slot mod 16)
-    at n = 4096 and 8192, with the slots tail_pass computes."""
+    at n = 4096 and 8192, with the slots ntt_pass computes."""
     for logn in (12, 13):
         n = 1 << logn
         assert sorted(_slot(i) for i in range(n)) == list(range(n))
-        for s0, S in kernels.tail_passes(logn):
+        for s0, S in kernels.ntt_passes(logn):
             ls = logn - s0 - S
             for q0 in range(0, n >> S, 16):
                 units = [_unit_slots(((q >> ls) << (ls + S))

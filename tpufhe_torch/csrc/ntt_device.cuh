@@ -1,6 +1,7 @@
-// Block-cooperative negacyclic NTT of rows held in shared memory, shared by
-// the NTT (wide and narrow), tensor+iNTT, relin-tail, rotate-tail and
-// inverse NTT + scale kernels.
+// Block-cooperative radix-2 negacyclic NTT of rows held in shared memory,
+// one barrier a stage, shared by the narrow NTT (K9, ntt32.cu) and the
+// inverse NTT + scale (K8, intt_scale.cu). K1, K3, K4 and K5 run the
+// passes of ntt_pass_device.cuh instead.
 //
 // Same transform as tpufhe/ops/ntt.py forward/backward (the Harvey
 // butterflies of fhe.rs ntt/native.rs:77-132): the bit-reversed twiddle

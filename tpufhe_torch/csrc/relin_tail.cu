@@ -15,7 +15,7 @@
 // (d_0 .. d_{k-1}, c0, c1) of n words and a slice of both outputs: the body
 // is keyswitch_device.cuh, shared with K5. The launch plan (cluster size,
 // threads) comes from the wrapper (kernels.tail_plan), the pass-ordered
-// twiddles tw (k, n, 2) from pipeline.tail_twiddles.
+// twiddles tw (k, n, 2) from NttTables.pass_twiddles.
 //
 // Bound on this card: per (row, limb) coefficient it reads 24 bytes of
 // ciphertext and 32 k bytes of key (the key is shared by all rows and stays

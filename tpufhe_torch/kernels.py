@@ -50,8 +50,8 @@ KERNELS = {
                       "tpufhe/pipeline.py:564-569 _ksk_accumulate (XLA, where "
                       "tail_kernel_fits is false)"),
 }
-HEADERS = ("modarith.cuh", "ntt_device.cuh", "keyswitch_device.cuh",
-           "rns_scale_device.cuh")
+HEADERS = ("modarith.cuh", "ntt_device.cuh", "ntt_pass_device.cuh",
+           "keyswitch_device.cuh", "rns_scale_device.cuh")
 # Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
 # the NTT-based kernels hold whole rows of N words in it (8 bytes a word,
 # 4 for the narrow rows of ntt32).
@@ -59,44 +59,149 @@ SMEM_BYTES = 232448
 
 
 def tail_fits(n: int, word_bytes: int = 8) -> bool:
-    """Whether three rows of n words fit in one block's shared memory: the
-    fused tensor + iNTT kernel (K3) needs it. Where it is false the programs
-    take the unfused composition (K7, K1 and ks_accumulate in place of K3,
-    K4 and K5), as tpufhe does where its tail kernel does not fit. The
-    tails K4 and K5 hold one row a CTA, but follow the same route."""
+    """The route rule: whether the programs over degree n run the fused
+    kernels K3, K4 and K5 (three rows of n words fit one block's shared
+    memory, the need of K3's first design). Where it is false (N = 16384)
+    they take the unfused composition (K7, K1 and ks_accumulate in place
+    of K3, K4 and K5), as tpufhe does where its tail kernel does not fit.
+    No kernel needs three rows a block any more: K3, K4 and K5 hold one row
+    a CTA; the route stays until the fused kernels are timed against the
+    unfused ones at N = 16384."""
     return 3 * n * word_bytes <= SMEM_BYTES
 
 
-# The tails' CTAs (csrc/keyswitch_device.cuh): at most TAIL_THREADS threads,
-# clusters of at most TAIL_CLUSTER_MAX CTAs (above 8 the card's
-# non-portable cluster size), TAIL_STAGES butterfly stages a transform pass.
-TAIL_THREADS = 512
+# The transform passes (csrc/ntt_pass_device.cuh): PASS_STAGES butterfly
+# stages a pass in registers. K1 holds at most NTT_ROW_MAX words of a row a
+# CTA (64 KB, so three CTAs share an SM); a longer row is split across a
+# cluster of two CTAs. K1, K3 and the tails run at most NTT_THREADS threads
+# a CTA.
+PASS_STAGES = 2
+NTT_ROW_MAX = 8192
+NTT_THREADS = 512
+# The tails' clusters (csrc/keyswitch_device.cuh): at most TAIL_CLUSTER_MAX
+# CTAs, above 8 the card's non-portable cluster size.
 TAIL_CLUSTER_MAX = 16
-TAIL_STAGES = 2
+# K3's cluster: one CTA per output part (csrc/tensor_intt.cu)
+K3_PARTS = 3
 
 
-def tail_passes(logn: int) -> list[tuple[int, int]]:
-    """(first stage, stages) of each pass of the tails' forward transform at
-    n = 2^logn: one pass of logn mod TAIL_STAGES stages, then TAIL_STAGES
-    a pass."""
-    lead = logn % TAIL_STAGES
-    return ([(0, lead)] if lead else []) + [
-        (s0, TAIL_STAGES) for s0 in range(lead, logn, TAIL_STAGES)]
+def ntt_passes(stages: int, first: int = 0) -> list[tuple[int, int]]:
+    """(first stage, stages) of each forward pass over the stages first ..
+    first + stages - 1: one pass of stages mod PASS_STAGES stages, then
+    PASS_STAGES a pass. A whole row of 2^logn words runs
+    ntt_passes(logn); the inverse runs the same passes in reverse order."""
+    lead = stages % PASS_STAGES
+    return ([(first, lead)] if lead else []) + [
+        (s0, PASS_STAGES) for s0 in range(first + lead, first + stages,
+                                          PASS_STAGES)]
 
 
-def tail_twiddle_order(n: int) -> list[int]:
-    """Indices into a limb's bit-reversed omegas in the order the tails'
-    transform reads them: per pass (s0, S) and stage-s0 group g, the
-    2^S - 1 twiddles of the group's unit, stage s0 + r's j-th at
-    2^(s0+r) + g 2^r + j. Every index 1 .. n - 1 once, then 0 to pad the
-    table to n entries."""
-    order = []
-    for s0, s in tail_passes(n.bit_length() - 1):
-        for g in range(1 << s0):
-            for r in range(s):
-                order.extend((1 << (s0 + r)) + (g << r) + j
-                             for j in range(1 << r))
+def ntt_split(n: int) -> bool:
+    """Whether K1 splits a row of n words across a cluster of two CTAs."""
+    return n > NTT_ROW_MAX
+
+
+def _forward_unit(s0: int, s: int, g: int, half: int | None = None
+                  ) -> list[int]:
+    """The bit-reversed omega indices of one forward unit of pass (s0, s)
+    in stage-s0 group g: stage s0 + r's j-th, 2^(s0+r) + g 2^r + j. In half
+    `half` of a split row, the half's stage s0 + r is the row's stage
+    s0 + r + 1, whose groups in that half start at half 2^(s0+r)."""
+    out = []
+    for r in range(s):
+        stage, group = s0 + r, g << r
+        if half is not None:
+            group += half << stage
+            stage += 1
+        out.extend((1 << stage) + group + j for j in range(1 << r))
+    return out
+
+
+def _inverse_unit(n: int, logn: int, s0: int, s: int, g: int,
+                  halves: int = 1, rank: int = 0) -> list[int]:
+    """The bit-reversed zeta_inv indices of one inverse unit of pass
+    (s0, s) over a row (or half row, halves = 2) of 2^logn words, in
+    stage-s0 group g: inverse stage ls + r (ls = logn - s0 - s), of
+    m = 2^logn / 2^(ls+r+1) groups a row part, pairs unit words t and
+    t + 2^r under group g 2^(s-1-r) + t / 2^(r+1), at
+    n - 2 m halves + rank m + that group."""
+    ls = logn - s0 - s
+    out = []
+    for r in range(s):
+        m = (1 << logn) >> (ls + r + 1)
+        out.extend(n - 2 * m * halves + rank * m + (g << (s - 1 - r)) + j
+                   for j in range(1 << (s - 1 - r)))
+    return out
+
+
+def forward_twiddle_order(n: int, split: bool | None = None) -> list[int]:
+    """Indices into a limb's bit-reversed omegas in the order K1's, K4's
+    and K5's forward passes read them (csrc/ntt_pass_device.cuh): per pass
+    (s0, S) and stage-s0 group g, the 2^S - 1 twiddles of the group's unit.
+    Split (default: ntt_split(n)): omega 1 (stage 0), then for each half
+    r its stage-1 omega 2 + r and the passes of its own stages
+    (ntt_passes(logn - 2, 1) over the half). Every index 1 .. n - 1 once,
+    then 0 to pad the table to n entries."""
+    logn = n.bit_length() - 1
+    split = ntt_split(n) if split is None else split
+    if not split:
+        order = [i for s0, s in ntt_passes(logn) for g in range(1 << s0)
+                 for i in _forward_unit(s0, s, g)]
+        return order + [0]
+    order = [1]
+    for rank in (0, 1):
+        order.append(2 + rank)
+        for s0, s in ntt_passes(logn - 2, 1):
+            for g in range(1 << s0):
+                order.extend(_forward_unit(s0, s, g, rank))
     return order + [0]
+
+
+def inverse_twiddle_order(n: int, split: bool | None = None) -> list[int]:
+    """Indices into a limb's bit-reversed zetas_inv in the order K1's and
+    K3's inverse passes read them: the forward schedule's passes in reverse
+    order, per stage-s0 group g the 2^S - 1 twiddles of the unit's
+    Gentleman-Sande stages. Split: the twiddles of the last two stages
+    (n - 4, n - 3 within the halves, n - 2 across), then for each half its
+    own passes (ntt_passes(logn - 2, 1) in reverse). Every index 0 .. n - 2
+    once, then n - 1 to pad the table to n entries."""
+    logn = n.bit_length() - 1
+    split = ntt_split(n) if split is None else split
+    if not split:
+        order = [i for s0, s in reversed(ntt_passes(logn))
+                 for g in range(1 << s0)
+                 for i in _inverse_unit(n, logn, s0, s, g)]
+        return order + [n - 1]
+    order = [n - 4, n - 3, n - 2]
+    for rank in (0, 1):
+        for s0, s in reversed(ntt_passes(logn - 2, 1)):
+            for g in range(1 << s0):
+                order.extend(_inverse_unit(n, logn - 1, s0, s, g, 2, rank))
+    return order + [n - 1]
+
+
+def ntt_plan(n: int) -> tuple[int, int, int]:
+    """K1's launch plan at degree n: (CTAs per cluster, threads per CTA,
+    shared bytes per CTA). One CTA per row up to NTT_ROW_MAX words, a
+    cluster of two holding half a row each above."""
+    if n > 2 * NTT_ROW_MAX:
+        raise ValueError(f"ntt: degree {n} does not fit two CTAs")
+    cluster = 2 if ntt_split(n) else 1
+    return cluster, max(1, min(n // 4, NTT_THREADS)), 8 * n // cluster
+
+
+def tensor_intt_plan(n: int) -> tuple[int, int, int]:
+    """K3's launch plan at degree n: (CTAs per cluster, threads per CTA,
+    shared bytes per CTA): one CTA per output part, one row each."""
+    return K3_PARTS, max(1, min(n // 4, NTT_THREADS)), 8 * n
+
+
+def tensor_intt_thirds(n: int) -> list[tuple[int, int]]:
+    """The coefficients [lo, hi) whose products each CTA of a K3 cluster
+    forms, in whole 32-word pieces (csrc/tensor_intt.cu)."""
+    span = (-(-n // K3_PARTS) + 31) & ~31
+    return [(min(n, r * span), min(n, (r + 1) * span))
+            for r in range(K3_PARTS)]
 
 
 def tail_plan(rows: int, n: int) -> tuple[int, int, int]:
@@ -104,7 +209,7 @@ def tail_plan(rows: int, n: int) -> tuple[int, int, int]:
     rows per batch row and limb) and K5 (rows = k): (CTAs per cluster,
     threads per CTA, shared bytes per CTA). One CTA per row; above
     TAIL_CLUSTER_MAX rows the cluster takes them in rounds."""
-    return (min(rows, TAIL_CLUSTER_MAX), max(1, min(n // 2, TAIL_THREADS)),
+    return (min(rows, TAIL_CLUSTER_MAX), max(1, min(n // 2, NTT_THREADS)),
             8 * n)
 
 

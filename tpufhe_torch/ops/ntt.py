@@ -12,12 +12,14 @@
 - ``ntt_transform`` is the wrapper of kernels K1 (csrc/ntt.cu) and K9
   (csrc/ntt32.cu): it launches the kernel of the tables' mode for CUDA
   tensors and takes the plain version for CPU tensors.
+- ``NttTables.pass_twiddles`` is the (twiddle, Shoup) table in the order
+  the transform passes of K1, K3, K4 and K5 read it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import lru_cache
 
 import numpy as np
@@ -139,6 +141,8 @@ class NttTables:
     ninv_shoup: torch.Tensor
     mod: ModTable  # constants of the plain ops, shape (k, 1)
     narrow: bool = False
+    _passes: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     @staticmethod
     def build(ops: list, device, narrow: bool = False) -> "NttTables":
@@ -190,6 +194,25 @@ class NttTables:
     def dtype(self) -> torch.dtype:
         """The word type of the rows these tables transform."""
         return torch.int32 if self.narrow else torch.int64
+
+    def pass_twiddles(self, inverse: bool) -> torch.Tensor:
+        """(k, n, 2) words of the wide tables: limb j's omegas (inverse:
+        zetas_inv) and their Shoup constants side by side in the order the
+        transform passes read them (kernels.forward_twiddle_order /
+        inverse_twiddle_order), so that each pair is one 16-byte load and a
+        unit's pairs lie together. Built once per direction."""
+        if self.narrow:
+            raise ValueError("pass_twiddles: narrow tables have no passes")
+        if inverse not in self._passes:
+            n = self.omegas.shape[-1]
+            order = (kernels.inverse_twiddle_order if inverse
+                     else kernels.forward_twiddle_order)(n)
+            tw, tws = ((self.zetas_inv, self.zetas_inv_shoup) if inverse
+                       else (self.omegas, self.omegas_shoup))
+            idx = torch.tensor(order, device=tw.device)
+            self._passes[inverse] = torch.stack(
+                (tw[:, idx], tws[:, idx]), -1).contiguous()
+        return self._passes[inverse]
 
 
 # ---------------------------------------------------------------------------
@@ -286,15 +309,18 @@ def backward32_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
 # Kernels K1 (csrc/ntt.cu) and K9 (csrc/ntt32.cu)
 # ---------------------------------------------------------------------------
 
-_NTT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+_NTT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_NTT32_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(name: str, symbol: str, x: torch.Tensor, tables: NttTables,
-            limb_slice: slice, inverse: bool) -> torch.Tensor:
-    """Launch K1 or K9 (the same C interface) on (..., k_sel, n) rows."""
+def _rows(name: str, x: torch.Tensor, tables: NttTables,
+          limb_slice: slice) -> tuple[int, int]:
+    """The checks K1 and K9 make on (..., k_sel, n) rows: (first limb,
+    k_sel)."""
     kernels.require_cuda(name, tables.dtype, x)
     k_ctx, n = tables.omegas.shape
     start, stop, _ = limb_slice.indices(k_ctx)
@@ -302,36 +328,56 @@ def _launch(name: str, symbol: str, x: torch.Tensor, tables: NttTables,
     if x.shape[-1] != n or x.shape[-2] != k_sel:
         raise ValueError(f"{name}: shape {tuple(x.shape)} does not match "
                          f"{k_sel} limbs of degree {n}")
+    return start, k_sel
+
+
+def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
+             inverse: bool) -> torch.Tensor:
+    """Launch K1 on (..., k_sel, n) canonical int64 residues of a CUDA
+    tensor: one CTA a row, or at n = 16384 a cluster of two CTAs holding
+    half a row each (kernels.ntt_plan)."""
+    start, k_sel = _rows("ntt", x, tables, limb_slice)
+    n = x.shape[-1]
+    cluster, threads, _ = kernels.ntt_plan(n)  # raises above two CTAs
+    if x.data_ptr() % 16:
+        raise ValueError("ntt: rows are not 16-byte aligned")
+    y = torch.empty_like(x)
+    rows = x.numel() // n
+    if rows == 0:
+        return y
+    tw = tables.pass_twiddles(inverse)
+    fn = kernels.function("ntt", "tpufhe_ntt", _NTT_ARGS)
+    kernels.count("ntt")
+    err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
+             kernels.ptr(tables.p), kernels.ptr(tables.ninv),
+             kernels.ptr(tables.ninv_shoup), start, int(inverse), cluster,
+             threads, kernels.stream())
+    kernels.check(err, "ntt")
+    return y
+
+
+def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
+               inverse: bool) -> torch.Tensor:
+    """Launch K9 on (..., k_sel, n) canonical int32 residues (p < 2^30) of
+    a CUDA tensor, with a narrow context's tables: one block a row."""
+    start, k_sel = _rows("ntt32", x, tables, limb_slice)
+    n = x.shape[-1]
     if n * x.element_size() > kernels.SMEM_BYTES:
-        raise ValueError(f"{name}: degree {n} does not fit in shared memory")
+        raise ValueError(f"ntt32: degree {n} does not fit in shared memory")
     y = torch.empty_like(x)
     rows = x.numel() // n
     if rows == 0:
         return y
     tw = tables.zetas_inv if inverse else tables.omegas
     tws = tables.zetas_inv_shoup if inverse else tables.omegas_shoup
-    fn = kernels.function(name, symbol, _NTT_ARGS)
-    kernels.count(name)
+    fn = kernels.function("ntt32", "tpufhe_ntt32", _NTT32_ARGS)
+    kernels.count("ntt32")
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
              kernels.ptr(tws), kernels.ptr(tables.p), kernels.ptr(tables.ninv),
              kernels.ptr(tables.ninv_shoup), start, int(inverse),
              kernels.stream())
-    kernels.check(err, name)
+    kernels.check(err, "ntt32")
     return y
-
-
-def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
-             inverse: bool) -> torch.Tensor:
-    """Launch K1 on (..., k_sel, n) canonical int64 residues of a CUDA
-    tensor."""
-    return _launch("ntt", "tpufhe_ntt", x, tables, limb_slice, inverse)
-
-
-def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
-               inverse: bool) -> torch.Tensor:
-    """Launch K9 on (..., k_sel, n) canonical int32 residues (p < 2^30) of
-    a CUDA tensor, with a narrow context's tables."""
-    return _launch("ntt32", "tpufhe_ntt32", x, tables, limb_slice, inverse)
 
 
 def ntt_transform(x: torch.Tensor, tables: NttTables,

@@ -27,9 +27,9 @@ permutation (plain torch, as tpufhe's XLA take), then runs two launches:
 K1 inverse NTT of the substituted c1, and K5 rotate tail: forward NTT of
 its Garner digits, key-switch accumulate and the add of the substituted c0.
 
-K3 holds three rows of N words in one block's shared memory; K4 and K5
-run a cluster of one-row CTAs per (batch row, limb). Where three rows do
-not fit (``kernels.tail_fits``, false at N = 16384), the programs take
+K3, K4 and K5 run a cluster of one-row CTAs per (batch row, limb). Where
+three rows do not fit one block (``kernels.tail_fits``, the route rule,
+false at N = 16384), the programs take
 tpufhe's unfused composition for all three, chosen when they are built
 (tpufhe pipeline.py:476-486, 545-569, 763-779): K7 then K1 inverse over
 the multiplication basis in place of K3; one K1 forward of the stacked
@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from functools import lru_cache
 
 import torch
 
@@ -179,8 +178,9 @@ def tensor(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
 # K3: tensor product + inverse NTT (csrc/tensor_intt.cu)
 # ---------------------------------------------------------------------------
 
-_TENSOR_INTT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
+_TENSOR_INTT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def tensor_intt_plain(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
@@ -192,7 +192,8 @@ def tensor_intt_plain(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
 
 
 def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
-    """Launch K3."""
+    """Launch K3: a cluster of three CTAs per (row, limb), one per output
+    part (kernels.tensor_intt_plan)."""
     kernels.require_cuda("tensor_intt", torch.int64, ext)
     k, n = ctx_mul.k, ctx_mul.degree
     if ext.shape[0] != 4 or ext.shape[-2:] != (k, n):
@@ -205,13 +206,14 @@ def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     if rows_k == 0:
         return out
     tb = ctx_mul.tables
+    tz = tb.pass_twiddles(True)
+    cluster, threads, _ = kernels.tensor_intt_plan(n)
     fn = kernels.function("tensor_intt", "tpufhe_tensor_intt", _TENSOR_INTT_ARGS)
     kernels.count("tensor_intt")
-    err = fn(kernels.ptr(ext), kernels.ptr(out), rows_k, k, n,
-             kernels.ptr(tb.zetas_inv), kernels.ptr(tb.zetas_inv_shoup),
+    err = fn(kernels.ptr(ext), kernels.ptr(out), rows_k, k, n, kernels.ptr(tz),
              kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
              kernels.ptr(tb.barrett_hi), kernels.ptr(tb.ninv),
-             kernels.ptr(tb.ninv_shoup), kernels.stream())
+             kernels.ptr(tb.ninv_shoup), cluster, threads, kernels.stream())
     kernels.check(err, "tensor_intt")
     return out
 
@@ -230,19 +232,6 @@ def tensor_intt(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
 
 _RELIN_TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
-
-
-@lru_cache(maxsize=None)
-def tail_twiddles(ctx: Context) -> torch.Tensor:
-    """K4 and K5's twiddle table over ctx: (k, N, 2) words, limb j's omegas
-    and their Shoup constants side by side in the order its transform reads
-    them (kernels.tail_twiddle_order), so that each pair is one 16-byte
-    load and a unit's pairs lie together."""
-    tb = ctx.tables
-    idx = torch.tensor(kernels.tail_twiddle_order(ctx.degree),
-                       device=tb.omegas.device)
-    return torch.stack((tb.omegas[:, idx], tb.omegas_shoup[:, idx]),
-                       -1).contiguous()
 
 
 def relin_tail_plain(ctx: Context, dsc: torch.Tensor, ksk):
@@ -273,7 +262,7 @@ def relin_tail_cuda(ctx: Context, dsc: torch.Tensor, ksk):
     if rows_k == 0:
         return out[0], out[1]
     tb = ctx.tables
-    tw = tail_twiddles(ctx)
+    tw = tb.pass_twiddles(False)
     cluster, threads, _ = kernels.tail_plan(k + 2, n)
     fn = kernels.function("relin_tail", "tpufhe_relin_tail", _RELIN_TAIL_ARGS)
     kernels.count("relin_tail")
@@ -330,7 +319,7 @@ def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     if rows_k == 0:
         return out[0], out[1]
     tb = ctx.tables
-    tw = tail_twiddles(ctx)
+    tw = tb.pass_twiddles(False)
     cluster, threads, _ = kernels.tail_plan(k, n)
     fn = kernels.function("rotate_tail", "tpufhe_rotate_tail", _ROTATE_TAIL_ARGS)
     kernels.count("rotate_tail")
