@@ -22,7 +22,10 @@ Phases, in order; any failure exits nonzero before the last line:
    ntt at BASELINE config 2's ring (8, 2, 4096) and at N = 16 and 512
    (the small degrees tpufhe's other NTT kernel serves), each ntt and
    tensor_intt record with its launch plan (cluster, threads, CTAs per SM
-   and clusters at once from the kernel's occupancy entry point); ntt32
+   and clusters at once from the kernel's occupancy entry point), and so
+   each intt_scale record, beside the time of the split K1 inverse + K2
+   launches it fuses (split_ms); intt_scale also at one shape of its
+   general instance (k_in = 12, N = 1024); ntt32 (with its plan)
    at the four transforms of the narrow N = 8192, 7 x 30-bit, batch-64
    mul+relin, at the narrow rotation's two and at N = 512, and rns_scale
    on its int32 rows (extend 7 -> 9 new limbs, down-scale 16 -> 7); at
@@ -82,7 +85,8 @@ Phases, in order; any failure exits nonzero before the last line:
 
 The second-to-last line is {"kernels": [...]} (nine entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
-clusters, ntt and tensor_intt their plan), the last one {"ok": true,
+clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
+its split_ms), the last one {"ok": true,
 "device": {...}}. Exits nonzero without a CUDA card.
 """
 
@@ -193,8 +197,9 @@ def time_ms(fn, reps: int) -> float:
 
 
 def ntt_ops(n: int, inverse: bool, shoup: int = SHOUP) -> int:
-    """int32 multiplies of one length-n transform (csrc/ntt_device.cuh):
-    one Shoup product per butterfly, and per word for the n^{-1} fold."""
+    """int32 multiplies of one length-n transform (ops/ntt.py's radix-2
+    stages): one Shoup product per butterfly, and per word for the n^{-1}
+    fold."""
     ops = (n // 2) * int(math.log2(n)) * shoup
     return ops + n * shoup if inverse else ops
 
@@ -358,17 +363,25 @@ def occupancy(fn, rows: int, n: int) -> dict:
             "blocks_per_sm": blocks.value, "clusters": clusters.value}
 
 
-def plan_record(kernel: str, n: int, inverse: bool = False) -> dict:
-    """K1's (per direction) or K3's launch plan at degree n with the CTAs
-    one SM holds and the clusters the card holds at once, from the kernel's
-    occupancy entry point; logged."""
+def plan_record(kernel: str, n: int, inverse: bool = False,
+                k_in: int = 0) -> dict:
+    """K1's or K9's (per direction), K3's or K8's (k_in limbs) launch plan
+    at degree n with the CTAs one SM holds and the clusters the card holds
+    at once, from the kernel's occupancy entry point; logged."""
     from tpufhe_torch import kernels
 
-    if kernel == "ntt":
-        cluster, threads, smem = kernels.ntt_plan(n)
-        fn = kernels.function("ntt", "tpufhe_ntt_occupancy", OCC_ARGS)
+    if kernel in ("ntt", "ntt32"):
+        plan = kernels.ntt_plan if kernel == "ntt" else kernels.ntt32_plan
+        cluster, threads, smem = plan(n)
+        fn = kernels.function(kernel, f"tpufhe_{kernel}_occupancy", OCC_ARGS)
         first = int(inverse)
-        label = f"ntt n={n} {'inverse' if inverse else 'forward'}"
+        label = f"{kernel} n={n} {'inverse' if inverse else 'forward'}"
+    elif kernel == "intt_scale":
+        cluster, threads, smem = kernels.intt_scale_plan(k_in, n)
+        fn = kernels.function(kernel, "tpufhe_intt_scale_occupancy",
+                              OCC_ARGS)
+        first = k_in
+        label = f"intt_scale k_in={k_in} n={n}"
     else:
         cluster, threads, smem = kernels.tensor_intt_plan(n)
         fn = kernels.function("tensor_intt", "tpufhe_tensor_intt_occupancy",
@@ -377,7 +390,8 @@ def plan_record(kernel: str, n: int, inverse: bool = False) -> dict:
         label = f"tensor_intt n={n}"
     fn.argtypes, fn.restype = OCC_ARGS, ctypes.c_int
     blocks, clusters = ctypes.c_int(), ctypes.c_int()
-    kernels.check(fn(n, first, threads, ctypes.byref(blocks),
+    args = (first, n) if kernel == "intt_scale" else (n, first)
+    kernels.check(fn(*args, threads, ctypes.byref(blocks),
                      ctypes.byref(clusters)), "occupancy")
     rec = {"cluster": cluster, "threads": threads, "smem_bytes": smem,
            "blocks_per_sm": blocks.value, "clusters": clusters.value}
@@ -656,6 +670,26 @@ def check_variant_kernels(par, gen, int32_rate: float) -> dict:
     for key in ("intt_scale", "intt_scale_s2"):
         log(f"  {key}: the split K1 inverse + K2 launches it replaces "
             f"{out[key]['split_ms']:.4f} ms")
+        out[key]["plan"] = plan_record("intt_scale", n, k_in=k)
+    # K8's general instance (k_in past the fixed 3, more limbs than CTAs):
+    # 12 x 62-bit at N = 1024 extended by one limb
+    from tpufhe_torch.bfv import BfvParametersBuilder
+    from tpufhe_torch.ops.rns import ScalingFactor
+    from tpufhe_torch.ops.rq import Context, Scaler
+
+    g_basis = BfvParametersBuilder.generate_moduli([62] * 13, 1024)
+    g_ctx, g_mul = Context(g_basis[:12], 1024), Context(g_basis, 1024)
+    g_scaler = Scaler(g_ctx, g_mul, ScalingFactor.one()).rns_scaler
+    g_x = rand_residues((BATCH, 12, 1024), g_ctx.tables.p, gen)
+    out["intt_scale_general"] = run_case(
+        "intt_scale", f"general k_in=12 {tuple(g_x.shape)} -> 1 limb",
+        lambda: intt_scale_cuda(g_ctx, g_scaler, g_x, 12, 1),
+        lambda: intt_scale_plain(g_ctx, g_scaler, g_x, 12, 1), int32_rate,
+        (g_x.numel() + BATCH * 1024 + 2 * 12 * 1024) * 8,
+        BATCH * 12 * ntt_ops(1024, True) + scale_ops(g_scaler, 12, 1,
+                                                     BATCH * 1024))
+    out["intt_scale_general"]["plan"] = plan_record("intt_scale", 1024,
+                                                    k_in=12)
 
     # K2 at the kP = 2 split step: lhs extend, rhs P/q, t/P down-scale
     t2 = s2[2].ctx_mul.tables
@@ -730,6 +764,8 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
         k9("tail", rand_residues((2 + k, BATCH, k, n), t_ctx.p, gen), t_ctx,
            full, False),
     ], int32_rate, "per narrow mul+relin")
+    out["ntt32"]["plan"] = {d: plan_record("ntt32", n, d == "inverse")
+                            for d in ("forward", "inverse")}
     out["ntt32_rotation"] = run_cases("ntt32", [
         k9("rotation c1", rand_residues((ROT_BATCH, k, n), t_ctx.p, gen),
            t_ctx, full, True),
@@ -1543,7 +1579,8 @@ def main() -> int:
         "tensor_intt": {f"strategy2_kp{kp}":
                         variant_records[f"tensor_intt_s2_kp{kp}"]
                         for kp in (1, 2)},
-        "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"]},
+        "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"],
+                       "general": variant_records["intt_scale_general"]},
         "ntt32": {label: narrow_records[label] for label in
                   ("ntt32_rotation", "ntt32_512_forward", "ntt32_512_inverse")},
         "relin_tail": {label: tails[label] for label in

@@ -7,7 +7,8 @@ tpufhe_torch/csrc/relin_tail.cu and rotate_tail.cu run one cluster of
 one-row CTAs per (batch row, limb), each CTA transforming its row two
 butterfly stages a pass (ntt_pass_device.cuh, shared with K1 and K3).
 This script builds both sources into one library with nvcc -Xptxas -v,
-which prints every instance's registers and spills (K1's and K3's too),
+which prints every instance's registers and spills (K1's, K3's, K8's and
+K9's too, which share the transform passes),
 prints each tail's CTAs per SM and co-resident clusters
 (cudaOccupancyMax*), holds both torch.equal to the
 plain versions at the shapes chip_smoke.py checks plus one shape with more
@@ -90,9 +91,9 @@ def ptxas(log: str) -> dict:
 
 
 def build(out_dir: str, stamps: bool):
-    """nvcc of both tails (and again with stamps), and of K1 and K3 for
-    their registers, all at once. Returns ({name: library path}, {entry: ptxas
-    summary})."""
+    """nvcc of both tails (and again with stamps), and of K1, K3, K8 and K9
+    for their registers, all at once. Returns ({name: library path}, {entry:
+    ptxas summary})."""
     from tpufhe_torch import kernels
 
     jobs = {"tail": SOURCE} | ({"stamped": STAMPED} if stamps else {})
@@ -102,7 +103,8 @@ def build(out_dir: str, stamps: bool):
         with open(src, "w") as f:
             f.write(text)
         outs[name] = (src, os.path.join(out_dir, f"tail_profile_{name}.so"))
-    for name in ("ntt", "tensor_intt"):
+    others = ("ntt", "tensor_intt", "intt_scale", "ntt32")
+    for name in others:
         outs[name] = (os.path.join(kernels.CSRC, f"{name}.cu"),
                       os.path.join(out_dir, f"tail_profile_{name}.so"))
 
@@ -121,7 +123,7 @@ def build(out_dir: str, stamps: bool):
         for r in pool.map(nvcc, outs.items()):
             regs.update(r)
     return {name: lib for name, (_, lib) in outs.items()
-            if name not in ("ntt", "tensor_intt")}, regs
+            if name not in others}, regs
 
 
 def cases(gen):

@@ -1,5 +1,6 @@
 // A CPU stand-in for the parts of the CUDA runtime that the port's pass
-// kernels use (csrc/ntt.cu, tensor_intt.cu, relin_tail.cu, rotate_tail.cu),
+// kernels use (csrc/ntt.cu, ntt32.cu, tensor_intt.cu, intt_scale.cu,
+// relin_tail.cu, rotate_tail.cu),
 // so that their sources compile with g++ and run on the host:
 //
 //   g++ -std=c++17 -shared -fPIC -I tests/cuda_emu -include cuda_runtime.h \
@@ -26,6 +27,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ __thread
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -36,6 +38,15 @@ struct alignas(16) ulonglong2 {
 };
 inline ulonglong2 make_ulonglong2(unsigned long long a, unsigned long long b) {
   return {a, b};
+}
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
 }
 template <class T>
 inline T __ldg(const T* p) {

@@ -1,13 +1,16 @@
-"""The CUDA sources of K1 (ntt.cu), K3 (tensor_intt.cu), K4 (relin_tail.cu)
-and K5 (rotate_tail.cu), compiled with g++ against the CPU stand-in of
-tests/cuda_emu (each CTA an OS thread, each CUDA thread a fiber switched at
-barriers, distributed shared memory mapped between the cluster's threads)
-and run through the port's own wrappers on CPU tensors, word for word
-against their plain versions: every K1 instance (the general one, the fixed
-n = 4096 and 8192 rows, the N = 16384 two-CTA split) in both directions,
-K3's cluster of three and both tails. The card remains the judge of speed
-and of races; this holds the kernels' arithmetic, indexing, barriers and
-cluster exchanges on every CPU run."""
+"""The CUDA sources of K1 (ntt.cu), K3 (tensor_intt.cu), K4 (relin_tail.cu),
+K5 (rotate_tail.cu), K8 (intt_scale.cu) and K9 (ntt32.cu), compiled with g++
+against the CPU stand-in of tests/cuda_emu (each CTA an OS thread, each CUDA
+thread a fiber switched at barriers, distributed shared memory mapped
+between the cluster's threads) and run through the port's own wrappers on
+CPU tensors, word for word against their plain versions: every K1 instance
+(the general one, the fixed n = 4096 and 8192 rows, the N = 16384 two-CTA
+split) in both directions, K3's cluster of three, both tails, K9's narrow
+passes (the general instance, a row of one pass at n = 8, the fixed
+n = 8192) in both directions, and K8's cluster (the fixed k_in = 3 instances
+and the general one, with more limbs than CTAs). The card remains the judge
+of speed and of races; this holds the kernels' arithmetic, indexing,
+barriers and cluster exchanges on every CPU run."""
 
 from __future__ import annotations
 
@@ -27,15 +30,18 @@ from tpufhe_torch import kernels
 from tpufhe_torch import pipeline as tpl
 from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
 from tpufhe_torch.ops import ntt as ntt_mod
-from tpufhe_torch.ops.rq import Context
+from tpufhe_torch.ops.intt_scale import intt_scale_cuda, intt_scale_plain
+from tpufhe_torch.ops.rns import ScalingFactor
+from tpufhe_torch.ops.rq import Context, Scaler
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
-SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail")
+SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
+           "intt_scale")
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{kernel name: ctypes library} of the four sources built with g++."""
+    """{kernel name: ctypes library} of the sources built with g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the CUDA sources cannot be emulated")
@@ -85,9 +91,9 @@ def _residues(shape, moduli, seed):
     return torch.from_numpy(x.astype(np.int64))
 
 
-def _context(n, k):
-    return Context(T.BfvParametersBuilder.generate_moduli([62] * k, n), n,
-                   "cpu")
+def _context(n, k, bits=62):
+    return Context(T.BfvParametersBuilder.generate_moduli([bits] * k, n), n,
+                   "cpu", narrow=bits <= 30)
 
 
 # (n, limbs of the context, limb_slice, batch rows): the general instance
@@ -143,3 +149,57 @@ def test_tail_kernels_match_plain(on_host, tail, n, k, rows):
         want = tpl.rotate_tail_plain(ctx, s0, c2, key)
     assert torch.equal(torch.stack(got), torch.stack(want))
     assert on_host[f"{tail}_tail"] == 1
+
+
+# (n, limbs of the narrow context, limb_slice, batch rows): K9's general
+# instance (a row of one three-stage pass at n = 8, a two-stage lead pass at
+# n = 32, n = 16 and 512) and its fixed n = 8192 one, with limb slices that
+# start past limb 0
+K9_CASES = [(8, 2, slice(None), 2), (16, 3, slice(1, 3), 2),
+            (32, 2, slice(None), 1), (512, 3, slice(1, 3), 2),
+            (8192, 3, slice(1, 3), 1)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,k,sl,rows", K9_CASES)
+def test_ntt32_kernel_matches_plain(on_host, n, k, sl, rows, inverse):
+    tables = _context(n, k, 30).tables
+    moduli = tables.mod.moduli[sl]
+    x = _residues((rows, len(moduli), n), moduli, n + rows).int()
+    got = ntt_mod.ntt32_cuda(x, tables, sl, inverse)
+    if inverse:
+        want = ntt_mod.backward32_plain(x, tables.zetas_inv[sl],
+                                        tables.ninv[sl], tables.p[sl])
+    else:
+        want = ntt_mod.forward32_plain(x, tables.omegas[sl], tables.p[sl])
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert on_host["ntt32"] == 1
+
+
+# (n, k_in, extension limbs, scaling, batch rows): the fixed shape's pair
+# of half-row CTAs (3 limbs of 8192, also with a table too large for the
+# parameter space at 56 new limbs), and the general one-limb CTAs at 3
+# limbs of other degrees and with more limbs than the cluster's eight CTAs;
+# "extend" is the base extension of a multiplication (factor one, the new
+# limbs), "rhs" strategy 2's P/q scaling onto every limb of the larger basis
+K8_CASES = [(16, 3, 2, "extend", 2), (1024, 3, 2, "rhs", 2),
+            (8192, 3, 1, "extend", 1), (8192, 3, 2, "rhs", 2),
+            (8192, 3, 56, "extend", 1),
+            (1024, 12, 1, "rhs", 1),
+            (64, 9, 2, "extend", 2)]
+
+
+@pytest.mark.parametrize("n,k,extra,kind,rows", K8_CASES)
+def test_intt_scale_kernel_matches_plain(on_host, n, k, extra, kind, rows):
+    basis = T.BfvParametersBuilder.generate_moduli([62] * (k + extra), n)
+    ctx, ctx_mul = Context(basis[:k], n, "cpu"), Context(basis, n, "cpu")
+    if kind == "extend":
+        factor, start, size = ScalingFactor.one(), k, extra
+    else:
+        p_prod = int(np.prod([int(p) for p in basis[k:]], dtype=object))
+        factor, start, size = ScalingFactor(p_prod, ctx.modulus()), 0, k + extra
+    scaler = Scaler(ctx, ctx_mul, factor).rns_scaler
+    x = _residues((rows, k, n), ctx.moduli, n + k)
+    got = intt_scale_cuda(ctx, scaler, x, start, size)
+    assert torch.equal(got, intt_scale_plain(ctx, scaler, x, start, size))
+    assert on_host["intt_scale"] == 1

@@ -1,12 +1,17 @@
 """The host-side model of the Hopper transform passes
-(tpufhe_torch/csrc/ntt_pass_device.cuh) behind K1 (ntt.cu) and K3
-(tensor_intt.cu): the inverse pass schedule and its pass-ordered table, the
-N = 16384 row split across a two-CTA cluster, the shared-memory slots, the
-launch plans and K3's coefficient thirds. Each schedule runs on exact
-Python integers, on words kept at their swizzled slots, and is held word
-for word against the port's plain transforms (ops/ntt.py forward_plain /
-backward_plain, themselves held against tpufhe), and K3's cluster against
-tensor_intt_plain."""
+(tpufhe_torch/csrc/ntt_pass_device.cuh) behind K1 (ntt.cu), K3
+(tensor_intt.cu), K8 (intt_scale.cu) and the narrow K9 (ntt32.cu): the pass
+schedules and their pass-ordered tables (K9's of three stages a pass on
+4-byte words), the N = 16384 row split across a two-CTA cluster, the
+shared-memory slots of 8- and 4-byte words, the launch plans and the
+clusters' coefficient shares. Each schedule runs on exact Python integers,
+on words kept at their swizzled slots, and is held word for word against
+the port's plain transforms (ops/ntt.py forward_plain / backward_plain and
+forward32_plain / backward32_plain, themselves held against tpufhe), and
+K3's cluster against tensor_intt_plain."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -15,7 +20,9 @@ import torch
 import tpufhe_torch.bfv as T
 from tpufhe_torch import kernels
 from tpufhe_torch import pipeline as tpl
-from tpufhe_torch.ops.ntt import backward_plain, forward_plain
+from tpufhe_torch.ops.intt_scale import intt_scale_fits
+from tpufhe_torch.ops.ntt import (backward32_plain, backward_plain,
+                                  forward32_plain, forward_plain)
 from tpufhe_torch.ops.rq import Context as TContext
 
 # 228 KB of shared memory an SM, 65,536 registers, at most 1,024 threads a
@@ -28,12 +35,23 @@ def _slot(i):
     return i ^ (((i >> 4) & 3) * 5)
 
 
-def _unit(q, ls, s):
+def _slot32(i):
+    """ntt_pass_device.cuh pass_slot32, the slots of 4-byte words."""
+    return i ^ (((i >> 5) & 1) * 5) ^ (((i >> 6) & 1) * 26) ^ (
+        ((i >> 7) & 1) * 20)
+
+
+def _unit(q, ls, s, narrow=False):
     """The words of unit q of a pass with stride 2^ls and s stages, and
-    their slots as ntt_pass computes them: one pass_slot call and an XOR
-    where bits ls .. ls + s - 1 miss bits 4, 5, else one call a word."""
+    their slots as ntt_pass computes them: 8-byte words, one pass_slot call
+    and an XOR where bits ls .. ls + s - 1 miss bits 4, 5, else one call a
+    word; 4-byte words, pass_slot32 of the unit's first word XOR that of
+    each word's offset."""
     first = ((q >> ls) << (ls + s)) | (q & ((1 << ls) - 1))
     words = [first | (t << ls) for t in range(1 << s)]
+    if narrow:
+        return words, [_slot32(first) ^ _slot32(t << ls)
+                       for t in range(1 << s)]
     if ls + s <= 4 or ls >= 6:
         return words, [_slot(first) ^ (t << ls) for t in range(1 << s)]
     return words, [_slot(w) for w in words]
@@ -65,11 +83,11 @@ def _inverse_unit(v, tz, p):
             v[t], v[t + half] = (x + y) % p, (x - y) * z % p
 
 
-def _pass(smem, logn, s0, s, table, off, p, inverse):
+def _pass(smem, logn, s0, s, table, off, p, inverse, narrow=False):
     """ntt_pass (s0, s) over a row of 2^logn words held at their slots."""
     ls = logn - s0 - s
     for q in range(1 << (logn - s)):
-        _, at = _unit(q, ls, s)
+        _, at = _unit(q, ls, s, narrow)
         v = [smem[i] for i in at]
         t = table[off + (q >> ls) * ((1 << s) - 1):]
         (_inverse_unit if inverse else _forward_unit)(v, t, p)
@@ -78,29 +96,34 @@ def _pass(smem, logn, s0, s, table, off, p, inverse):
     return off + (((1 << s) - 1) << s0)
 
 
-def _forward_row(x, table, p):
-    """forward_row: the passes of kernels.ntt_passes(logn) in order."""
+def _forward_row(x, table, p, narrow=False):
+    """forward_row: the passes of kernels.ntt_passes(logn) in order (narrow:
+    NARROW_PASS_STAGES a pass on 4-byte slots)."""
     logn = len(x).bit_length() - 1
+    slot = _slot32 if narrow else _slot
+    per = kernels.NARROW_PASS_STAGES if narrow else kernels.PASS_STAGES
     smem = [0] * len(x)
     for i, v in enumerate(x):
-        smem[_slot(i)] = int(v)
+        smem[slot(i)] = int(v)
     off = 0
-    for s0, s in kernels.ntt_passes(logn):
-        off = _pass(smem, logn, s0, s, table, off, p, False)
-    return [smem[_slot(i)] for i in range(len(x))]
+    for s0, s in kernels.ntt_passes(logn, 0, per):
+        off = _pass(smem, logn, s0, s, table, off, p, False, narrow)
+    return [smem[slot(i)] for i in range(len(x))]
 
 
-def _inverse_row(x, table, p, ninv):
+def _inverse_row(x, table, p, ninv, narrow=False):
     """inverse_row: the same passes in reverse, Gentleman-Sande, then the
     n^{-1} fold."""
     logn = len(x).bit_length() - 1
+    slot = _slot32 if narrow else _slot
+    per = kernels.NARROW_PASS_STAGES if narrow else kernels.PASS_STAGES
     smem = [0] * len(x)
     for i, v in enumerate(x):
-        smem[_slot(i)] = int(v)
+        smem[slot(i)] = int(v)
     off = 0
-    for s0, s in reversed(kernels.ntt_passes(logn)):
-        off = _pass(smem, logn, s0, s, table, off, p, True)
-    return [smem[_slot(i)] * ninv % p for i in range(len(x))]
+    for s0, s in reversed(kernels.ntt_passes(logn, 0, per)):
+        off = _pass(smem, logn, s0, s, table, off, p, True, narrow)
+    return [smem[slot(i)] * ninv % p for i in range(len(x))]
 
 
 def _split_forward(x, table, p):
@@ -164,17 +187,23 @@ def _split_inverse(x, table, p, ninv):
     return out
 
 
-def _ring(n, seed):
-    """A one-limb context of degree n and a canonical row with a p - 1."""
-    (p,) = T.BfvParametersBuilder.generate_moduli([62], n)
-    tctx = TContext([p], n, "cpu")
+def _ring(n, seed, narrow=False):
+    """A one-limb context of degree n (narrow: a 30-bit modulus, int32
+    words) and a canonical row with a p - 1."""
+    (p,) = T.BfvParametersBuilder.generate_moduli([30 if narrow else 62], n)
+    tctx = TContext([p], n, "cpu", narrow=narrow)
     x = np.random.default_rng(seed).integers(0, p, n, dtype=np.uint64)
     x[0] = p - 1
-    return p, tctx.tables, x.astype(np.int64)
+    return p, tctx.tables, x.astype(np.int32 if narrow else np.int64)
 
 
 def _plain(x, tables, inverse):
     row = torch.from_numpy(x)[None]
+    if tables.narrow:
+        if inverse:
+            return backward32_plain(row, tables.zetas_inv, tables.ninv,
+                                    tables.p)[0].numpy()
+        return forward32_plain(row, tables.omegas, tables.p)[0].numpy()
     if inverse:
         return backward_plain(row, tables.zetas_inv, tables.ninv,
                               tables.mod)[0].numpy()
@@ -183,39 +212,65 @@ def _plain(x, tables, inverse):
 
 def _table(tables, inverse, split):
     """The twiddles of one limb in pass order, from the limb's table."""
+    per = kernels.NARROW_PASS_STAGES if tables.narrow else kernels.PASS_STAGES
     order = (kernels.inverse_twiddle_order if inverse
-             else kernels.forward_twiddle_order)(tables.omegas.shape[-1], split)
+             else kernels.forward_twiddle_order)(tables.omegas.shape[-1],
+                                                 split, per)
     base = tables.zetas_inv if inverse else tables.omegas
     return [int(v) for v in base[0, order]]
 
 
-@pytest.mark.parametrize("n", [16, 32, 256, 1024, 4096, 8192, 16384])
-def test_inverse_pass_schedule_matches_backward_plain(n):
+def _check_pass_table(tables, inverse):
+    """NttTables.pass_twiddles of whole rows: (1, n, 2) pairs of the
+    table's word type, the twiddles and their Shoup constants in the order
+    of kernels.forward_twiddle_order / inverse_twiddle_order (narrow: of
+    NARROW_PASS_STAGES a pass)."""
+    n = tables.omegas.shape[-1]
+    per = kernels.NARROW_PASS_STAGES if tables.narrow else kernels.PASS_STAGES
+    tw = tables.pass_twiddles(inverse, split=False)
+    assert tw.shape == (1, n, 2) and tw.dtype == tables.dtype
+    order = (kernels.inverse_twiddle_order if inverse
+             else kernels.forward_twiddle_order)(n, False, per)
+    base, shoup = ((tables.zetas_inv, tables.zetas_inv_shoup) if inverse
+                   else (tables.omegas, tables.omegas_shoup))
+    assert torch.equal(tw[0, :, 0], base[0, order])
+    assert torch.equal(tw[0, :, 1], shoup[0, order])
+
+
+# (n, narrow): the wide rows of K1, K3 and K8, and K9's narrow ones (three
+# stages a pass: one pass at n = 8, a lead pass of one stage at 16 and 8192,
+# of two at 32, none at 512)
+NARROW_ROWS = [(8, True), (16, True), (32, True), (512, True), (8192, True)]
+
+
+@pytest.mark.parametrize(
+    "n,narrow", [(n, False) for n in (16, 32, 256, 1024, 4096, 8192, 16384)]
+    + NARROW_ROWS)
+def test_inverse_pass_schedule_matches_backward_plain(n, narrow):
     """The inverse schedule (the forward's passes in reverse, Gentleman-
-    Sande, on swizzled words, twiddles from NttTables.pass_twiddles where
-    the row is whole) gives backward_plain word for word, at log2(n) odd
-    and even, the fixed instances' 4096 and 8192 among them; at 16384 the
-    whole-row schedule, beside the split one K1 runs there."""
-    p, tables, x = _ring(n, n)
-    if not kernels.ntt_split(n):
-        tz = tables.pass_twiddles(True)
-        assert tz.shape == (1, n, 2) and tz.dtype == torch.int64
-        order = kernels.inverse_twiddle_order(n)
-        assert torch.equal(tz[0, :, 0], tables.zetas_inv[0, order])
-        assert torch.equal(tz[0, :, 1], tables.zetas_inv_shoup[0, order])
+    Sande, on swizzled words, twiddles from NttTables.pass_twiddles of the
+    whole row) gives backward_plain word for word, at log2(n) odd and even,
+    the fixed instances' 4096 and 8192 among them; at 16384 the whole-row
+    schedule (K8's), beside the split one K1 runs there. Narrow: K9's three
+    stages a pass on 4-byte slots against backward32_plain."""
+    p, tables, x = _ring(n, n, narrow)
+    _check_pass_table(tables, True)
     got = _inverse_row(x, _table(tables, True, False), p,
-                       int(tables.ninv[0]))
-    np.testing.assert_array_equal(np.array(got, dtype=np.int64),
+                       int(tables.ninv[0]), narrow)
+    np.testing.assert_array_equal(np.array(got, dtype=x.dtype),
                                   _plain(x, tables, True))
 
 
-@pytest.mark.parametrize("n", [16, 1024, 16384])
-def test_forward_row_schedule_matches_forward_plain(n):
+@pytest.mark.parametrize("n,narrow", [(16, False), (1024, False),
+                                      (16384, False)] + NARROW_ROWS)
+def test_forward_row_schedule_matches_forward_plain(n, narrow):
     """forward_row's schedule (the tails' forward passes) with the
-    whole-row table, including at 16384, where K1 splits the row."""
-    p, tables, x = _ring(n, n + 1)
-    got = _forward_row(x, _table(tables, False, False), p)
-    np.testing.assert_array_equal(np.array(got, dtype=np.int64),
+    whole-row table, including at 16384, where K1 splits the row; narrow,
+    K9's forward against forward32_plain."""
+    p, tables, x = _ring(n, n + 1, narrow)
+    _check_pass_table(tables, False)
+    got = _forward_row(x, _table(tables, False, False), p, narrow)
+    np.testing.assert_array_equal(np.array(got, dtype=x.dtype),
                                   _plain(x, tables, False))
 
 
@@ -241,17 +296,17 @@ def test_split_schedule_matches_plain(n, inverse):
                                   _plain(x, tables, inverse))
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_inverse_table_is_pass_ordered(split):
+@pytest.mark.parametrize("split,per", [(False, 2), (True, 2), (False, 3)])
+def test_inverse_table_is_pass_ordered(split, per):
     """kernels.inverse_twiddle_order lists every bit-reversed zeta_inv index
     0 .. n - 2 once, then the pad n - 1 (a permutation of the table), each
     pass's twiddles in one block of its own stages' indices, in the
     reverse of the forward schedule, at every degree 8 (16 split) .. 16384;
     split, the three crossing twiddles first and each half's in its own
-    block."""
+    block; per = 3, K9's passes of three stages."""
     for logn in range(4 if split else 3, 15):
         n = 1 << logn
-        order = kernels.inverse_twiddle_order(n, split)
+        order = kernels.inverse_twiddle_order(n, split, per)
         assert len(order) == n and order[-1] == n - 1
         assert sorted(order) == list(range(n))
 
@@ -260,7 +315,7 @@ def test_inverse_table_is_pass_ordered(split):
 
         if not split:
             off = 0
-            for s0, s in reversed(kernels.ntt_passes(logn)):
+            for s0, s in reversed(kernels.ntt_passes(logn, 0, per)):
                 size = ((1 << s) - 1) << s0
                 ls = logn - s0 - s
                 assert {stage(i) for i in order[off:off + size]} == set(
@@ -294,6 +349,46 @@ def test_forward_split_table_is_pass_ordered():
             # index i of stage s >= 1 (2^s <= i < 2^(s+1)) is group i - 2^s
             assert all((i - (1 << (i.bit_length() - 1)))
                        >> (i.bit_length() - 2) == rank for i in block)
+
+
+def test_narrow_forward_table_is_pass_ordered():
+    """K9's forward table (three stages a pass): omega indices 1 .. n - 1
+    once, then the pad 0, each pass's in one block of its own stages'
+    indices (stage s holds 2^s .. 2^(s+1) - 1), in the order of
+    kernels.ntt_passes(logn, 0, 3), at 8 .. 16384."""
+    per = kernels.NARROW_PASS_STAGES
+    for logn in range(3, 15):
+        n = 1 << logn
+        order = kernels.forward_twiddle_order(n, False, per)
+        assert len(order) == n and order[-1] == 0
+        assert sorted(order) == list(range(n))
+        off = 0
+        for s0, s in kernels.ntt_passes(logn, 0, per):
+            size = ((1 << s) - 1) << s0
+            assert {i.bit_length() - 1 for i in order[off:off + size]} == set(
+                range(s0, s0 + s))
+            off += size
+        assert off == n - 1
+
+
+@pytest.mark.parametrize("per", [2, 3])
+def test_narrow_slots_free_of_bank_conflicts(per):
+    """pass_slot32: every pass of `per` stages a pass (K9 runs three; the
+    map serves two as well) puts a warp's 32 accesses to word t of its 32
+    units in 32 distinct 4-byte banks (slot mod 32) at n = 512 .. 32768,
+    the slots a permutation of each row, and the map linear, so that a
+    word's slot is the unit's XOR its offset's."""
+    for logn in range(9, 16):
+        size = 1 << logn
+        assert sorted(_slot32(i) for i in range(size)) == list(range(size))
+        for s0, s in kernels.ntt_passes(logn, 0, per):
+            ls = logn - s0 - s
+            for q0 in range(0, size >> s, 32):
+                units = [_unit(q, ls, s, True) for q in range(q0, q0 + 32)]
+                for words, slots in units:
+                    assert slots == [_slot32(w) for w in words]
+                for t in range(1 << s):
+                    assert len({u[1][t] % 32 for u in units}) == 32
 
 
 def test_inverse_slots_free_of_bank_conflicts():
@@ -330,7 +425,17 @@ def test_launch_plans_within_card_limits():
     every pass (a thread a unit at most n / 4 units), one row (K1 at 16384:
     half a row) of at most 64 KB a CTA, so three CTAs share an SM, and
     three 512-thread CTAs leave at least 40 registers a thread; K1 splits
-    only the 16384 row, into a cluster of two; K3 clusters three CTAs."""
+    only the 16384 row, into a cluster of two; K3 clusters three CTAs.
+    K9's (kernels.ntt32_plan) at 8 .. 32768: one CTA a row of at most
+    256 threads (at most n / 8, a thread a three-stage unit), the row's
+    4 n bytes within one CTA's shared memory, and at n = 8192 six 32 KB
+    CTAs an SM (each with its 1 KB of reserved shared memory) at 40
+    registers a thread. K8's (kernels.intt_scale_plan) at every (k_in, n)
+    that intt_scale_fits admits up to k_in = 64: at most 8 CTAs a cluster
+    (portable), at most 256 threads, every limb in one CTA of the cluster,
+    each CTA's limbs within its shared memory; at (3, 8192), split, a pair
+    of 96 KB CTAs of 512 threads, half of every limb each, two an SM at up
+    to 64 registers a thread."""
     for logn in range(3, 15):
         n = 1 << logn
         for cluster, threads, smem in [kernels.ntt_plan(n)] + (
@@ -344,6 +449,52 @@ def test_launch_plans_within_card_limits():
             assert kernels.tensor_intt_plan(n)[0] == 3
     with pytest.raises(ValueError):
         kernels.ntt_plan(32768)
+    for logn in range(3, 16):
+        n = 1 << logn
+        cluster, threads, smem = kernels.ntt32_plan(n)
+        assert cluster == 1 and smem == 4 * n <= kernels.SMEM_BYTES
+        assert 1 <= threads <= min(256, max(1, n // 8))
+    _, threads, smem = kernels.ntt32_plan(8192)
+    assert 6 * (smem + 1024) <= SM_SMEM and 6 * threads <= 2048
+    assert 65536 // (6 * threads) >= 40
+    for logn in range(3, 15):
+        n = 1 << logn
+        for k_in in range(1, 65):
+            if not intt_scale_fits(k_in, n):
+                continue
+            cluster, threads, smem = kernels.intt_scale_plan(k_in, n)
+            if kernels.intt_scale_split(k_in, n):
+                assert (cluster, smem) == (2, 4 * n * k_in)
+                continue
+            limbs = -(-k_in // cluster)
+            assert 1 <= cluster <= 8 and cluster * limbs >= k_in
+            assert 1 <= threads <= min(256, max(1, n // 4))
+            assert smem == 8 * n * limbs <= kernels.SMEM_BYTES
+    assert kernels.intt_scale_split(3, 8192)
+    cluster, threads, smem = kernels.intt_scale_plan(3, 8192)
+    assert (cluster, threads, smem) == (2, 512, 98304)
+    assert 2 * (smem + 1024) <= SM_SMEM and 65536 // (2 * threads) >= 64
+
+
+@pytest.mark.parametrize("source,define,const", [
+    ("ntt_pass_device.cuh", "PASS_STAGES", "PASS_STAGES"),
+    ("ntt.cu", "NTT_THREADS", "NTT_THREADS"),
+    ("ntt.cu", "NTT_ROW_MAX", "NTT_ROW_MAX"),
+    ("tensor_intt.cu", "K3_PARTS", "K3_PARTS"),
+    ("ntt32.cu", "NTT32_STAGES", "NARROW_PASS_STAGES"),
+    ("ntt32.cu", "NTT32_THREADS", "NTT32_THREADS"),
+    ("intt_scale.cu", "K8_THREADS", "K8_THREADS"),
+    ("intt_scale.cu", "K8_SPLIT_THREADS", "K8_SPLIT_THREADS"),
+    ("intt_scale.cu", "K8_CLUSTER_MAX", "K8_CLUSTER_MAX"),
+])
+def test_plan_constants_match_sources(source, define, const):
+    """The constants the Python plans and pass-ordered tables are built from
+    equal the kernels' own: a table in another pass order than the kernel's
+    stages a pass would give wrong words with no error."""
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        found = re.findall(rf"^#define {define} (\d+)$", f.read(),
+                           flags=re.MULTILINE)
+    assert found == [str(getattr(kernels, const))]
 
 
 def test_tensor_intt_thirds_cover_every_coefficient():
@@ -356,6 +507,26 @@ def test_tensor_intt_thirds_cover_every_coefficient():
         assert len(thirds) == 3
         assert [e for lo, hi in thirds for e in range(lo, hi)] == list(range(n))
         assert all(lo % 32 == 0 or lo == n for lo, _ in thirds)
+
+
+@pytest.mark.parametrize("k_in", [1, 3, 5, 8, 12])
+def test_intt_scale_shares_cover_every_coefficient(k_in):
+    """The coefficients the CTAs of a K8 cluster scale
+    (kernels.coefficient_shares over its intt_scale_plan cluster: min(k_in,
+    8) CTAs, or the pair's halves where it splits 3 limbs of 8192) cover
+    0 .. n - 1 once, in order, each starting at a multiple of 32, at every
+    degree 8 .. 8192; K3's thirds are the same shares over three CTAs."""
+    for logn in range(3, 14):
+        n = 1 << logn
+        cluster = kernels.intt_scale_plan(k_in, n)[0]
+        shares = kernels.coefficient_shares(n, cluster)
+        split = kernels.intt_scale_split(k_in, n)
+        assert len(shares) == cluster == (2 if split else min(k_in, 8))
+        if split:
+            assert shares == [(0, n // 2), (n // 2, n)]
+        assert [e for lo, hi in shares for e in range(lo, hi)] == list(range(n))
+        assert all(lo % 32 == 0 or lo == n for lo, _ in shares)
+        assert kernels.tensor_intt_thirds(n) == kernels.coefficient_shares(n, 3)
 
 
 @pytest.mark.parametrize("n", [16, 512])

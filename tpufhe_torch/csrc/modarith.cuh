@@ -86,8 +86,9 @@ TF_HD u64 mul_add_mod(u64 a0, u64 b0, u64 a1, u64 b1, Barrett br) {
 
 // The narrow (w30) words: one residue per 32-bit word, p < 2^30, Shoup
 // constants floor(b 2^32 / p) (tpufhe/ops/zq32.py). The functions below
-// overload the 64-bit ones on u32, so the transforms of ntt_device.cuh
-// serve both word sizes; Harvey's lazy bounds need 4p < 2^32.
+// overload the 64-bit ones on u32, so the transform passes of
+// ntt_pass_device.cuh serve both word sizes; Harvey's lazy bounds need
+// 4p < 2^32.
 typedef unsigned int u32;
 
 // High 32 bits of the 64-bit product a * b.

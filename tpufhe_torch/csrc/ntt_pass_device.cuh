@@ -1,8 +1,9 @@
 // The transform passes of the Hopper NTT kernels: the forward NTT of K1
 // (ntt.cu) and of the key-switch tails K4 and K5 (keyswitch_device.cuh),
-// and the inverse NTT of K1 and of K3 (tensor_intt.cu).
+// the inverse NTT of K1, of K3 (tensor_intt.cu) and of K8 (intt_scale.cu),
+// and both directions of the narrow K9 (ntt32.cu).
 //
-// Same transforms as ntt_device.cuh's radix-2 loops (the Harvey
+// Same transforms as the radix-2 stages of ops/ntt.py (the Harvey
 // butterflies of fhe.rs ntt/native.rs:77-132, the bit-reversed tables of
 // NttOperator, its bit-reversed output order), regrouped into passes of
 // S = PASS_STAGES butterfly stages each: a thread loads a unit of 2^S
@@ -25,6 +26,14 @@
 // of a row may read its units from device memory instead, and the last may
 // write them there (canonical, the inverse with the n^{-1} fold), which
 // saves a round trip through shared memory and a barrier at each end.
+//
+// The word type W is a template parameter: 64-bit words (p < 2^62, Shoup
+// constants scaled by 2^64, (twiddle, Shoup) pairs as ulonglong2) or the
+// narrow 32-bit words of K9 (p < 2^30, Shoup constants scaled by 2^32 as
+// tpufhe/ops/zq32.py has them, pairs as uint2, one 8-byte load). The lazy
+// bounds hold in both, since 4p < 2^32 for p < 2^30. The narrow rows also
+// take S = 3 stages a pass (kernels.NARROW_PASS_STAGES): a unit of eight
+// 4-byte words fits the registers where eight 8-byte words spilled.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -47,32 +56,88 @@ __device__ __forceinline__ int pass_slot(int i) {
   return i ^ (((i >> 4) & 3) * 5);
 }
 
+// The same for 4-byte words, where a warp's 32 accesses must fall in 32
+// distinct banks (slot mod 32). A warp's 32 units of a pass of S stages
+// at stride 2^ls touch, for each word t of the unit, words that differ in
+// bits {0 .. ls - 1} and {ls + S .. S + 4} (ls < 5), or in bits 0 .. 4.
+// The passes of 2 and 3 stages have ls in {0, 2, 4} and {0, 3} below 5;
+// XORing bit 5 into bits {0, 2}, bit 6 into {1, 3, 4} and bit 7 into
+// {2, 4} maps each of those five-bit sets one to one onto bits 0 .. 4.
+// The map is linear, so slot(a | b) = slot(a) ^ slot(b) for disjoint bits.
+__device__ __forceinline__ int pass_slot32(int i) {
+  return i ^ (((i >> 5) & 1) * 5) ^ (((i >> 6) & 1) * 26) ^
+         (((i >> 7) & 1) * 20);
+}
+
+// The pass body's types per word: the (twiddle, Shoup) pair, and the
+// 16-byte vector in which a unit of consecutive words moves.
+template <typename W>
+struct PassWord;
+
+template <>
+struct PassWord<u64> {
+  typedef u64 Word;
+  typedef ulonglong2 Pair;
+  static constexpr int VEC = 2;  // words of a 16-byte vector
+  static __device__ __forceinline__ int slot(int i) { return pass_slot(i); }
+  static __device__ __forceinline__ void load16(const u64* s, u64* v) {
+    const ulonglong2 w = *(const ulonglong2*)s;
+    v[0] = w.x;
+    v[1] = w.y;
+  }
+  static __device__ __forceinline__ void store16(u64* d, const u64* v) {
+    *(ulonglong2*)d = make_ulonglong2(v[0], v[1]);
+  }
+};
+
+template <>
+struct PassWord<u32> {
+  typedef u32 Word;
+  typedef uint2 Pair;
+  static constexpr int VEC = 4;
+  static __device__ __forceinline__ int slot(int i) { return pass_slot32(i); }
+  static __device__ __forceinline__ void load16(const u32* s, u32* v) {
+    const uint4 w = *(const uint4*)s;
+    v[0] = w.x;
+    v[1] = w.y;
+    v[2] = w.z;
+    v[3] = w.w;
+  }
+  static __device__ __forceinline__ void store16(u32* d, const u32* v) {
+    *(uint4*)d = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
 // a b mod p in [0, 2p) for any u64 a: lazy_mul_shoup with q p subtracted
 // as q (2^64 - p) added, the same word in fewer instructions.
 __device__ __forceinline__ u64 shoup_np(u64 a, u64 b, u64 b_shoup, u64 np) {
   return a * b + mulhi64(a, b_shoup) * np;
 }
 
+// The same on narrow words: any u32 a, b < p < 2^30, b_shoup scaled by 2^32.
+__device__ __forceinline__ u32 shoup_np(u32 a, u32 b, u32 b_shoup, u32 np) {
+  return a * b + mulhi32(a, b_shoup) * np;
+}
+
 // The forward stages of one unit: stage r pairs t with t + 2^(S-1-r) under
 // the unit's twiddle t / 2^(S-r) of that stage, at t[2^r - 1 + t / 2^(S-r)].
 // Inputs and outputs < 4p.
-template <int S>
-__device__ __forceinline__ void forward_unit(u64 (&v)[1 << S],
-                                             const ulonglong2* t, u64 p,
-                                             u64 np) {
+template <int S, typename W>
+__device__ __forceinline__ void forward_unit(
+    W (&v)[1 << S], const typename PassWord<W>::Pair* t, W p, W np) {
   constexpr int U = 1 << S;
-  const u64 p2 = 2 * p;
+  const W p2 = 2 * p;
 #pragma unroll
   for (int r = 0; r < S; ++r) {
     const int half = U >> (r + 1);
 #pragma unroll
     for (int j = 0; j < (1 << r); ++j) {
-      const ulonglong2 w = __ldg(t + (1 << r) - 1 + j);
+      const typename PassWord<W>::Pair w = __ldg(t + (1 << r) - 1 + j);
 #pragma unroll
       for (int i = 2 * half * j; i < 2 * half * j + half; ++i) {
-        u64 x = v[i];
+        W x = v[i];
         x = x >= p2 ? x - p2 : x;
-        const u64 y = shoup_np(v[i + half], w.x, w.y, np);
+        const W y = shoup_np(v[i + half], w.x, w.y, np);
         v[i] = x + y;
         v[i + half] = x + p2 - y;
       }
@@ -83,22 +148,21 @@ __device__ __forceinline__ void forward_unit(u64 (&v)[1 << S],
 // The inverse stages of one unit, the mirror of forward_unit: stage r
 // pairs t with t + 2^r under the twiddle t / 2^(r+1) of that stage, at
 // t[U - U / 2^r + t / 2^(r+1)]. Inputs and outputs < 2p.
-template <int S>
-__device__ __forceinline__ void inverse_unit(u64 (&v)[1 << S],
-                                             const ulonglong2* t, u64 p,
-                                             u64 np) {
+template <int S, typename W>
+__device__ __forceinline__ void inverse_unit(
+    W (&v)[1 << S], const typename PassWord<W>::Pair* t, W p, W np) {
   constexpr int U = 1 << S;
-  const u64 p2 = 2 * p;
+  const W p2 = 2 * p;
 #pragma unroll
   for (int r = 0; r < S; ++r) {
     const int half = 1 << r;
 #pragma unroll
     for (int j = 0; j < U / (2 * half); ++j) {
-      const ulonglong2 z = __ldg(t + U - (U >> r) + j);
+      const typename PassWord<W>::Pair z = __ldg(t + U - (U >> r) + j);
 #pragma unroll
       for (int i = 2 * half * j; i < 2 * half * j + half; ++i) {
-        const u64 x = v[i], y = v[i + half];
-        const u64 s = x + y;
+        const W x = v[i], y = v[i + half];
+        const W s = x + y;
         v[i] = s >= p2 ? s - p2 : s;
         v[i + half] = shoup_np(x + p2 - y, z.x, z.y, np);
       }
@@ -114,41 +178,48 @@ __device__ __forceinline__ void inverse_unit(u64 (&v)[1 << S],
 // row's first pass). TO: when not null, the unit is written to this row in
 // device memory, canonical (the row's last pass; the inverse multiplies by
 // f = n^{-1}, Shoup constant fs), and the pass ends without a barrier.
+// KEEP: with TO null, the same last pass leaves the unit canonical in a at
+// its slots, also without a barrier (the caller synchronises).
 // THREADS: the CTA's threads if known at compile time, else 0.
-template <int S, int THREADS, bool INVERSE>
-__device__ __forceinline__ void ntt_pass(u64* a, int logn, int s0, int off,
-                                         const ulonglong2* tw, u64 p, u64 np,
-                                         const u64* from = nullptr,
-                                         u64* to = nullptr, u64 f = 0,
-                                         u64 fs = 0) {
+template <int S, int THREADS, bool INVERSE, bool KEEP = false, typename W>
+__device__ __forceinline__ void ntt_pass(
+    W* a, int logn, int s0, int off, const typename PassWord<W>::Pair* tw,
+    W p, W np, const typename PassWord<W>::Word* from = nullptr,
+    typename PassWord<W>::Word* to = nullptr,
+    typename PassWord<W>::Word f = 0, typename PassWord<W>::Word fs = 0) {
+  typedef PassWord<W> PW;
   constexpr int U = 1 << S;
-  const u64 p2 = 2 * p;
+  constexpr int VEC = PW::VEC;
+  const W p2 = 2 * p;
   const int ls = logn - s0 - S;
   const int units = 1 << (logn - S);
   const int stride = THREADS ? THREADS : (int)blockDim.x;
-  // where the unit's bits ls .. ls + S - 1 miss bits 4 and 5, the bits
-  // pass_slot reads, one pass_slot call places all its words
+  // 8-byte words: where the unit's bits ls .. ls + S - 1 miss bits 4 and 5,
+  // the bits pass_slot reads, one pass_slot call places all its words;
+  // 4-byte words: pass_slot32 is linear, so a word's slot is the unit's
+  // XOR the slot of its offset t 2^ls
   const bool apart = ls + S <= 4 || ls >= 6;
 #pragma unroll 1
   for (int q = threadIdx.x; q < units; q += stride) {
     const int g = q >> ls;
     const int first = (g << (ls + S)) | (q & ((1 << ls) - 1));
-    const int base = pass_slot(first);
-    const ulonglong2* t = tw + off + g * (U - 1);
+    const int base = PW::slot(first);
+    const typename PW::Pair* t = tw + off + g * (U - 1);
     int at[U];
-    u64 v[U];
+    W v[U];
 #pragma unroll
-    for (int i = 0; i < U; ++i)
-      at[i] = apart ? base ^ (i << ls) : pass_slot(first | (i << ls));
+    for (int i = 0; i < U; ++i) {
+      if constexpr (sizeof(W) == 8)
+        at[i] = apart ? base ^ (i << ls) : pass_slot(first | (i << ls));
+      else
+        at[i] = base ^ pass_slot32(i << ls);
+    }
     if (from) {
-      if (ls == 0 && U > 1) {
+      if (ls == 0 && U >= VEC) {
         // the unit is 2^S consecutive words: 16-byte loads
 #pragma unroll
-        for (int i = 0; i < U; i += 2) {
-          const ulonglong2 w = *(const ulonglong2*)(from + first + i);
-          v[i] = w.x;
-          v[i + 1] = w.y;
-        }
+        for (int i = 0; i + VEC <= U; i += VEC)
+          PW::load16(from + first + i, v + i);
       } else {
 #pragma unroll
         for (int i = 0; i < U; ++i) v[i] = from[first + (i << ls)];
@@ -167,24 +238,37 @@ __device__ __forceinline__ void ntt_pass(u64* a, int logn, int s0, int off,
         if (INVERSE) {
           v[i] = mul_shoup(v[i], f, fs, p);
         } else {
-          const u64 x = v[i] >= p2 ? v[i] - p2 : v[i];
+          const W x = v[i] >= p2 ? v[i] - p2 : v[i];
           v[i] = x >= p ? x - p : x;
         }
       }
-      if (ls == 0 && U > 1) {
+      if (ls == 0 && U >= VEC) {
 #pragma unroll
-        for (int i = 0; i < U; i += 2)
-          *(ulonglong2*)(to + first + i) = make_ulonglong2(v[i], v[i + 1]);
+        for (int i = 0; i + VEC <= U; i += VEC)
+          PW::store16(to + first + i, v + i);
       } else {
 #pragma unroll
         for (int i = 0; i < U; ++i) to[first + (i << ls)] = v[i];
       }
     } else {
+      // KEEP: the same canonical words, kept in shared memory (a loop of
+      // its own: sharing one with the branch above changes K1's code)
+      if (KEEP) {
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          if (INVERSE) {
+            v[i] = mul_shoup(v[i], f, fs, p);
+          } else {
+            const W x = v[i] >= p2 ? v[i] - p2 : v[i];
+            v[i] = x >= p ? x - p : x;
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < U; ++i) a[at[i]] = v[i];
     }
   }
-  if (!to) __syncthreads();
+  if (!to && !KEEP) __syncthreads();
 }
 
 // The forward passes of the row a (2^logn words at pass_slot), inputs and
@@ -211,18 +295,31 @@ __device__ __forceinline__ void forward_passes(u64* a, int logn_rt,
 
 // The forward NTT of the row src (2^logn canonical words in device memory)
 // into dst, canonical, through the CTA's shared memory a: the first pass
-// reads src and the last writes dst. logn >= 3.
-template <int LOGN, int THREADS>
-__device__ __forceinline__ void forward_row(u64* a, const u64* src, u64* dst,
-                                            int logn_rt,
-                                            const ulonglong2* tw, u64 p) {
-  constexpr int S = PASS_STAGES;
+// reads src and the last writes dst. S stages a pass (2, or 3 for narrow
+// words); logn > S, or for S = 3 logn = 3, a row of one pass from src to
+// dst.
+template <int LOGN, int THREADS, int S = PASS_STAGES, typename W>
+__device__ __forceinline__ void forward_row(
+    W* a, const typename PassWord<W>::Word* src,
+    typename PassWord<W>::Word* dst, int logn_rt,
+    const typename PassWord<W>::Pair* tw, W p) {
+  static_assert(S == 2 || S == 3, "passes of 2 or 3 stages");
   const int logn = LOGN ? LOGN : logn_rt;
-  const u64 np = 0 - p;
+  const W np = 0 - p;
+  if (S > 2 && logn == S) {
+    ntt_pass<S, THREADS, false>(a, logn, 0, 0, tw, p, np, src, dst);
+    return;
+  }
   int s0, off;
   if (logn % S) {
-    ntt_pass<1, THREADS, false>(a, logn, 0, 0, tw, p, np, src);
-    s0 = off = 1;
+    if (S == 2 || logn % S == 1) {
+      ntt_pass<1, THREADS, false>(a, logn, 0, 0, tw, p, np, src);
+      s0 = off = 1;
+    } else {
+      ntt_pass<2, THREADS, false>(a, logn, 0, 0, tw, p, np, src);
+      s0 = 2;
+      off = 3;
+    }
   } else {
     ntt_pass<S, THREADS, false>(a, logn, 0, 0, tw, p, np, src);
     s0 = S;
@@ -241,12 +338,11 @@ __device__ __forceinline__ void forward_row(u64* a, const u64* src, u64* dst,
 // forward's second), Gentleman-Sande, on the row a in shared memory. The
 // first reads src in device memory if it is not null, else a. Returns the
 // table offset the last pass starts at.
-template <int LOGN, int THREADS>
-__device__ __forceinline__ int inverse_passes(u64* a, const u64* src,
-                                              int logn, const ulonglong2* tz,
-                                              u64 p, u64 np) {
-  constexpr int S = PASS_STAGES;
-  const int lead = logn % S ? 1 : S;
+template <int LOGN, int THREADS, int S = PASS_STAGES, typename W>
+__device__ __forceinline__ int inverse_passes(
+    W* a, const typename PassWord<W>::Word* src, int logn,
+    const typename PassWord<W>::Pair* tz, W p, W np) {
+  const int lead = logn % S ? (S == 2 ? 1 : logn % S) : S;
   int s0 = logn - S, off = 0;
   ntt_pass<S, THREADS, true>(a, logn, s0, off, tz, p, np, src);
   off += ((1 << S) - 1) << s0;
@@ -261,21 +357,36 @@ __device__ __forceinline__ int inverse_passes(u64* a, const u64* src,
 // The inverse NTT of a row with the n^{-1} fold (f, Shoup constant fs),
 // inputs < 2p, into dst in device memory, canonical. The first pass reads
 // src in device memory if it is not null, else the row in shared memory a
-// (at pass_slot). logn >= 3.
-template <int LOGN, int THREADS>
-__device__ __forceinline__ void inverse_row(u64* a, const u64* src, u64* dst,
-                                            int logn_rt,
-                                            const ulonglong2* tz, u64 p,
-                                            u64 f, u64 fs) {
+// (at its slots). KEEP: dst is null and the last pass leaves the row
+// canonical in a, at its slots, without a barrier. S and logn as
+// forward_row.
+template <int LOGN, int THREADS, int S = PASS_STAGES, bool KEEP = false,
+          typename W>
+__device__ __forceinline__ void inverse_row(
+    W* a, const typename PassWord<W>::Word* src,
+    typename PassWord<W>::Word* dst, int logn_rt,
+    const typename PassWord<W>::Pair* tz, W p, typename PassWord<W>::Word f,
+    typename PassWord<W>::Word fs) {
+  static_assert(S == 2 || S == 3, "passes of 2 or 3 stages");
   const int logn = LOGN ? LOGN : logn_rt;
-  const u64 np = 0 - p;
-  const int off = inverse_passes<LOGN, THREADS>(a, src, logn, tz, p, np);
-  if (logn % PASS_STAGES)
-    ntt_pass<1, THREADS, true>(a, logn, 0, off, tz, p, np, nullptr, dst, f,
-                               fs);
-  else
-    ntt_pass<PASS_STAGES, THREADS, true>(a, logn, 0, off, tz, p, np, nullptr,
-                                         dst, f, fs);
+  const W np = 0 - p;
+  if (S > 2 && logn == S) {
+    ntt_pass<S, THREADS, true, KEEP>(a, logn, 0, 0, tz, p, np, src, dst, f,
+                                     fs);
+    return;
+  }
+  const int off = inverse_passes<LOGN, THREADS, S>(a, src, logn, tz, p, np);
+  if (logn % S) {
+    if (S == 2 || logn % S == 1)
+      ntt_pass<1, THREADS, true, KEEP>(a, logn, 0, off, tz, p, np, nullptr,
+                                       dst, f, fs);
+    else
+      ntt_pass<2, THREADS, true, KEEP>(a, logn, 0, off, tz, p, np, nullptr,
+                                       dst, f, fs);
+  } else {
+    ntt_pass<S, THREADS, true, KEEP>(a, logn, 0, off, tz, p, np, nullptr,
+                                     dst, f, fs);
+  }
 }
 
 // The row split across a two-CTA cluster (n = 2^logn words, too many for
@@ -340,6 +451,44 @@ __device__ __forceinline__ void split_forward_row(u64* a, const u64* src,
   ntt_pass<S, THREADS, false>(a, logh, s0, off, rt, p, np, nullptr, out);
 }
 
+// The inverse passes of one half of a split row (2^logh words at pass_slot
+// in a) up to the row's last two stages: local stages 0 .. logh - 2, the
+// passes of split_forward_row's half in reverse down to the one at local
+// stage 1, the first reading the half from src in device memory. rt: the
+// half's part of the split table (split_inverse_row; K8's pair of CTAs).
+template <int THREADS>
+__device__ __forceinline__ void split_inverse_half(u64* a, const u64* src,
+                                                   int logh,
+                                                   const ulonglong2* rt,
+                                                   u64 p, u64 np) {
+  constexpr int S = PASS_STAGES;
+  int s0 = logh - S, off = 0;
+  ntt_pass<S, THREADS, true>(a, logh, s0, off, rt, p, np, src);
+  off += ((1 << S) - 1) << s0;
+  const int lead = (logh - 1) % S ? 2 : 1;
+#pragma unroll
+  for (s0 -= S; s0 >= lead; s0 -= S) {
+    ntt_pass<S, THREADS, true>(a, logh, s0, off, rt, p, np);
+    off += ((1 << S) - 1) << s0;
+  }
+  if (lead == 2) ntt_pass<1, THREADS, true>(a, logh, 1, off, rt, p, np);
+}
+
+// Stage logn - 2 of a split row's inverse, within each half, on one word
+// group: (x0, x1) = words i, i + n/4 of half 0 under z0, (y0, y1) those of
+// half 1 under z1; the sums come back below 2p.
+__device__ __forceinline__ void split_inner_stage(u64& x0, u64& x1, u64& y0,
+                                                  u64& y1, ulonglong2 z0,
+                                                  ulonglong2 z1, u64 p2,
+                                                  u64 np) {
+  u64 s = x0 + x1;
+  x1 = shoup_np(x0 + p2 - x1, z0.x, z0.y, np);
+  x0 = s >= p2 ? s - p2 : s;
+  s = y0 + y1;
+  y1 = shoup_np(y0 + p2 - y1, z1.x, z1.y, np);
+  y0 = s >= p2 ? s - p2 : s;
+}
+
 // Inverse: each CTA runs the inverse passes of local stages 0 .. logn - 3
 // on its half (read from device memory by the first), then after
 // cluster.sync() reads its partner's half through distributed shared
@@ -354,26 +503,14 @@ __device__ __forceinline__ void split_inverse_row(u64* a, const u64* src,
                                                   const ulonglong2* tz, u64 p,
                                                   u64 f, u64 fs) {
   namespace cg = cooperative_groups;
-  constexpr int S = PASS_STAGES;
   const int logn = LOGN ? LOGN : logn_rt;
   const int logh = logn - 1;
   const int quarter = 1 << (logn - 2);
   const int stride = THREADS ? THREADS : (int)blockDim.x;
   const u64 np = 0 - p, p2 = 2 * p;
   const ulonglong2* rt = tz + 3 + rank * ((1 << logh) - 2);
-  // local stages 0 .. logh - 2: the passes of split_forward_row's half in
-  // reverse, down to the one at local stage 1
   const long long half_at = (long long)rank << logh;
-  int s0 = logh - S, off = 0;
-  ntt_pass<S, THREADS, true>(a, logh, s0, off, rt, p, np, src + half_at);
-  off += ((1 << S) - 1) << s0;
-  const int lead = (logh - 1) % S ? 2 : 1;
-#pragma unroll
-  for (s0 -= S; s0 >= lead; s0 -= S) {
-    ntt_pass<S, THREADS, true>(a, logh, s0, off, rt, p, np);
-    off += ((1 << S) - 1) << s0;
-  }
-  if (lead == 2) ntt_pass<1, THREADS, true>(a, logh, 1, off, rt, p, np);
+  split_inverse_half<THREADS>(a, src + half_at, logh, rt, p, np);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const u64* h0 = cluster.map_shared_rank(a, 0);
@@ -384,13 +521,7 @@ __device__ __forceinline__ void split_inverse_row(u64* a, const u64* src,
   for (int i = threadIdx.x; i < quarter; i += stride) {
     const int s_lo = pass_slot(i), s_hi = pass_slot(i + quarter);
     u64 x0 = h0[s_lo], x1 = h0[s_hi], y0 = h1[s_lo], y1 = h1[s_hi];
-    // stage logn - 2 in each half: (x0, x1) under z0, (y0, y1) under z1
-    u64 s = x0 + x1;
-    x1 = shoup_np(x0 + p2 - x1, z0.x, z0.y, np);
-    x0 = s >= p2 ? s - p2 : s;
-    s = y0 + y1;
-    y1 = shoup_np(y0 + p2 - y1, z1.x, z1.y, np);
-    y0 = s >= p2 ? s - p2 : s;
+    split_inner_stage(x0, x1, y0, y1, z0, z1, p2, np);
     // stage logn - 1 across the halves, the rank's side, then n^{-1}
     u64 o0, o1;
     if (rank) {

@@ -17,8 +17,9 @@
 // the < 3p start stay below 2^128. The w sum keeps 256 bits.
 //
 // Two forms of the body: rns_scale_fixed holds K_IN residues (a compile-time
-// count) in registers and unrolls every loop over them; rns_scale_chunked
-// takes any k_in, reading the residues in chunks of CHUNK from `src` (stride
+// count) in registers and unrolls every loop over them;
+// rns_scale_chunked_get takes any k_in, reading the residues in chunks of
+// CHUNK through an accessor (rns_scale_chunked: from `src` at stride
 // `sstride`) for the sums and again for each output, whose sum is reduced
 // after every chunk.
 #pragma once
@@ -226,25 +227,20 @@ __device__ __forceinline__ void rns_scale_fixed(const u64 (&r)[K_IN],
   }
 }
 
-// The body on any k_in >= 1 residues src[i * sstride] (words of type S),
+// The body on any k_in >= 1 residues, residue i read as get(i) (a u64),
 // CHUNK at a time. Output jj goes to out[jj * stride], as a word of type
 // W: u64, or u32 for narrow (w30) rows, whose outputs are below 2^30.
-template <int CHUNK, typename S, typename W>
-__device__ __forceinline__ void rns_scale_chunked(const S* src,
-                                                  long long sstride, int k_in,
-                                                  const u64* tab, int size,
-                                                  int shift, int is_one,
-                                                  int theta_gamma_sign,
-                                                  W* __restrict__ out,
-                                                  long long stride) {
+template <int CHUNK, typename Get, typename W>
+__device__ __forceinline__ void rns_scale_chunked_get(
+    const Get& get, int k_in, const u64* tab, int size, int shift,
+    int is_one, int theta_gamma_sign, W* __restrict__ out, long long stride) {
   static_assert(CHUNK >= 1 && CHUNK <= 15, "a chunk's products must fit 128 bits");
   ScaleSums acc = {0, 0, 0, {{0, 0, 0, 0}}};
   for (int base = 0; base < k_in; base += CHUNK) {
 #pragma unroll
     for (int i = 0; i < CHUNK; ++i)
       if (base + i < k_in)
-        sums_add(acc, (u64)src[(base + i) * sstride], tab + 2 + 5 * (base + i),
-                 is_one);
+        sums_add(acc, get(base + i), tab + 2 + 5 * (base + i), is_one);
   }
   const ScaleVW vw = sums_finish(acc, tab, shift, is_one, theta_gamma_sign);
   for (int jj = 0; jj < size; ++jj) {
@@ -258,9 +254,22 @@ __device__ __forceinline__ void rns_scale_chunked(const S* src,
       }
 #pragma unroll
       for (int i = 0; i < CHUNK; ++i)
-        if (base + i < k_in)
-          out_add(lo, hi, (u64)src[(base + i) * sstride], t[5 + base + i]);
+        if (base + i < k_in) out_add(lo, hi, get(base + i), t[5 + base + i]);
     }
     out[jj * stride] = (W)reduce_u128(lo, hi, br);
   }
+}
+
+// The same on the residues src[i * sstride] (words of type S).
+template <int CHUNK, typename S, typename W>
+__device__ __forceinline__ void rns_scale_chunked(const S* src,
+                                                  long long sstride, int k_in,
+                                                  const u64* tab, int size,
+                                                  int shift, int is_one,
+                                                  int theta_gamma_sign,
+                                                  W* __restrict__ out,
+                                                  long long stride) {
+  rns_scale_chunked_get<CHUNK>(
+      [&](int i) { return (u64)src[i * sstride]; }, k_in, tab, size, shift,
+      is_one, theta_gamma_sign, out, stride);
 }

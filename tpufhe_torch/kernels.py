@@ -50,8 +50,8 @@ KERNELS = {
                       "tpufhe/pipeline.py:564-569 _ksk_accumulate (XLA, where "
                       "tail_kernel_fits is false)"),
 }
-HEADERS = ("modarith.cuh", "ntt_device.cuh", "ntt_pass_device.cuh",
-           "keyswitch_device.cuh", "rns_scale_device.cuh")
+HEADERS = ("modarith.cuh", "ntt_pass_device.cuh", "keyswitch_device.cuh",
+           "rns_scale_device.cuh")
 # Shared memory one block may use on sm_90 (dynamic, above the 48 KB default);
 # the NTT-based kernels hold whole rows of N words in it (8 bytes a word,
 # 4 for the narrow rows of ntt32).
@@ -78,6 +78,19 @@ def tail_fits(n: int, word_bytes: int = 8) -> bool:
 PASS_STAGES = 2
 NTT_ROW_MAX = 8192
 NTT_THREADS = 512
+# K9 (csrc/ntt32.cu): the narrow rows' passes, NARROW_PASS_STAGES stages a
+# pass, one CTA of at most NTT32_THREADS threads a row of 4-byte words (32 KB
+# at n = 8192, six CTAs an SM).
+NARROW_PASS_STAGES = 3
+NTT32_THREADS = 256
+# K8 (csrc/intt_scale.cu): a cluster per batch row of at most K8_CLUSTER_MAX
+# CTAs, CTA r holding the row's limbs r, r + C, ..., at most K8_THREADS
+# threads a CTA; its fixed shape (3 limbs of 8192 words) runs a pair of CTAs
+# of K8_SPLIT_THREADS threads, each holding half of every limb (96 KB, two
+# CTAs an SM).
+K8_CLUSTER_MAX = 8
+K8_THREADS = 256
+K8_SPLIT_THREADS = 512
 # The tails' clusters (csrc/keyswitch_device.cuh): at most TAIL_CLUSTER_MAX
 # CTAs, above 8 the card's non-portable cluster size.
 TAIL_CLUSTER_MAX = 16
@@ -85,15 +98,16 @@ TAIL_CLUSTER_MAX = 16
 K3_PARTS = 3
 
 
-def ntt_passes(stages: int, first: int = 0) -> list[tuple[int, int]]:
+def ntt_passes(stages: int, first: int = 0,
+               per: int = PASS_STAGES) -> list[tuple[int, int]]:
     """(first stage, stages) of each forward pass over the stages first ..
-    first + stages - 1: one pass of stages mod PASS_STAGES stages, then
-    PASS_STAGES a pass. A whole row of 2^logn words runs
-    ntt_passes(logn); the inverse runs the same passes in reverse order."""
-    lead = stages % PASS_STAGES
+    first + stages - 1: one pass of stages mod per stages, then per a pass
+    (PASS_STAGES, or NARROW_PASS_STAGES for K9). A whole row of 2^logn
+    words runs ntt_passes(logn); the inverse runs the same passes in
+    reverse order."""
+    lead = stages % per
     return ([(first, lead)] if lead else []) + [
-        (s0, PASS_STAGES) for s0 in range(first + lead, first + stages,
-                                          PASS_STAGES)]
+        (s0, per) for s0 in range(first + lead, first + stages, per)]
 
 
 def ntt_split(n: int) -> bool:
@@ -134,10 +148,12 @@ def _inverse_unit(n: int, logn: int, s0: int, s: int, g: int,
     return out
 
 
-def forward_twiddle_order(n: int, split: bool | None = None) -> list[int]:
-    """Indices into a limb's bit-reversed omegas in the order K1's, K4's
-    and K5's forward passes read them (csrc/ntt_pass_device.cuh): per pass
-    (s0, S) and stage-s0 group g, the 2^S - 1 twiddles of the group's unit.
+def forward_twiddle_order(n: int, split: bool | None = None,
+                          per: int = PASS_STAGES) -> list[int]:
+    """Indices into a limb's bit-reversed omegas in the order K1's, K4's,
+    K5's and (per = NARROW_PASS_STAGES) K9's forward passes read them
+    (csrc/ntt_pass_device.cuh): per pass (s0, S) of ntt_passes(logn, 0,
+    per) and stage-s0 group g, the 2^S - 1 twiddles of the group's unit.
     Split (default: ntt_split(n)): omega 1 (stage 0), then for each half
     r its stage-1 omega 2 + r and the passes of its own stages
     (ntt_passes(logn - 2, 1) over the half). Every index 1 .. n - 1 once,
@@ -145,8 +161,8 @@ def forward_twiddle_order(n: int, split: bool | None = None) -> list[int]:
     logn = n.bit_length() - 1
     split = ntt_split(n) if split is None else split
     if not split:
-        order = [i for s0, s in ntt_passes(logn) for g in range(1 << s0)
-                 for i in _forward_unit(s0, s, g)]
+        order = [i for s0, s in ntt_passes(logn, 0, per)
+                 for g in range(1 << s0) for i in _forward_unit(s0, s, g)]
         return order + [0]
     order = [1]
     for rank in (0, 1):
@@ -157,18 +173,20 @@ def forward_twiddle_order(n: int, split: bool | None = None) -> list[int]:
     return order + [0]
 
 
-def inverse_twiddle_order(n: int, split: bool | None = None) -> list[int]:
-    """Indices into a limb's bit-reversed zetas_inv in the order K1's and
-    K3's inverse passes read them: the forward schedule's passes in reverse
-    order, per stage-s0 group g the 2^S - 1 twiddles of the unit's
-    Gentleman-Sande stages. Split: the twiddles of the last two stages
+def inverse_twiddle_order(n: int, split: bool | None = None,
+                          per: int = PASS_STAGES) -> list[int]:
+    """Indices into a limb's bit-reversed zetas_inv in the order K1's, K3's,
+    K8's and (per = NARROW_PASS_STAGES) K9's inverse passes read them: the
+    forward schedule's passes in reverse order, per stage-s0 group g the
+    2^S - 1 twiddles of the unit's Gentleman-Sande stages. Split (K1 at
+    N = 16384, K8's pair): the twiddles of the last two stages
     (n - 4, n - 3 within the halves, n - 2 across), then for each half its
     own passes (ntt_passes(logn - 2, 1) in reverse). Every index 0 .. n - 2
     once, then n - 1 to pad the table to n entries."""
     logn = n.bit_length() - 1
     split = ntt_split(n) if split is None else split
     if not split:
-        order = [i for s0, s in reversed(ntt_passes(logn))
+        order = [i for s0, s in reversed(ntt_passes(logn, 0, per))
                  for g in range(1 << s0)
                  for i in _inverse_unit(n, logn, s0, s, g)]
         return order + [n - 1]
@@ -196,12 +214,45 @@ def tensor_intt_plan(n: int) -> tuple[int, int, int]:
     return K3_PARTS, max(1, min(n // 4, NTT_THREADS)), 8 * n
 
 
+def coefficient_shares(n: int, parts: int) -> list[tuple[int, int]]:
+    """The coefficients [lo, hi) that each of `parts` CTAs of a cluster
+    takes, in whole 32-word pieces (csrc/tensor_intt.cu, intt_scale.cu)."""
+    span = (-(-n // parts) + 31) & ~31
+    return [(min(n, r * span), min(n, (r + 1) * span)) for r in range(parts)]
+
+
 def tensor_intt_thirds(n: int) -> list[tuple[int, int]]:
     """The coefficients [lo, hi) whose products each CTA of a K3 cluster
-    forms, in whole 32-word pieces (csrc/tensor_intt.cu)."""
-    span = (-(-n // K3_PARTS) + 31) & ~31
-    return [(min(n, r * span), min(n, (r + 1) * span))
-            for r in range(K3_PARTS)]
+    forms."""
+    return coefficient_shares(n, K3_PARTS)
+
+
+def ntt32_plan(n: int) -> tuple[int, int, int]:
+    """K9's launch plan at degree n: (CTAs per cluster, threads per CTA,
+    shared bytes per CTA): one CTA a row, a thread a unit of
+    2^NARROW_PASS_STAGES words at most."""
+    return 1, max(1, min(n >> NARROW_PASS_STAGES, NTT32_THREADS)), 4 * n
+
+
+def intt_scale_split(k_in: int, n: int) -> bool:
+    """Whether K8 splits the row across a pair of half-row CTAs: its fixed
+    shape, 3 limbs of 8192 words."""
+    return k_in == 3 and n == 8192
+
+
+def intt_scale_plan(k_in: int, n: int) -> tuple[int, int, int]:
+    """K8's launch plan for k_in limbs of degree n: (CTAs per cluster,
+    threads per CTA, shared bytes per CTA). A cluster per batch row; CTA r
+    of its C = min(k_in, K8_CLUSTER_MAX) holds the limbs r, r + C, ...,
+    and finishes the scale of its share of the coefficients
+    (coefficient_shares(n, C)). Split (intt_scale_split): C = 2, CTA h
+    holding half h of every limb and scaling the coefficients of that
+    half."""
+    if intt_scale_split(k_in, n):
+        return 2, K8_SPLIT_THREADS, 4 * n * k_in
+    cluster = min(k_in, K8_CLUSTER_MAX)
+    limbs = -(-k_in // cluster)
+    return cluster, max(1, min(n // 4, K8_THREADS)), 8 * n * limbs
 
 
 def tail_plan(rows: int, n: int) -> tuple[int, int, int]:

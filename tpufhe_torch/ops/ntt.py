@@ -13,7 +13,7 @@
   (csrc/ntt32.cu): it launches the kernel of the tables' mode for CUDA
   tensors and takes the plain version for CPU tensors.
 - ``NttTables.pass_twiddles`` is the (twiddle, Shoup) table in the order
-  the transform passes of K1, K3, K4 and K5 read it.
+  the transform passes of K1, K3, K4, K5, K8 and K9 read it.
 """
 
 from __future__ import annotations
@@ -195,24 +195,32 @@ class NttTables:
         """The word type of the rows these tables transform."""
         return torch.int32 if self.narrow else torch.int64
 
-    def pass_twiddles(self, inverse: bool) -> torch.Tensor:
-        """(k, n, 2) words of the wide tables: limb j's omegas (inverse:
-        zetas_inv) and their Shoup constants side by side in the order the
-        transform passes read them (kernels.forward_twiddle_order /
-        inverse_twiddle_order), so that each pair is one 16-byte load and a
-        unit's pairs lie together. Built once per direction."""
+    def pass_twiddles(self, inverse: bool,
+                      split: bool | None = None) -> torch.Tensor:
+        """(k, n, 2) words: limb j's omegas (inverse: zetas_inv) and their
+        Shoup constants side by side in the order the transform passes read
+        them (kernels.forward_twiddle_order / inverse_twiddle_order), so
+        that each pair is one load (16 bytes wide, 8 narrow) and a unit's
+        pairs lie together. Wide tables: K1's split order where it splits
+        the row (split None), else the whole row's; narrow tables: K9's
+        passes of kernels.NARROW_PASS_STAGES stages over whole rows. Built
+        once per direction and order."""
+        n = self.omegas.shape[-1]
         if self.narrow:
-            raise ValueError("pass_twiddles: narrow tables have no passes")
-        if inverse not in self._passes:
-            n = self.omegas.shape[-1]
+            split, per = False, kernels.NARROW_PASS_STAGES
+        else:
+            split = kernels.ntt_split(n) if split is None else split
+            per = kernels.PASS_STAGES
+        key = (inverse, split)
+        if key not in self._passes:
             order = (kernels.inverse_twiddle_order if inverse
-                     else kernels.forward_twiddle_order)(n)
+                     else kernels.forward_twiddle_order)(n, split, per)
             tw, tws = ((self.zetas_inv, self.zetas_inv_shoup) if inverse
                        else (self.omegas, self.omegas_shoup))
             idx = torch.tensor(order, device=tw.device)
-            self._passes[inverse] = torch.stack(
+            self._passes[key] = torch.stack(
                 (tw[:, idx], tws[:, idx]), -1).contiguous()
-        return self._passes[inverse]
+        return self._passes[key]
 
 
 # ---------------------------------------------------------------------------
@@ -311,10 +319,8 @@ def backward32_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
 
 _NTT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_NTT32_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_NTT32_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _rows(name: str, x: torch.Tensor, tables: NttTables,
@@ -359,22 +365,25 @@ def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
 def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
                inverse: bool) -> torch.Tensor:
     """Launch K9 on (..., k_sel, n) canonical int32 residues (p < 2^30) of
-    a CUDA tensor, with a narrow context's tables: one block a row."""
+    a CUDA tensor, with a narrow context's tables: one CTA a row
+    (kernels.ntt32_plan)."""
     start, k_sel = _rows("ntt32", x, tables, limb_slice)
     n = x.shape[-1]
     if n * x.element_size() > kernels.SMEM_BYTES:
         raise ValueError(f"ntt32: degree {n} does not fit in shared memory")
+    if x.data_ptr() % 16:
+        raise ValueError("ntt32: rows are not 16-byte aligned")
+    _, threads, _ = kernels.ntt32_plan(n)
     y = torch.empty_like(x)
     rows = x.numel() // n
     if rows == 0:
         return y
-    tw = tables.zetas_inv if inverse else tables.omegas
-    tws = tables.zetas_inv_shoup if inverse else tables.omegas_shoup
+    tw = tables.pass_twiddles(inverse)
     fn = kernels.function("ntt32", "tpufhe_ntt32", _NTT32_ARGS)
     kernels.count("ntt32")
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
-             kernels.ptr(tws), kernels.ptr(tables.p), kernels.ptr(tables.ninv),
-             kernels.ptr(tables.ninv_shoup), start, int(inverse),
+             kernels.ptr(tables.p), kernels.ptr(tables.ninv),
+             kernels.ptr(tables.ninv_shoup), start, int(inverse), threads,
              kernels.stream())
     kernels.check(err, "ntt32")
     return y
