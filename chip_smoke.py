@@ -5,7 +5,7 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the nine CUDA kernels (one nvcc per source, in
+2. build: compile the ten CUDA kernels (one nvcc per source, in
    parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
    does not build;
 3. kernels: each kernel against its plain torch version, compared with
@@ -35,7 +35,17 @@ Phases, in order; any failure exits nonzero before the last line:
    basis and ks_accumulate (two addends, and the rotation's one); rns_scale at
    phase 13's extends and down-scales from 17 limbs (int64) and 18
    (int32), its general instance; ks_accumulate on the int32 rows of the
-   narrow mul+relin (two addends) and rotation (one);
+   narrow mul+relin (two addends) and rotation (one); ct_pt_dot at the dot
+   bench's (128 terms, 4 x 62-bit at N = 8192), PIR's first dimension (64
+   terms, 8 columns, 6 x 62-bit at N = 16384) and across its 14-term
+   window (15 and 29 terms, 3 x 62-bit); and at the shapes of phases 16,
+   17 and 18 every kernel those phases launch: SIMD encoding's and
+   decoding's ntt modulo t, public-key encryption's ntt, ct_mul's (ntt, rns_scale, tensor), the relinearization's (ntt and
+   rotate_tail; for phase 17's single-modulus key ntt of the two digit
+   rows and ks_accumulate), the decryption's (ntt, rns_scale),
+   Multiplicator.strategy2(rk, 1)'s over the 4-limb basis (phase 16),
+   make_mul_relin's at N = 2048 (phase 17, tensor_intt among them) and on
+   phase 18's moduli of 43 and 44 bits (relin_tail among them);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -81,9 +91,33 @@ Phases, in order; any failure exits nonzero before the last line:
 13. wider bases at N = 8192: mul+relin at batch 16 on 8 x 62-bit
     (multiplication basis 17 limbs) and 8 x 30-bit narrow (18 limbs),
     whose down-scales run K2's general instance, held to the launch
-    counts of phases 4 and 10, every slot checked, chained steps timed.
+    counts of phases 4 and 10, every slot checked, chained steps timed;
+14. BASELINE config 2 (seed 2031): N = 4096, 2 x 62-bit, batch 64,
+    make_add then ct_mul_pt by a SIMD plaintext (no kernel), every slot
+    checked, chained steps timed (add+pt_mul/s); ct_add_pt, ct_sub_pt and
+    ct_neg through the object API, every slot checked;
+15. dot products (seed 2032): N = 8192, 4 x 62-bit, 128 SIMD encryptions
+    and plaintexts; make_ct_pt_dot and dot_product_scalar over 16 (one
+    ct_pt_dot launch each), decrypted against sum v_i w_i mod t, then
+    chained dot products timed (dot_products/s);
+16. the object API on phase 4's keys and pairs: PublicKey encryption
+    (seed 2033; ntt 2), ct_mul to three parts (ntt 6, rns_scale 3,
+    tensor 1) and their decryption (ntt 1, rns_scale 1), ct_square (ntt
+    4, rns_scale 2, tensor 1), relinearizes (ntt 1, rotate_tail 1),
+    Multiplicator.default and strategy2(rk, 1) (ntt 7, rns_scale 3,
+    tensor 1, rotate_tail 1), each torch.equal to make_mul_relin's output,
+    every slot checked, the noise printed beside phase 4's;
+17. the single-modulus key switch (seed 2034): N = 2048, 1 x 62-bit,
+    batch 16, a relinearization key with log_base 31 and two digit rows;
+    ct_mul, relinearizes (ntt 2, ks_accumulate 1) and make_mul_relin (ntt
+    3, rns_scale 2, tensor_intt 1, ks_accumulate 1), equal, every slot
+    checked;
+18. default_parameters_128(20)'s N = 8192 set (seed 2035; 5 moduli of 43
+    and 44 bits): public-key encryptions (ntt 2 each), make_mul_relin
+    (phase 4's counts) and Multiplicator.default at batch 16, equal, every
+    slot checked, chained steps timed.
 
-The second-to-last line is {"kernels": [...]} (nine entries; relin_tail
+The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms), the last one {"ok": true,
@@ -96,6 +130,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +194,40 @@ WIDER_BATCH = 16
 # phase 3's third K4 and K5 shape: BASELINE config 2's ring (bench.py:235-236)
 TAIL_N4096 = 4096
 TAIL_N4096_MODULI_SIZES = [62, 62]
+# phase 14: BASELINE config 2, SIMD add + plaintext multiply (bench.py:229-266)
+ADDPT_MODULI_SIZES = TAIL_N4096_MODULI_SIZES
+ADDPT_BATCH = 64
+ADDPT_SEED = SEED + 5
+ADDPT_RATE_STEPS = 64
+# phase 15: the dot-product bench, 128 pairs at N = 8192, 4 x 62-bit
+# (bench.py:361-418), and dot_product_scalar over 16
+DOT_MODULI_SIZES = ROT_MODULI_SIZES
+DOT_PAIRS = 128
+DOT_SCALAR = 16
+DOT_SEED = SEED + 6
+DOT_RATE_STEPS = 32
+# phase 3's other ct_pt_dot shapes: PIR's first dimension (n = 64 terms,
+# m = 8 columns) at phase 12's ring, and sums across the 62-bit window of
+# 14 terms at 3 x 62-bit
+DOT_PIR = (64, 8)
+DOT_WINDOW_TERMS = (15, 29)
+# phase 16: the object API at BASELINE config 3 on phase 4's keys
+API_SEED = SEED + 7
+API_PRODUCT_LAUNCHES = {"ntt": 6, "rns_scale": 3, "tensor": 1}
+API_SQUARE_LAUNCHES = {"ntt": 4, "rns_scale": 2, "tensor": 1}
+API_MULTIPLY_LAUNCHES = {"ntt": 7, "rns_scale": 3, "tensor": 1,
+                         "rotate_tail": 1}
+PK_ENCRYPT_LAUNCHES = {"ntt": 2}  # Delta m, and the three samples at once
+# phase 17: one 62-bit modulus at N = 2048 (BASELINE config 1's ring): the
+# single-modulus key switch (log_base 31, two digit rows)
+K1_DEGREE = 2048
+K1_MODULI_SIZES = [62]
+K1_BATCH = 16
+K1_SEED = SEED + 8
+# phase 18: default_parameters_128(20)'s N = 8192 set (5 moduli of 43-44 bits)
+D128_BITS = 20
+D128_BATCH = 16
+D128_SEED = SEED + 9
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -258,14 +327,21 @@ def rand_residues(shape, moduli: torch.Tensor, gen) -> torch.Tensor:
     return x
 
 
-def random_key(ctx, gen) -> SimpleNamespace:
-    """A random (k, k, N) key-switching key with its Shoup constants."""
-    from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
+def random_key(ctx, gen, digits: int | None = None) -> SimpleNamespace:
+    """A random (digits, k, N) key-switching key with its Shoup constants:
+    k Garner rows (log_base 0), or `digits` rows of a single-modulus key
+    (log_base = ceil(log2 q0) // 2)."""
+    from tpufhe_torch.bfv.keys.key_switching_key import (
+        next_pow2_ilog2,
+        shoup_of,
+    )
 
     k, n = ctx.k, ctx.degree
-    key = SimpleNamespace()
-    key.c0 = rand_residues((k, k, n), ctx.tables.p, gen)
-    key.c1 = rand_residues((k, k, n), ctx.tables.p, gen)
+    key = SimpleNamespace(log_base=0 if digits is None else
+                          next_pow2_ilog2(ctx.moduli[0]) // 2)
+    digits = k if digits is None else digits
+    key.c0 = rand_residues((digits, k, n), ctx.tables.p, gen)
+    key.c1 = rand_residues((digits, k, n), ctx.tables.p, gen)
     key.c0_shoup = shoup_of(key.c0, ctx.moduli)
     key.c1_shoup = shoup_of(key.c1, ctx.moduli)
     return key
@@ -332,7 +408,7 @@ def ks_case(label, ctx, d, key, add0, add1):
     read once (it stays in L2)."""
     from tpufhe_torch import pipeline
 
-    k, n = ctx.k, ctx.degree
+    k, n, digits = ctx.k, ctx.degree, d.shape[0]
     plane = d[0].numel()
     addends = sum(t is not None for t in (add0, add1))
     shoup = SHOUP32 if ctx.narrow else SHOUP
@@ -340,8 +416,61 @@ def ks_case(label, ctx, d, key, add0, add1):
             f"(2, {', '.join(map(str, d.shape[1:]))})",
             lambda: pipeline.ks_accumulate_cuda(ctx, d, key, add0, add1),
             lambda: pipeline.ks_accumulate_plain(ctx, d, key, add0, add1),
-            (plane * (k + addends + 2) + 4 * k * k * n) * d.element_size(),
-            plane * k * 2 * shoup)
+            (plane * (digits + addends + 2) + 4 * digits * k * n)
+            * d.element_size(),
+            plane * digits * 2 * shoup)
+
+
+def k3_case(label, ctx_mul, ext):
+    """A run_cases item for K3 on the (4, ..., k_mul, N) extended parts."""
+    from tpufhe_torch import pipeline
+
+    k_mul, n = ext.shape[-2:]
+    rows = ext[0].numel() // (k_mul * n)
+    return (f"{label} {tuple(ext.shape)} -> (3, {', '.join(map(str, ext.shape[1:]))})",
+            lambda: pipeline.tensor_intt_cuda(ctx_mul, ext),
+            lambda: pipeline.tensor_intt_plain(ctx_mul, ext),
+            (7 * rows * k_mul * n + 2 * k_mul * n) * 8,
+            rows * k_mul * (n * TENSOR_OPS + 3 * ntt_ops(n, True)))
+
+
+def k7_case(label, ctx_mul, a0, a1, b0, b1):
+    """A run_cases item for K7 on (..., k_mul, N) parts (b = a for the
+    square, read once)."""
+    from tpufhe_torch import pipeline
+
+    words = a0.numel()
+    reads = 2 if (b0 is a0 and b1 is a1) else 4
+    return (f"{label} {tuple(a0.shape)} -> (3, {', '.join(map(str, a0.shape))})",
+            lambda: pipeline.tensor_cuda(ctx_mul, a0, a1, b0, b1),
+            lambda: pipeline.tensor_plain(ctx_mul, a0, a1, b0, b1),
+            ((reads + 3) * words + 3 * ctx_mul.k) * 8, words * TENSOR_OPS)
+
+
+def k4_case(label, ctx, dsc, key):
+    """A run_cases item for K4 on (3, B, k, N) with a random Garner key."""
+    from tpufhe_torch import pipeline
+
+    b, k, n = dsc.shape[1:]
+    return (f"{label} {tuple(dsc.shape)} + ksk 4 x {(k, k, n)} -> (2, {b}, {k}, {n})",
+            lambda: pipeline.relin_tail_cuda(ctx, dsc, key),
+            lambda: pipeline.relin_tail_plain(ctx, dsc, key),
+            (5 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
+            b * k * (k * ks_digit_ops(ctx) + 2 * ntt_ops(n, False)))
+
+
+def k5_case(label, ctx, s0, c2, key):
+    """A run_cases item for K5 on (B, k, N) s0 and c2 with a random Garner
+    key."""
+    from tpufhe_torch import pipeline
+
+    b, k, n = s0.shape
+    return (f"{label} s0, c2 {tuple(s0.shape)} + ksk 4 x {(k, k, n)} -> "
+            f"(2, {b}, {k}, {n})",
+            lambda: pipeline.rotate_tail_cuda(ctx, s0, c2, key),
+            lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key),
+            (4 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
+            b * k * k * ks_digit_ops(ctx))
 
 
 # a tail's occupancy entry point: n, cluster, threads -> CTAs per SM, clusters
@@ -1408,13 +1537,557 @@ def wider_path(pars, card: str) -> dict:
     return out
 
 
+def source_define(source: str, name: str) -> int:
+    """The value of `#define name N` in tpufhe_torch/csrc/`source`."""
+    from tpufhe_torch import kernels
+
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        found = re.findall(rf"^#define {name} (\d+)$", f.read(), re.MULTILINE)
+    if len(found) != 1:
+        raise SystemExit(f"{source}: no single #define {name}")
+    return int(found[0])
+
+
+def dot_case(label, ctx, parts, db):
+    """A run_cases item for ct_pt_dot: every part and db read once, the
+    output written once; per output word n 128-bit products and one
+    reduction a window."""
+    from tpufhe_torch.ops import dot
+
+    n, m, r = db.shape[:3]
+    b, n_deg = parts[0].shape[1], ctx.degree
+    outs = len(parts) * m * b * r * n_deg
+    windows = -(-n // min(dot.dot_window(ctx), n))
+    return (f"{label} {len(parts)} x {tuple(parts[0].shape)} . "
+            f"db {tuple(db.shape)}",
+            lambda: dot.ct_pt_dot_cuda(ctx, parts, db),
+            lambda: dot.ct_pt_dot_plain(ctx, parts, db),
+            (len(parts) * n * b * r * n_deg + n * m * r * n_deg + outs) * 8,
+            outs * (n * (LO + HI) + windows * RED128))
+
+
+def check_dot_kernels(pars, gen, int32_rate: float) -> dict:
+    """Phase 3, ct_pt_dot against its plain version: at the dot bench's
+    shape (128 terms, m = B = 1, 4 x 62-bit at N = 8192; phase 15), at
+    PIR's first dimension (64 terms, 8 columns, 6 x 62-bit at N = 16384)
+    and at 15 and 29 terms over 3 x 62-bit at N = 8192, across one and two
+    reductions of the 14-term window. Returns {label: record}."""
+    shapes = [("dot bench", pars["dot"], DOT_PAIRS, 1),
+              ("PIR first dimension", pars["n16k"], *DOT_PIR)]
+    shapes += [(f"{t} terms", pars["main"], t, 1) for t in DOT_WINDOW_TERMS]
+    from tpufhe_torch import kernels
+
+    fn = kernels.function("ct_pt_dot", "tpufhe_ct_pt_dot_occupancy",
+                          [ctypes.c_void_p])
+    blocks_per_sm = ctypes.c_int()
+    kernels.check(fn(ctypes.byref(blocks_per_sm)), "occupancy")
+    # the launch plan as the kernel's source fixes it: a thread per output
+    # word and part, DOT_COLS columns' sums a pass
+    threads, cols = (source_define("ct_pt_dot.cu", d)
+                     for d in ("DOT_THREADS", "DOT_COLS"))
+    out = {}
+    for label, par, n, m in shapes:
+        ctx = par.context_at_level(0)
+        parts = [rand_residues((n, 1, ctx.k, ctx.degree), ctx.tables.p, gen)
+                 for _ in range(2)]
+        db = rand_residues((n, m, ctx.k, ctx.degree), ctx.tables.p, gen)
+        out[label] = run_cases("ct_pt_dot", [dot_case(label, ctx, parts, db)],
+                               int32_rate, "per call")
+        blocks = -(-2 * ctx.k * ctx.degree // threads)
+        out[label]["plan"] = {"threads": threads, "blocks": blocks,
+                              "columns_a_pass": min(m, cols),
+                              "blocks_per_sm": blocks_per_sm.value}
+        log(f"  plan ct_pt_dot {label}: {blocks} blocks x {threads} threads, "
+            f"{min(m, cols)} columns a pass, "
+            f"{blocks_per_sm.value} blocks per SM")
+    return out
+
+
+def object_api_cases(par, b: int, gen) -> dict:
+    """run_cases items for the kernels the object API runs at level 0 of
+    `par` on batch b: SIMD encoding and decoding (K1 modulo t), public-key
+    encryption (K1 forward of Delta m and of the three samples), ct_mul to three parts (each operand's extend: K1
+    inverse, K2, K1 forward of the new limbs; K7; the down-scale: K1
+    inverse over the basis, K2, K1 forward), the relinearization's K1
+    inverse of c2 and, for a Garner key where the tails fit, K5, and the
+    decryption's K1 inverse and K2 (the level's t/q scaler). Returns
+    {kernel: items}."""
+    from tpufhe_torch import kernels
+
+    ctx = par.context_at_level(0)
+    lvl = par.context_level_at(0)
+    mp = lvl.mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n = ctx.k, ctx_mul.k, ctx.degree
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+    full, new = slice(None), slice(k, k_mul)
+    cases = {"ntt": [
+        k1_case("pk encryption Delta m", rand_residues((k, n), t_ctx.p, gen),
+                t_ctx, full, False),
+        k1_case("pk encryption samples",
+                rand_residues((3, k, n), t_ctx.p, gen), t_ctx, full, False),
+        k1_case("ct_mul extend", rand_residues((2, b, k, n), t_ctx.p, gen),
+                t_ctx, full, True),
+        k1_case(f"ct_mul new limbs {k}..{k_mul}",
+                rand_residues((2, b, k_mul - k, n), t_mul.p[new], gen), t_mul,
+                new, False),
+        k1_case("ct_mul down", rand_residues((3, b, k_mul, n), t_mul.p, gen),
+                t_mul, full, True),
+        k1_case("ct_mul product", rand_residues((3, b, k, n), t_ctx.p, gen),
+                t_ctx, full, False),
+        k1_case("relinearizes c2", rand_residues((b, k, n), t_ctx.p, gen),
+                t_ctx, full, True),
+        k1_case("decryption", rand_residues((k, n), t_ctx.p, gen), t_ctx,
+                full, True)]}
+    t_pt = par.ntt_operator.tables  # the SIMD slots' transform modulo t
+    cases["ntt"] += [
+        k1_case("SIMD encode", rand_residues((1, n), t_pt.p, gen), t_pt, full,
+                True),
+        k1_case("SIMD decode", rand_residues((1, n), t_pt.p, gen), t_pt, full,
+                False)]
+    dec = lvl.cipher_plain_context.scaler.rns_scaler
+    cases["rns_scale"] = [
+        k2_case("ct_mul extend", mp.extender.rns_scaler,
+                rand_residues((2, b, k, n), t_ctx.p, gen), k, k_mul - k),
+        k2_case("ct_mul down", mp.down_scaler.rns_scaler,
+                rand_residues((3, b, k_mul, n), t_mul.p, gen), 0, k),
+        k2_case("decryption", dec, rand_residues((k, n), t_ctx.p, gen), 0,
+                len(dec.to_ctx.moduli))]
+    a0, a1, b0, b1 = (rand_residues((b, k_mul, n), t_mul.p, gen)
+                      for _ in range(4))
+    cases["tensor"] = [k7_case("ct_mul", ctx_mul, a0, a1, b0, b1)]
+    if k > 1 and kernels.tail_fits(n):
+        cases["rotate_tail"] = [k5_case(
+            "relinearizes", ctx, rand_residues((b, k, n), t_ctx.p, gen),
+            rand_residues((b, k, n), t_ctx.p, gen), random_key(ctx, gen))]
+    return cases
+
+
+def check_api_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3 at phase 16's shapes (N = 8192, 3 x 62-bit, batch 64): the
+    object API's kernels (object_api_cases) and Multiplicator.strategy2(rk,
+    1)'s over the 4-limb basis: K2 at the lhs extend (3 -> 1 new limb), the
+    rhs P/q (3 -> 4) and the t/P down-scale (4 -> 3), K1 forward of the new
+    limb and of the rhs, K1 inverse of the three parts, K7. Returns {name:
+    record}."""
+    from tpufhe_torch import pipeline
+
+    ctx = par.context_at_level(0)
+    k, n, b = ctx.k, ctx.degree, BATCH
+    cases = object_api_cases(par, b, gen)
+    s1 = pipeline.mul_basis(par, strategy2_primes=1)
+    t_ctx, t1 = ctx.tables, s1.ctx_mul.tables
+    k1 = s1.ctx_mul.k
+    cases["ntt"] += [
+        k1_case(f"kP=1 new limb {k}..{k1}",
+                rand_residues((2, b, k1 - k, n), t1.p[k:], gen), t1,
+                slice(k, k1), False),
+        k1_case("kP=1 rhs", rand_residues((2, b, k1, n), t1.p, gen), t1,
+                slice(None), False),
+        k1_case("kP=1 down", rand_residues((3, b, k1, n), t1.p, gen), t1,
+                slice(None), True)]
+    cases["rns_scale"] += [
+        k2_case("kP=1 lhs extend", s1.ext,
+                rand_residues((2, b, k, n), t_ctx.p, gen), k, k1 - k),
+        k2_case("kP=1 rhs P/q", s1.rhs,
+                rand_residues((2, b, k, n), t_ctx.p, gen), 0, k1),
+        k2_case("kP=1 down t/P", s1.down,
+                rand_residues((3, b, k1, n), t1.p, gen), 0, k)]
+    a0, a1, b0, b1 = (rand_residues((b, k1, n), t1.p, gen) for _ in range(4))
+    cases["tensor"] += [k7_case("kP=1", s1.ctx_mul, a0, a1, b0, b1)]
+    return {name: run_cases(name, items, int32_rate, "per phase-16 run")
+            for name, items in cases.items()}
+
+
+def check_single_modulus_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3 at phase 17's shapes (N = 2048, 1 x 62-bit, batch 16): the
+    object API's kernels (object_api_cases), the relinearization's K1
+    forward of the two digit rows, and make_mul_relin's: K1 inverse of the
+    four parts, forward of the new limbs and of the tail's c0, c1 and two
+    digit rows, K2 at the extend and the down-scale, K3 over the basis and
+    ks_accumulate on the two digit rows with both addends. Returns {name:
+    record}."""
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n, b = ctx.k, ctx_mul.k, ctx.degree, K1_BATCH
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+    full, new = slice(None), slice(k, k_mul)
+    cases = object_api_cases(par, b, gen)
+    cases["ntt"] += [
+        k1_case("digits", rand_residues((2, b, k, n), t_ctx.p, gen), t_ctx,
+                full, False),
+        k1_case("mul+relin extend", rand_residues((4, b, k, n), t_ctx.p, gen),
+                t_ctx, full, True),
+        k1_case(f"mul+relin new limbs {k}..{k_mul}",
+                rand_residues((4, b, k_mul - k, n), t_mul.p[new], gen), t_mul,
+                new, False),
+        k1_case("mul+relin tail", rand_residues((4, b, k, n), t_ctx.p, gen),
+                t_ctx, full, False)]
+    cases["rns_scale"] += [
+        k2_case("mul+relin extend", mp.extender.rns_scaler,
+                rand_residues((4, b, k, n), t_ctx.p, gen), k, k_mul - k)]
+    cases["tensor_intt"] = [k3_case(
+        "mul+relin", ctx_mul, rand_residues((4, b, k_mul, n), t_mul.p, gen))]
+    key = random_key(ctx, gen, digits=2)
+    d = rand_residues((2, b, k, n), t_ctx.p, gen)
+    a0, a1 = (rand_residues((b, k, n), t_ctx.p, gen) for _ in range(2))
+    cases["ks_accumulate"] = [ks_case("two digits", ctx, d, key, a0, a1)]
+    return {name: run_cases(name, items, int32_rate,
+                            f"per phase-17 run (N = {n})")
+            for name, items in cases.items()}
+
+
+def check_default128_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3 at phase 18's shapes (default_parameters_128(20)'s N = 8192
+    set, moduli of 43 and 44 bits, batch 16): make_mul_relin's K1 at the
+    extend's inverse and forward of the new limbs, K2 at the extend (5 -> 5
+    new limbs, a fixed instance) and the down-scale (10 -> 5, the general
+    one), K3 over the 10-limb basis and K4 with a random key, and
+    Multiplicator.default's, public-key encryption's and decryption's
+    kernels (object_api_cases: K5 among them). Returns {name: record}."""
+    ctx = par.context_at_level(0)
+    mp = par.context_level_at(0).mul_params()
+    ctx_mul = mp.to_ctx
+    k, k_mul, n, b = ctx.k, ctx_mul.k, ctx.degree, D128_BATCH
+    t_ctx, t_mul = ctx.tables, ctx_mul.tables
+    log(f"  default_parameters_128({D128_BITS}), N = {n}: moduli "
+        f"{[p.bit_length() for p in ctx.moduli]} bits, multiplication basis "
+        f"{k_mul} limbs")
+    cases = object_api_cases(par, b, gen)
+    cases["ntt"] += [
+        k1_case("mul+relin extend", rand_residues((4, b, k, n), t_ctx.p, gen),
+                t_ctx, slice(None), True),
+        k1_case(f"mul+relin new limbs {k}..{k_mul}",
+                rand_residues((4, b, k_mul - k, n), t_mul.p[k:], gen), t_mul,
+                slice(k, k_mul), False)]
+    cases["rns_scale"] += [
+        k2_case("mul+relin extend", mp.extender.rns_scaler,
+                rand_residues((4, b, k, n), t_ctx.p, gen), k, k_mul - k)]
+    cases["tensor_intt"] = [k3_case(
+        "mul+relin", ctx_mul, rand_residues((4, b, k_mul, n), t_mul.p, gen))]
+    cases["relin_tail"] = [k4_case(
+        "mul+relin", ctx, rand_residues((3, b, k, n), t_ctx.p, gen),
+        random_key(ctx, gen))]
+    return {name: run_cases(name, items, int32_rate, "per phase-18 run")
+            for name, items in cases.items()}
+
+
+def keys_and_batch(par, seed: int, batch: int, relin: bool = True):
+    """Secret key (and relinearization key) from ChaCha8 seed `seed`, and
+    2 x batch SIMD encryptions of values from numpy's seed `seed`:
+    (sk, rk or None, va, vb, (a0, a1, b0, b1), the ChaCha8 generator)."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n = par.plaintext.value, par.degree()
+    rng = ChaCha8Rng(seed_from_u64(seed))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng) if relin else None
+    vals = np.random.default_rng(seed)
+    va = vals.integers(0, t, (batch, n), dtype=np.uint64)
+    vb = vals.integers(0, t, (batch, n), dtype=np.uint64)
+    cas, cbs = ([sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par),
+                                rng) for v in vs] for vs in (va, vb))
+    torch.cuda.synchronize()
+    log(f"  keygen and {2 * batch} SIMD encryptions "
+        f"{time.perf_counter() - t0:.2f} s")
+    inputs = tuple(torch.stack([c[i] for c in cs])
+                   for cs in (cas, cbs) for i in (0, 1))
+    return sk, rk, va, vb, inputs, rng
+
+
+def check_parts(name, par, sk, ct, want) -> None:
+    """Every part of the batched ciphertext ct canonical, every slot of
+    every row's decryption (any number of parts) equal to `want`."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding
+
+    p = par.context_at_level(ct.level).tables.p[:, None]
+    if not all(bool(((x >= 0) & (x < p)).all()) for x in ct.c):
+        raise SystemExit(f"{name}: output residues are not canonical")
+    bad = 0
+    for i in range(ct[0].shape[0]):
+        row = Ciphertext(par, [x[i] for x in ct.c], ct.level)
+        bad += int((sk.try_decrypt(row).try_decode(Encoding.simd())
+                    != want[i]).sum())
+    row0 = Ciphertext(par, [x[0] for x in ct.c], ct.level)
+    log(f"  {name}: {ct[0].shape[0]} ciphertexts of {len(ct)} parts "
+        f"decrypted, wrong slots {bad}, noise {sk.measure_noise(row0)} bits")
+    if bad:
+        raise SystemExit(f"{name}: {bad} slots decrypted wrong")
+
+
+def addpt_path(par, card: str) -> float:
+    """Phase 14, BASELINE config 2 (N = 4096, 2 x 62-bit, t = 65537, batch
+    64; bench.py:229-266): make_add then ct_mul_pt by a SIMD plaintext's
+    poly_ntt (no kernel: elementwise glue), every slot checked, then
+    chained steps timed; ct_add_pt, ct_sub_pt and ct_neg through the object
+    API, every slot checked. Returns ms per step."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding, Plaintext, ct_mul_pt
+    from tpufhe_torch.pipeline import make_add
+
+    t, b = par.plaintext.value, ADDPT_BATCH
+    sk, _, va, vb, inputs, _ = keys_and_batch(par, ADDPT_SEED, b, relin=False)
+    vw = np.random.default_rng(ADDPT_SEED + 100).integers(
+        0, t, par.degree(), dtype=np.uint64)
+    pt = Plaintext.try_encode(vw, Encoding.simd(), par)
+    add = make_add(par)
+    # the plaintext's poly_ntt is formed (one K1 launch) and kept before
+    # the program runs, as bench.py holds its plaintext as a device array
+    pt.poly_ntt  # noqa: B018
+
+    def step(a0, a1, b0, b1):
+        return tuple(ct_mul_pt(Ciphertext(par, list(add(a0, a1, b0, b1)), 0),
+                               pt).c)
+
+    (c0, c1), _ = run_program(f"add + pt_mul of {b} pairs", step, inputs, {})
+    va_o, vb_o = va.astype(object), vb.astype(object)
+    check_parts("add + pt_mul", par, sk, Ciphertext(par, [c0, c1], 0),
+                ((va_o + vb_o) * vw % t).astype(np.uint64))
+    ms = chained_ms(step, inputs, ADDPT_RATE_STEPS)
+    log(f"  {ADDPT_RATE_STEPS} chained add + pt_mul steps at batch {b}: "
+        f"{ms:.4f} ms/step, {b / ms * 1e3:.1f} add+pt_mul/s on {card}")
+    ca = Ciphertext(par, list(inputs[:2]), 0)
+    pb = Plaintext.try_encode(vb[0], Encoding.simd(), par)
+    for name, ct, want in (("ct_add_pt", ca + pb, va_o + vb_o[0]),
+                           ("ct_sub_pt", ca - pb, va_o - vb_o[0]),
+                           ("ct_neg", -ca, -va_o)):
+        check_parts(name, par, sk, ct, (want % t).astype(np.uint64))
+    return ms
+
+
+def dot_path(par, card: str) -> tuple:
+    """Phase 15, the dot-product bench (bench.py:361-418; N = 8192, 4 x
+    62-bit, 128 pairs): 128 SIMD encryptions and plaintexts, then
+    make_ct_pt_dot (one ct_pt_dot launch) and dot_product_scalar over the
+    first 16 (one), each decrypted slot for slot against sum v_i w_i mod t;
+    then dot products chained as the bench chains them (the result added
+    into every input row) timed. Returns (launches, ms per dot product)."""
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        Plaintext,
+        SecretKey,
+        dot_product_scalar,
+    )
+    from tpufhe_torch.pipeline import make_ct_pt_dot
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n, pairs = par.plaintext.value, par.degree(), DOT_PAIRS
+    ctx = par.context_at_level(0)
+    rng = ChaCha8Rng(seed_from_u64(DOT_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    vals = np.random.default_rng(DOT_SEED)
+    v = vals.integers(0, t, (pairs, n), dtype=np.uint64)
+    w = vals.integers(0, t, (pairs, n), dtype=np.uint64)
+    cts = [sk.try_encrypt(Plaintext.try_encode(x, Encoding.simd(), par), rng)
+           for x in v]
+    pts = [Plaintext.try_encode(x, Encoding.simd(), par) for x in w]
+    db = torch.stack([pt.poly_ntt for pt in pts])[:, None]  # (n, 1, k, N)
+    torch.cuda.synchronize()
+    log(f"  {pairs} SIMD encryptions and plaintexts "
+        f"{time.perf_counter() - t0:.2f} s")
+    e0, e1 = (torch.stack([c[i] for c in cts])[:, None] for i in (0, 1))
+    dot = make_ct_pt_dot(par, pairs, 1)
+    (r0, r1), launches = run_program(f"ct x pt dot of {pairs} pairs", dot,
+                                     (e0, e1, db), {"ct_pt_dot": 1})
+    if tuple(r0.shape) != (1, 1, ctx.k, n):
+        raise SystemExit(f"dot: output shape {tuple(r0.shape)}")
+    vo, wo = v.astype(object), w.astype(object)
+    check_parts("ct x pt dot", par, sk, Ciphertext(par, [r0[0], r1[0]], 0),
+                ((vo * wo).sum(axis=0) % t).astype(np.uint64)[None])
+    ct, _ = run_program(f"dot_product_scalar of {DOT_SCALAR}",
+                        dot_product_scalar,
+                        (cts[:DOT_SCALAR], pts[:DOT_SCALAR]), {"ct_pt_dot": 1})
+    check_parts("dot_product_scalar", par, sk,
+                Ciphertext(par, [x[None] for x in ct.c], 0),
+                ((vo[:DOT_SCALAR] * wo[:DOT_SCALAR]).sum(axis=0) % t
+                 ).astype(np.uint64)[None])
+
+    def step(e0, e1, db):
+        r0, r1 = dot(e0, e1, db)
+        return ctx.add(e0, r0[0]), ctx.add(e1, r1[0])
+
+    ms = chained_ms(step, (e0, e1, db), DOT_RATE_STEPS)
+    log(f"  {DOT_RATE_STEPS} chained dot products of {pairs} pairs: "
+        f"{ms:.4f} ms each, {1e3 / ms:.1f} dot_products/s on {card}")
+    return launches, ms
+
+
+def object_api_path(par, mp: SimpleNamespace, variants: dict) -> None:
+    """Phase 16, the object API at BASELINE config 3 on phase 4's keys and
+    64 pairs: PublicKey (seed 2033) encryption, ct_mul to three parts and
+    their decryption, ct_square, relinearizes, and Multiplicator.default
+    and strategy2(rk, 1), each torch.equal to make_mul_relin's output
+    (default and strategy 2 kP = 1) on the same ciphertexts; every run held
+    to its exact launch counts, every slot checked, the noise printed."""
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        Multiplicator,
+        Plaintext,
+        PublicKey,
+        ct_mul,
+        ct_square,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t = par.plaintext.value
+    va, vb = mp.va.astype(object), mp.vb.astype(object)
+    rng = ChaCha8Rng(seed_from_u64(API_SEED))
+    pk = PublicKey.new(mp.sk, rng)
+    pts = [Plaintext.try_encode(v, Encoding.simd(), par) for v in mp.va[:2]]
+    first, _ = run_program("public-key encryption", pk.try_encrypt,
+                           (pts[0], rng), PK_ENCRYPT_LAUNCHES)
+    second = pk.try_encrypt(pts[1], rng)
+    check_parts("public-key encryption", par, mp.sk,
+                Ciphertext(par, [torch.stack([x[i] for x in (first, second)])
+                                 for i in (0, 1)], 0), mp.va[:2])
+    a0, a1, b0, b1 = mp.inputs
+    ca, cb = Ciphertext(par, [a0, a1], 0), Ciphertext(par, [b0, b1], 0)
+    c3, _ = run_program("ct_mul to three parts", ct_mul, (ca, cb),
+                        API_PRODUCT_LAUNCHES)
+    row = Ciphertext(par, [x[0] for x in c3.c], 0)
+    run_program("three-part decryption", mp.sk.try_decrypt, (row,),
+                {"ntt": 1, "rns_scale": 1})
+    want = (va * vb % t).astype(np.uint64)
+    check_parts("ct_mul", par, mp.sk, c3, want)
+    sq, _ = run_program("ct_square", ct_square, (ca,), API_SQUARE_LAUNCHES)
+    check_parts("ct_square", par, mp.sk, sq, (va * va % t).astype(np.uint64))
+    run_program("relinearizes", mp.rk.relinearizes, (c3,),
+                {"ntt": 1, "rotate_tail": 1})
+    equal = all(torch.equal(x, y) for x, y in zip(c3.c, mp.product))
+    log(f"  ct_mul + relinearizes equal to make_mul_relin: {equal}")
+    if not equal:
+        raise SystemExit("ct_mul + relinearizes differs from make_mul_relin")
+    s2_step = variants["strategy 2 kP=1 split"][0]
+    for name, m, ref in (
+            ("default", Multiplicator.default(mp.rk), mp.product),
+            ("strategy 2 kP=1", Multiplicator.strategy2(mp.rk, 1),
+             s2_step(a0, a1, b0, b1))):
+        ct, _ = run_program(f"Multiplicator {name}", m.multiply, (ca, cb),
+                            API_MULTIPLY_LAUNCHES)
+        equal = all(torch.equal(x, y) for x, y in zip(ct.c, ref))
+        log(f"  Multiplicator {name} equal to make_mul_relin: {equal}")
+        if not equal:
+            raise SystemExit(
+                f"Multiplicator {name} differs from make_mul_relin")
+        check_parts(f"Multiplicator {name}", par, mp.sk, ct, want)
+    log(f"  phase 4's product noise: {sum(MODULI_SIZES) - mp.margin} bits")
+
+
+def single_modulus_path(par) -> None:
+    """Phase 17, one 62-bit modulus at N = 2048 (BASELINE config 1's ring,
+    t = 65537, seed 2034): a key-switching key from s^2 with log_base 31
+    and two digit rows as the relinearization key, then ct_mul of 16 pairs
+    to three parts, relinearizes (K1 inverse, K1 forward of the digits,
+    ks_accumulate) and make_mul_relin on the same pairs (K3, then the
+    unfused tail on the digits), equal, every slot checked."""
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        KeySwitchingKey,
+        RelinearizationKey,
+        ct_mul,
+    )
+    from tpufhe_torch.ops.rq import ntt_backward
+    from tpufhe_torch.pipeline import make_mul_relin
+
+    t = par.plaintext.value
+    ctx = par.context_at_level(0)
+    sk, _, va, vb, inputs, rng = keys_and_batch(par, K1_SEED, K1_BATCH,
+                                                relin=False)
+    s = sk.s_ntt(ctx)
+    rk = RelinearizationKey(KeySwitchingKey.new(
+        sk, ntt_backward(ctx, ctx.mul(s, s)), 0, 0, rng))
+    log(f"  key: log_base {rk.ksk.log_base}, {rk.ksk.c0.shape[0]} digit rows")
+    if (rk.ksk.log_base, rk.ksk.c0.shape[0]) != (31, 2):
+        raise SystemExit("the single-modulus key is not log_base 31, 2 rows")
+    ca, cb = (Ciphertext(par, list(inputs[i:i + 2]), 0) for i in (0, 2))
+    ct, _ = run_program("ct_mul to three parts", ct_mul, (ca, cb),
+                        API_PRODUCT_LAUNCHES)
+    want = (va.astype(object) * vb % t).astype(np.uint64)
+    check_parts("ct_mul", par, sk, ct, want)
+    run_program("relinearizes (two digits)", rk.relinearizes, (ct,),
+                {"ntt": 2, "ks_accumulate": 1})
+    check_parts("relinearized", par, sk, ct, want)
+    (c0, c1), _ = run_program(
+        "make_mul_relin", make_mul_relin(par, rk), inputs,
+        {"ntt": 3, "rns_scale": 2, "tensor_intt": 1, "ks_accumulate": 1})
+    equal = torch.equal(c0, ct[0]) and torch.equal(c1, ct[1])
+    log(f"  make_mul_relin equal to ct_mul + relinearizes: {equal}")
+    if not equal:
+        raise SystemExit("make_mul_relin differs from ct_mul + relinearizes")
+
+
+def default128_path(par, card: str) -> None:
+    """Phase 18, default_parameters_128(20)'s N = 8192 set (moduli of 43
+    and 44 bits, seed 2035): keygen and a public key, 2 x 16 public-key
+    encryptions, make_mul_relin (six launches) and Multiplicator.default
+    on the same pairs, equal, every slot checked, then chained steps."""
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        Multiplicator,
+        Plaintext,
+        PublicKey,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.pipeline import make_mul_relin
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n, b = par.plaintext.value, par.degree(), D128_BATCH
+    rng = ChaCha8Rng(seed_from_u64(D128_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng)
+    pk = PublicKey.new(sk, rng)
+    vals = np.random.default_rng(D128_SEED)
+    va = vals.integers(0, t, (b, n), dtype=np.uint64)
+    vb = vals.integers(0, t, (b, n), dtype=np.uint64)
+    pts = [Plaintext.try_encode(v, Encoding.simd(), par) for v in (*va, *vb)]
+    run_program("public-key encryption", pk.try_encrypt, (pts[0], rng),
+                PK_ENCRYPT_LAUNCHES)
+    cts = [pk.try_encrypt(pt, rng) for pt in pts]
+    torch.cuda.synchronize()
+    log(f"  t = {t}; keygen, public key and {2 * b + 1} public-key "
+        f"encryptions {time.perf_counter() - t0:.2f} s, noise fresh "
+        f"{sk.measure_noise(cts[0])} bits")
+    inputs = tuple(torch.stack([c[i] for c in cts[j * b:(j + 1) * b]])
+                   for j in (0, 1) for i in (0, 1))
+    check_parts("public-key encryptions", par, sk,
+                Ciphertext(par, list(inputs[:2]), 0), va)
+    step = make_mul_relin(par, rk)
+    (c0, c1), _ = run_program(f"mul+relin of {b} pairs", step, inputs,
+                              MUL_LAUNCHES)
+    ca, cb = (Ciphertext(par, list(inputs[i:i + 2]), 0) for i in (0, 2))
+    ct, _ = run_program("Multiplicator default", Multiplicator.default(rk)
+                        .multiply, (ca, cb), API_MULTIPLY_LAUNCHES)
+    equal = torch.equal(c0, ct[0]) and torch.equal(c1, ct[1])
+    log(f"  Multiplicator default equal to make_mul_relin: {equal}")
+    if not equal:
+        raise SystemExit("Multiplicator default differs from make_mul_relin")
+    check_parts("mul+relin", par, sk, ct,
+                (va.astype(object) * vb % t).astype(np.uint64))
+    ms = chained_ms(step, inputs, RATE_STEPS)
+    log(f"  {RATE_STEPS} chained mul+relin steps at batch {b}: {ms:.3f} "
+        f"ms/step, {b / ms * 1e3:.1f} mul+relin/s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
     from tpufhe_torch import kernels, native
-    from tpufhe_torch.bfv import BfvParametersBuilder
+    from tpufhe_torch.bfv import BfvParameters, BfvParametersBuilder
 
     t_all = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -1458,6 +2131,11 @@ def main() -> int:
     par_4096 = (BfvParametersBuilder().set_degree(TAIL_N4096)
                 .set_plaintext_modulus(PLAINTEXT)
                 .set_moduli_sizes(TAIL_N4096_MODULI_SIZES).build())
+    par_k1 = (BfvParametersBuilder().set_degree(K1_DEGREE)
+              .set_plaintext_modulus(PLAINTEXT)
+              .set_moduli_sizes(K1_MODULI_SIZES).build())
+    par_d128 = next(p for p in BfvParameters.default_parameters_128(D128_BITS)
+                    if p.degree() == DEGREE)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
@@ -1478,6 +2156,12 @@ def main() -> int:
     n16k_records = check_n16k_kernels(par_16k, gen, int32_rate)
     records["ks_accumulate"] = n16k_records["ks_accumulate"]
     wider_records = check_wider_kernels(par_wider, gen, int32_rate)
+    dot_records = check_dot_kernels({"dot": par_rot, "n16k": par_16k,
+                                     "main": par}, gen, int32_rate)
+    records["ct_pt_dot"] = dot_records.pop("dot bench")
+    api_records = check_api_kernels(par, gen, int32_rate)
+    k1_records = check_single_modulus_kernels(par_k1, gen, int32_rate)
+    d128_records = check_default128_kernels(par_d128, gen, int32_rate)
 
     log("phase 4: main path")
     mp = main_path(par)
@@ -1556,13 +2240,31 @@ def main() -> int:
     log(f"phase 13: multiplication bases above 16 limbs, N = {DEGREE}")
     wider_path(par_wider, card)
 
+    log(f"phase 14: SIMD add + plaintext multiply, N = {TAIL_N4096}, "
+        f"2 x 62-bit (BASELINE config 2)")
+    addpt_path(par_4096, card)
+
+    log(f"phase 15: dot products of {DOT_PAIRS} pairs, N = {DEGREE}, "
+        f"4 x 62-bit")
+    dot_launches, _ = dot_path(par_rot, card)
+
+    log("phase 16: the object API at BASELINE config 3")
+    object_api_path(par, mp, variants)
+
+    log(f"phase 17: the single-modulus key switch, N = {K1_DEGREE}, 1 x 62-bit")
+    single_modulus_path(par_k1)
+
+    log(f"phase 18: default_parameters_128({D128_BITS}), N = {DEGREE}")
+    default128_path(par_d128, card)
+
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
             "tensor": ("square", variants["square"][1]),
             "intt_scale": ("default fused mul+relin",
                            variants["default fused"][1]),
             "ntt32": ("narrow mul+relin", narrow["mul_relin"][2]),
-            "ks_accumulate": (f"N = {N16K} mul+relin", n16k["mul_relin"][2])}
+            "ks_accumulate": (f"N = {N16K} mul+relin", n16k["mul_relin"][2]),
+            "ct_pt_dot": (f"dot product of {DOT_PAIRS} pairs", dot_launches)}
     other_shapes = {
         "ntt": {label: side[label] for label in side
                 if label.startswith("ntt_")}
@@ -1573,6 +2275,7 @@ def main() -> int:
                       "n16384": n16k_records["rns_scale"]}
         | {label: rec for label, rec in wider_records.items()},
         "tensor": {"n16384": n16k_records["tensor"]},
+        "ct_pt_dot": dot_records,
         "ks_accumulate": {"rotation": n16k_records["ks_accumulate_rotation"]}
         | {label: narrow_records[label] for label in
            ("ks_accumulate_int32", "ks_accumulate_int32_rotation")},
@@ -1587,6 +2290,11 @@ def main() -> int:
                        ("relin_tail_8x62", "relin_tail_n4096")},
         "rotate_tail": {"rotate_tail_n4096": tails["rotate_tail_n4096"]},
     }
+    for tag, recs in (("object_api", api_records),
+                      ("single_modulus", k1_records),
+                      ("default128", d128_records)):
+        for name, rec in recs.items():
+            other_shapes[name][tag] = rec
     tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters", "plan")
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():

@@ -1,5 +1,6 @@
 """The CUDA sources of K1 (ntt.cu), K3 (tensor_intt.cu), K4 (relin_tail.cu),
-K5 (rotate_tail.cu), K8 (intt_scale.cu) and K9 (ntt32.cu), compiled with g++
+K5 (rotate_tail.cu), K8 (intt_scale.cu), K9 (ntt32.cu) and ct_pt_dot
+(ct_pt_dot.cu), compiled with g++
 against the CPU stand-in of tests/cuda_emu (each CTA an OS thread, each CUDA
 thread a fiber switched at barriers, distributed shared memory mapped
 between the cluster's threads) and run through the port's own wrappers on
@@ -7,8 +8,9 @@ CPU tensors, word for word against their plain versions: every K1 instance
 (the general one, the fixed n = 4096 and 8192 rows, the N = 16384 two-CTA
 split) in both directions, K3's cluster of three, both tails, K9's narrow
 passes (the general instance, a row of one pass at n = 8, the fixed
-n = 8192) in both directions, and K8's cluster (the fixed k_in = 3 instances
-and the general one, with more limbs than CTAs). The card remains the judge
+n = 8192) in both directions, K8's cluster (the fixed k_in = 3 instances
+and the general one, with more limbs than CTAs), and ct_pt_dot's 128-bit
+sums across its reduction windows. The card remains the judge
 of speed and of races; this holds the kernels' arithmetic, indexing,
 barriers and cluster exchanges on every CPU run."""
 
@@ -29,6 +31,7 @@ import tpufhe_torch.bfv as T
 from tpufhe_torch import kernels
 from tpufhe_torch import pipeline as tpl
 from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
+from tpufhe_torch.ops import dot
 from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops.intt_scale import intt_scale_cuda, intt_scale_plain
 from tpufhe_torch.ops.rns import ScalingFactor
@@ -36,7 +39,7 @@ from tpufhe_torch.ops.rq import Context, Scaler
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
-           "intt_scale")
+           "intt_scale", "ct_pt_dot")
 
 
 @pytest.fixture(scope="module")
@@ -203,3 +206,31 @@ def test_intt_scale_kernel_matches_plain(on_host, n, k, extra, kind, rows):
     got = intt_scale_cuda(ctx, scaler, x, start, size)
     assert torch.equal(got, intt_scale_plain(ctx, scaler, x, start, size))
     assert on_host["intt_scale"] == 1
+
+
+# (terms n, columns m, limbs, bits, batch rows, rows folded per limb set,
+# window): 62-bit moduli (a window of 14 terms, so 15 and 29 cross one and
+# two reductions) and 44-bit ones (a window far above 29 terms, and forced
+# to 3 to cross several), two parts, batch rows and, as rq.dot_product
+# passes them, rows R = 2 k of a folded batch
+DOT_CASES = [(15, 1, 3, 62, 1, 1, None), (29, 3, 3, 62, 2, 1, None),
+             (15, 3, 2, 44, 2, 1, None), (29, 1, 2, 44, 1, 2, None),
+             (29, 3, 2, 44, 1, 1, 3)]
+
+
+@pytest.mark.parametrize("n,m,k,bits,b,fold,win", DOT_CASES)
+def test_ct_pt_dot_kernel_matches_plain(on_host, monkeypatch, n, m, k, bits,
+                                        b, fold, win):
+    ctx = _context(256, k, bits)
+    if win is not None:
+        monkeypatch.setattr(dot, "dot_window", lambda c: win)
+    elif bits == 62:
+        assert dot.dot_window(ctx) == 14
+    moduli = list(ctx.moduli) * fold
+    parts = [_residues((n + 1, b, k * fold, 256), moduli, 10 + i)
+             for i in range(2)]
+    db = _residues((n, m, k * fold, 256), moduli, 12)
+    got = dot.ct_pt_dot_cuda(ctx, parts, db)
+    assert got.shape == (2, m, b, k * fold, 256)
+    assert torch.equal(got, dot.ct_pt_dot_plain(ctx, parts, db))
+    assert on_host["ct_pt_dot"] == 1

@@ -20,6 +20,7 @@ import torch
 import tpufhe_torch.bfv as T
 from tpufhe_torch import kernels
 from tpufhe_torch import pipeline as tpl
+from tpufhe_torch.ops import dot
 from tpufhe_torch.ops.intt_scale import intt_scale_fits
 from tpufhe_torch.ops.ntt import (backward32_plain, backward_plain,
                                   forward32_plain, forward_plain)
@@ -486,6 +487,7 @@ def test_launch_plans_within_card_limits():
     ("intt_scale.cu", "K8_THREADS", "K8_THREADS"),
     ("intt_scale.cu", "K8_SPLIT_THREADS", "K8_SPLIT_THREADS"),
     ("intt_scale.cu", "K8_CLUSTER_MAX", "K8_CLUSTER_MAX"),
+    ("ct_pt_dot.cu", "DOT_MAX_PARTS", "dot.MAX_PARTS"),
 ])
 def test_plan_constants_match_sources(source, define, const):
     """The constants the Python plans and pass-ordered tables are built from
@@ -494,7 +496,9 @@ def test_plan_constants_match_sources(source, define, const):
     with open(os.path.join(kernels.CSRC, source)) as f:
         found = re.findall(rf"^#define {define} (\d+)$", f.read(),
                            flags=re.MULTILINE)
-    assert found == [str(getattr(kernels, const))]
+    module, _, attr = const.rpartition(".")
+    owner = {"": kernels, "dot": dot}[module]
+    assert found == [str(getattr(owner, attr))]
 
 
 def test_tensor_intt_thirds_cover_every_coefficient():

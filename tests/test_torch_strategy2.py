@@ -337,7 +337,8 @@ def test_ext_fuse_refused_where_limbs_do_not_fit():
     same parameters build."""
     tp = (T.BfvParametersBuilder().set_degree(8192).set_plaintext_modulus(65537)
           .set_moduli_sizes([62] * 4).set_device("cpu").build())
-    rk = SimpleNamespace(ksk=SimpleNamespace(ciphertext_level=0, ksk_level=0))
+    rk = SimpleNamespace(ksk=SimpleNamespace(ciphertext_level=0, ksk_level=0,
+                                            log_base=0))
     for kp in (None, 1):
         with pytest.raises(UnsupportedOperation):
             make_mul_relin(tp, rk, strategy2_primes=kp, ext_fuse=True)

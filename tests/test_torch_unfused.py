@@ -172,7 +172,7 @@ def test_ks_accumulate_plain_matches_plain_tails(tail):
     _, tp = _params(64, [62] * 4)
     ctx = tp.context_at_level(0)
     k, n = ctx.k, ctx.degree
-    key = SimpleNamespace()
+    key = SimpleNamespace(log_base=0)
     key.c0 = _residues(ctx.moduli, (k,), n, 1)
     key.c1 = _residues(ctx.moduli, (k,), n, 2)
     key.c0_shoup = shoup_of(key.c0, ctx.moduli)

@@ -1,9 +1,11 @@
 """BFV ciphertexts (fhe/src/bfv/ciphertext.rs).
 
-A ciphertext is a list of NTT-domain parts, each an int64 tensor (k, N)
-(leading batch dimensions are allowed), at a level, with the optional
-32-byte seed that regenerates the last part of a fresh ciphertext
-(ciphertext.rs:22-29).
+A ciphertext is a list of NTT-domain parts, each a (k, N) tensor of the
+level's word type (leading batch dimensions are allowed), at a level, with
+the optional 32-byte seed that regenerates the last part of a fresh
+ciphertext (ciphertext.rs:22-29). As in tpufhe, the list may be empty:
+``Ciphertext.zero`` is the identity of ct_add and ct_sub, the start of a
+running sum; ``Ciphertext.new`` checks for at least two parts.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from tpufhe_torch.bfv.parameters import BfvParameters
-from tpufhe_torch.errors import TooFewValues
+from tpufhe_torch.errors import InvalidCiphertext, TooFewValues
 
 
 @dataclass
@@ -23,12 +25,67 @@ class Ciphertext:
     level: int
     seed: bytes | None = None
 
-    def __post_init__(self):
-        if len(self.c) < 2:
-            raise TooFewValues(len(self.c), 2)
+    @staticmethod
+    def new(c: list, par: BfvParameters) -> "Ciphertext":
+        """At least two parts of one shape, whose limbs are those of one
+        level's context; the level is that context's (tpufhe
+        ciphertext.py:24-33)."""
+        if len(c) < 2:
+            raise TooFewValues(len(c), 2)
+        level = len(par.moduli) - c[0].shape[-2]
+        if not 0 <= level <= par.max_level():
+            raise InvalidCiphertext("inconsistent contexts")
+        ctx = par.context_at_level(level)
+        for ci in c:
+            if (ci.shape != c[0].shape or ci.shape[-1] != ctx.degree
+                    or ci.dtype != ctx.dtype):
+                raise InvalidCiphertext("inconsistent contexts")
+        return Ciphertext(par, list(c), level)
+
+    @staticmethod
+    def zero(par: BfvParameters) -> "Ciphertext":
+        return Ciphertext(par, [], 0)
 
     def __len__(self):
         return len(self.c)
 
     def __getitem__(self, i) -> torch.Tensor:
         return self.c[i]
+
+    def __setitem__(self, i, v):
+        self.c[i] = v
+        self.seed = None
+
+    def truncate(self, n: int):
+        self.c = self.c[:n]
+
+    def clone(self) -> "Ciphertext":
+        return Ciphertext(self.par, list(self.c), self.level, self.seed)
+
+    # the operators of ops/mod.rs (impl Add/Sub/Neg/Mul for Ciphertext);
+    # imported here to avoid the ciphertext <-> ops cycle
+    def __add__(self, other):
+        from tpufhe_torch.bfv import ops
+
+        if isinstance(other, Ciphertext):
+            return ops.ct_add(self, other)
+        return ops.ct_add_pt(self, other)
+
+    def __sub__(self, other):
+        from tpufhe_torch.bfv import ops
+
+        if isinstance(other, Ciphertext):
+            return ops.ct_sub(self, other)
+        return ops.ct_sub_pt(self, other)
+
+    def __neg__(self):
+        from tpufhe_torch.bfv import ops
+
+        return ops.ct_neg(self)
+
+    def __mul__(self, other):
+        from tpufhe_torch.bfv import ops
+
+        if isinstance(other, Ciphertext):
+            return ops.ct_mul(self, other)
+        return ops.ct_mul_pt(self, other)

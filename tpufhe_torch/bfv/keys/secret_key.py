@@ -3,8 +3,9 @@
 The port of tpufhe/bfv/keys/secret_key.py (fhe/src/bfv/keys/secret_key.rs):
 - encrypt_poly: b = e - a*s + m with a expanded from a fresh 32-byte seed,
   in the reference's draw order (seed, then the CBD error);
-- try_decrypt: phase c0 + c1 s -> t/q scale -> the host-side mod-t fold of
-  the first plaintext-context row (secret_key.rs:200-282);
+- try_decrypt: phase c0 + c1 s (+ c2 s^2 ...) -> t/q scale -> the
+  host-side mod-t fold of the first plaintext-context row
+  (secret_key.rs:200-282);
 - measure_noise: decrypt, re-encode, report the largest noise in bits.
 """
 
@@ -16,7 +17,7 @@ import torch
 from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.bfv.plaintext import Plaintext
-from tpufhe_torch.errors import ContextMismatch, UnsupportedOperation
+from tpufhe_torch.errors import ContextMismatch, TooFewValues
 from tpufhe_torch.ops.rq import (
     from_i64_coeffs,
     lift_bigints,
@@ -78,13 +79,32 @@ class SecretKey:
             raise ContextMismatch("Incompatible BFV parameters")
         return self.encrypt_poly(pt.to_poly(), pt.level, rng)
 
+    def _phase(self, ct: Ciphertext) -> torch.Tensor:
+        """c0 + sum_i c_i s^i in the NTT domain of ct's level."""
+        ctx = self.par.context_at_level(ct.level)
+        s = self.s_ntt(ctx)
+        si, c = s, ct[0]
+        for i in range(1, len(ct)):
+            c = ctx.add(c, ctx.mul(ct[i], si))
+            if i + 1 < len(ct):
+                si = ctx.mul(si, s)
+        return c
+
     def try_decrypt(self, ct: Ciphertext) -> Plaintext:
+        """The plaintext of ct of any number of parts (secret_key.rs:200-282):
+        two parts through the fused decryption core (make_decrypt_phase),
+        others by c0 + sum_i c_i s^i in the NTT domain, its inverse NTT and
+        the level's t/q scaler (K1 inverse, K2)."""
         if ct.par != self.par:
             raise ContextMismatch("Incompatible BFV parameters")
-        if len(ct) != 2:
-            raise UnsupportedOperation(
-                "tpufhe_torch decrypts two-part ciphertexts only")
-        d = self._decrypt_fn(ct.level)(ct[0], ct[1])
+        if not ct.c:
+            raise TooFewValues(0, 1)
+        if len(ct) == 2:
+            d = self._decrypt_fn(ct.level)(ct[0], ct[1])
+        else:
+            ctx = self.par.context_at_level(ct.level)
+            cp = self.par.context_level_at(ct.level).cipher_plain_context
+            d = cp.scaler.rns_scaler.scale(ntt_backward(ctx, self._phase(ct)))
         t = self.par.plaintext.value
         q0 = self.par.moduli[0]
         row0 = d[0].cpu().numpy().astype(np.uint64)
@@ -94,15 +114,8 @@ class SecretKey:
     def measure_noise(self, ct: Ciphertext) -> int:
         """Largest noise across coefficients, in bits (secret_key.rs:63-100)."""
         pt = self.try_decrypt(ct)
-        m = pt.to_poly()
         ctx = self.par.context_at_level(ct.level)
-        s = self.s_ntt(ctx)
-        si = s
-        c = ct[0]
-        for i in range(1, len(ct)):
-            c = ctx.add(c, ctx.mul(ct[i], si))
-            si = ctx.mul(si, s)
-        c = ntt_backward(ctx, ctx.sub(c, m))
+        c = ntt_backward(ctx, ctx.sub(self._phase(ct), pt.to_poly()))
         q = ctx.modulus()
         noise = 0
         for coeff in lift_bigints(ctx, c):

@@ -19,7 +19,13 @@ import numpy as np
 import torch
 
 from tpufhe_torch.device import resolve_device
-from tpufhe_torch.errors import InvalidLevel, ParametersError
+from tpufhe_torch.errors import (
+    FheError,
+    InvalidContext,
+    InvalidLevel,
+    ParametersError,
+    UnsupportedOperation,
+)
 from tpufhe_torch.ops.rns import ScalingFactor
 from tpufhe_torch.ops.rq import Context, Scaler
 from tpufhe_torch.ops.zq import Modulus
@@ -28,6 +34,19 @@ from tpufhe_torch.utils.primes import generate_prime
 # variance of the centered-binomial error and key distributions
 # (parameters.rs default)
 VARIANCE = 10
+
+# the ciphertext moduli of the default sets of about 128-bit security, by
+# degree (parameters.rs:217-294)
+DEFAULT_128_MODULI = {
+    1024: [0x7E00001],
+    2048: [0x3FFFFFFF000001],
+    4096: [0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001],
+    8192: [0x7FFFFFD8001, 0x7FFFFFC8001, 0xFFFFFFFC001, 0xFFFFFF6C001,
+           0xFFFFFEBC001],
+    16384: [0xFFFFFFFD8001, 0xFFFFFFFA0001, 0xFFFFFFF00001, 0x1FFFFFFF68001,
+            0x1FFFFFFF50001, 0x1FFFFFFEE8001, 0x1FFFFFFEA0001,
+            0x1FFFFFFE88001, 0x1FFFFFFE48001],
+}
 
 
 class PlaintextModulus:
@@ -107,6 +126,9 @@ class BfvParameters:
     def degree(self) -> int:
         return self.polynomial_degree
 
+    def plaintext_value(self) -> int:
+        return self.plaintext.value
+
     def max_level(self) -> int:
         return len(self.moduli) - 1
 
@@ -118,6 +140,13 @@ class BfvParameters:
             raise InvalidLevel(level, 0, self.max_level())
         return self.context_chain[level]
 
+    def level_of_context(self, ctx: Context) -> int:
+        """The level whose ciphertext context is ctx."""
+        for node in self.context_chain:
+            if node.poly_context is ctx:
+                return node.level
+        raise InvalidContext("the context is not in the modulus chain")
+
     def __eq__(self, other):
         return (
             isinstance(other, BfvParameters)
@@ -127,6 +156,40 @@ class BfvParameters:
             and self.variance == other.variance
             and self.device == other.device
         )
+
+    @staticmethod
+    def default_parameters_128(plaintext_nbits: int, device=None
+                               ) -> list["BfvParameters"]:
+        """The default sets of about 128-bit security, one per degree 1024
+        to 16384 whose moduli hold the plaintext, with t the largest
+        NTT-friendly prime of plaintext_nbits bits (parameters.rs:217-294,
+        tpufhe parameters.py:135-186). The N = 1024 set's one 27-bit
+        modulus makes it narrow (w30). A set that fails to build is left
+        out, as in tpufhe."""
+        if not 0 < plaintext_nbits < 64:
+            raise ParametersError("plaintext_nbits must be in 1..=63")
+        device = resolve_device(device)
+        if plaintext_nbits > 62:
+            raise UnsupportedOperation(
+                "plaintext moduli of 62 bits and more are not supported by "
+                "tpufhe_torch yet")
+        out = []
+        for n, moduli in sorted(DEFAULT_128_MODULI.items()):
+            t = generate_prime(plaintext_nbits, 2 * n,
+                               ((1 << 64) - 1) >> (64 - plaintext_nbits))
+            if (t is None
+                    or sum(m.bit_length() for m in moduli) < plaintext_nbits):
+                continue
+            try:
+                out.append(BfvParametersBuilder().set_degree(n)
+                           .set_plaintext_modulus(t).set_moduli(moduli)
+                           .set_device(device).build())
+            except FheError:
+                continue
+        if not out:
+            raise ParametersError(
+                "No default parameters available for this plaintext size")
+        return out
 
     @staticmethod
     def default(num_moduli: int, degree: int, device=None) -> "BfvParameters":

@@ -3,12 +3,17 @@
 SIMD encoding is the SEAL batch encoder: apply the matrix_reps permutation,
 then an inverse NTT over Z_t; decoding is the forward NTT followed by the
 permutation. Both run as single-limb NTTs over the plaintext modulus (K1 on
-the card). Only small plaintext moduli and one chunk of values are ported.
+the card). Only small plaintext moduli (t < 2^62) are ported.
+
+A plaintext keeps two polynomials of its level's context in the NTT
+domain: ``to_poly()``, Delta m, which encryption and ct_add_pt take, and
+``poly_ntt``, m lifted without Delta, which ct_mul_pt and the dot
+products take (plaintext.rs:71-98; tpufhe plaintext.py:22-29, 154-157).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -28,6 +33,8 @@ class Plaintext:
     value: np.ndarray  # (N,) uint64 coefficients in [0, t)
     encoding: Encoding | None
     level: int
+    _poly_ntt: torch.Tensor | None = field(default=None, repr=False,
+                                           compare=False)
 
     def __eq__(self, other):
         if not isinstance(other, Plaintext):
@@ -38,6 +45,23 @@ class Plaintext:
         return (self.par == other.par
                 and bool(np.array_equal(self.value, other.value))
                 and self.level == other.level and enc_eq)
+
+    @property
+    def poly_ntt(self) -> torch.Tensor:
+        """m lifted into the level's context and forward-NTT'd, (k, N),
+        without Delta; computed on first use and kept."""
+        if self._poly_ntt is None:
+            ctx = self.par.context_at_level(self.level)
+            self._poly_ntt = ntt_forward(ctx, from_u64_coeffs(self.value, ctx))
+        return self._poly_ntt
+
+    @staticmethod
+    def zero(encoding: Encoding, par: BfvParameters) -> "Plaintext":
+        ctx = par.context_at_level(encoding.level)
+        poly = torch.zeros((ctx.k, ctx.degree), dtype=ctx.dtype,
+                           device=ctx.device)
+        return Plaintext(par, np.zeros(par.degree(), dtype=np.uint64),
+                         encoding, encoding.level, poly)
 
     def to_poly(self) -> torch.Tensor:
         """Delta * m in the NTT domain, (k, N) (plaintext.rs:71-98)."""
@@ -52,22 +76,18 @@ class Plaintext:
 
     @staticmethod
     def try_encode(values, encoding: Encoding, par: BfvParameters) -> "Plaintext":
-        values = [int(v) for v in values]
-        n = par.degree()
-        if len(values) > n:
-            raise TooManyValues(len(values), n)
-        v = np.zeros(n, dtype=np.uint64)
-        if encoding.encoding == POLY:
-            v[: len(values)] = np.asarray(values, dtype=np.uint64)
-        else:
-            if par.ntt_operator is None:
-                raise SimdNotSupported("no plaintext NTT for these parameters")
-            v[par.matrix_reps_index_map[: len(values)]] = np.asarray(
-                values, dtype=np.uint64)
-            ntt_ctx = par.ntt_operator
-            x = torch.from_numpy(zq.as_int64(v)).to(par.device)[None, :]
-            v = ntt_backward(ntt_ctx, x)[0].cpu().numpy().astype(np.uint64)
-        return Plaintext(par, v, encoding, encoding.level)
+        values = list(values)
+        if len(values) > par.degree():
+            raise TooManyValues(len(values), par.degree())
+        return PlaintextVec.try_encode(values, encoding, par)[0]
+
+    @staticmethod
+    def try_encode_i64(values, encoding: Encoding, par: BfvParameters
+                       ) -> "Plaintext":
+        """Signed values, reduced into [0, t)."""
+        t = par.plaintext.value
+        return Plaintext.try_encode([int(v) % t for v in values], encoding,
+                                    par)
 
     def try_decode(self, encoding: Encoding | None = None) -> np.ndarray:
         if self.encoding is None and encoding is None:
@@ -83,5 +103,39 @@ class Plaintext:
         w = ntt_forward(self.par.ntt_operator, x[None, :])[0].cpu().numpy()
         return w.astype(np.uint64)[self.par.matrix_reps_index_map]
 
+    def try_decode_i64(self, encoding: Encoding | None = None) -> np.ndarray:
+        """The decoded values as signed integers: v - t where v >= t / 2."""
+        v = self.try_decode(encoding).astype(np.int64)
+        t = self.par.plaintext.value
+        return np.where(v >= (t >> 1), v - t, v)
 
-__all__ = ["Plaintext", "Encoding", "POLY", "SIMD"]
+
+class PlaintextVec(list):
+    """Plaintexts of N values each, the last zero-padded
+    (plaintext_vec.rs:19-234; tpufhe plaintext.py:128-166)."""
+
+    @staticmethod
+    def try_encode(values, encoding: Encoding, par: BfvParameters
+                   ) -> "PlaintextVec":
+        values = [int(v) for v in values]
+        if not values:
+            return PlaintextVec([Plaintext.zero(encoding, par)])
+        if encoding.encoding == SIMD and par.ntt_operator is None:
+            raise SimdNotSupported("no plaintext NTT for these parameters")
+        n = par.degree()
+        out = []
+        for start in range(0, len(values), n):
+            chunk = np.asarray(values[start:start + n], dtype=np.uint64)
+            v = np.zeros(n, dtype=np.uint64)
+            if encoding.encoding == POLY:
+                v[: len(chunk)] = chunk
+            else:
+                v[par.matrix_reps_index_map[: len(chunk)]] = chunk
+                x = torch.from_numpy(zq.as_int64(v)).to(par.device)[None, :]
+                v = ntt_backward(par.ntt_operator, x)[0].cpu().numpy().astype(
+                    np.uint64)
+            out.append(Plaintext(par, v, encoding, encoding.level))
+        return PlaintextVec(out)
+
+
+__all__ = ["Plaintext", "PlaintextVec", "Encoding", "POLY", "SIMD"]

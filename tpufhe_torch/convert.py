@@ -5,10 +5,10 @@ tpufhe keeps residues as lane-folded uint32 (lo, hi) planes shaped
 128), because TPU lanes are 32-bit, and the residues of a narrow (w30)
 context as one plane, (..., k, 1, S, L). tpufhe_torch keeps one word per
 residue, (..., k, N): int64, or int32 for a narrow context. These
-functions convert between the two, and build tpufhe_torch key and
-ciphertext objects from the arrays of tpufhe's, so that both packages can
-be fed the same keys; a narrow key's Shoup arrays (shoup32) convert the
-same way.
+functions convert between the two, and build tpufhe_torch key, ciphertext
+and plaintext objects from the arrays of tpufhe's, so that both packages
+can be fed the same keys; a narrow key's Shoup arrays (shoup32) convert
+the same way.
 """
 
 from __future__ import annotations
@@ -70,7 +70,13 @@ def secret_key(coeffs: np.ndarray, par):
     return SecretKey(np.asarray(coeffs, dtype=np.int64), par)
 
 
-def _ksk(par, seed: bytes, c0, c0_shoup, c1, c1_shoup, level: int):
+def key_switching_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
+                      level: int = 0, log_base: int = 0):
+    """A tpufhe_torch KeySwitchingKey from tpufhe's ksk rows, ciphertext and
+    key at `level`: each of c0, c0_shoup, c1, c1_shoup is a list (one per
+    decomposition row) of lane-folded arrays, e.g.
+    [np.asarray(p.coeffs) for p in ksk.c0]; log_base is tpufhe's
+    ksk.log_base (nonzero for a single-modulus key)."""
     from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
 
     def rows(arrs):
@@ -78,18 +84,18 @@ def _ksk(par, seed: bytes, c0, c0_shoup, c1, c1_shoup, level: int):
             np.stack([lanes_to_words(a) for a in arrs])).to(par.device)
 
     return KeySwitchingKey(par, seed, rows(c0), rows(c0_shoup), rows(c1),
-                           rows(c1_shoup), level, level)
+                           rows(c1_shoup), level, level, log_base)
+
 
 
 def relinearization_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
-                        level: int = 0):
-    """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows: each of
-    c0, c0_shoup, c1, c1_shoup is a list (one per decomposition row) of
-    lane-folded arrays, e.g. [np.asarray(p.coeffs) for p in rk.ksk.c0]."""
+                        level: int = 0, log_base: int = 0):
+    """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows (as for
+    key_switching_key)."""
     from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
 
-    return RelinearizationKey(
-        _ksk(par, seed, c0, c0_shoup, c1, c1_shoup, level))
+    return RelinearizationKey(key_switching_key(
+        par, seed, c0, c0_shoup, c1, c1_shoup, level, log_base))
 
 
 def galois_key(par, exponent: int, seed: bytes, c0, c0_shoup, c1, c1_shoup,
@@ -100,8 +106,8 @@ def galois_key(par, exponent: int, seed: bytes, c0, c0_shoup, c1, c1_shoup,
     from tpufhe_torch.ops.rq import SubstitutionExponent
 
     element = SubstitutionExponent(par.context_at_level(level), exponent)
-    return GaloisKey(element,
-                     _ksk(par, seed, c0, c0_shoup, c1, c1_shoup, level))
+    return GaloisKey(element, key_switching_key(par, seed, c0, c0_shoup, c1,
+                                                c1_shoup, level))
 
 
 def evaluation_key(par, keys: dict, level: int = 0):
@@ -123,3 +129,21 @@ def ciphertext(par, parts, level: int = 0, seed: bytes | None = None):
 
     return Ciphertext(par, [to_tensor(p, par.device) for p in parts], level,
                       seed)
+
+
+def public_key(par, parts, level: int = 0):
+    """A tpufhe_torch PublicKey from tpufhe's pk.c parts (lane-folded)."""
+    from tpufhe_torch.bfv.keys.public_key import PublicKey
+
+    return PublicKey(par, ciphertext(par, parts, level))
+
+
+def plaintext(par, value, encoding, level: int = 0):
+    """A tpufhe_torch Plaintext from tpufhe's pt.value (small t), its
+    encoding (tpufhe's or the port's; None for none) and level."""
+    from tpufhe_torch.bfv.encoding import Encoding
+    from tpufhe_torch.bfv.plaintext import Plaintext
+
+    enc = None if encoding is None else Encoding(encoding.encoding,
+                                                 encoding.level)
+    return Plaintext(par, np.asarray(value, dtype=np.uint64), enc, level)

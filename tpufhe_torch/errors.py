@@ -27,6 +27,11 @@ class InvalidContext(MathError):
         super().__init__(msg)
 
 
+class NoMoreContext(MathError):
+    def __init__(self):
+        super().__init__("This is the last context.")
+
+
 class ContextMismatch(FheError):
     def __init__(self, reason: str = "Context mismatch"):
         super().__init__(reason)
@@ -90,3 +95,8 @@ class InvalidGaloisElement(FheError):
 class InvalidRotationStep(FheError):
     def __init__(self, reason: str):
         super().__init__(f"Invalid rotation step: {reason}")
+
+
+class DimensionMismatch(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Dimension mismatch: {reason}")

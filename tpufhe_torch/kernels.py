@@ -49,6 +49,10 @@ KERNELS = {
     "ks_accumulate": ("ks_accumulate.cu",
                       "tpufhe/pipeline.py:564-569 _ksk_accumulate (XLA, where "
                       "tail_kernel_fits is false)"),
+    # no Pallas counterpart: tpufhe's deferred 128-bit ct x pt accumulation
+    # is XLA code (also rq.dot_product, tpufhe/ops/rq.py:1337)
+    "ct_pt_dot": ("ct_pt_dot.cu",
+                  "tpufhe/pipeline.py:1091 make_ct_pt_dot (XLA)"),
 }
 HEADERS = ("modarith.cuh", "ntt_pass_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")

@@ -1,6 +1,7 @@
 """Polynomials in R_q[x] = Z_q[x]/(x^N + 1) with RNS coefficients: the
-subset of tpufhe.ops.rq that the multiply + relinearize and the Galois
-rotation paths need.
+subset of tpufhe.ops.rq that the BFV operations, the multiply +
+relinearize and the Galois rotation paths need, with the context-to-context
+scaler and the deferred-reduction dot product.
 
 Coefficients are tensors shaped (..., k, N), one canonical residue per
 word (int64, or int32 for a narrow w30 context), in power basis or in
@@ -14,9 +15,14 @@ import numpy as np
 import torch
 
 from tpufhe_torch.device import resolve_device
-from tpufhe_torch.errors import InvalidContext, InvalidGaloisElement
+from tpufhe_torch.errors import (
+    InvalidContext,
+    InvalidGaloisElement,
+    TooFewValues,
+)
 from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops import zq, zq32
+from tpufhe_torch.ops.dot import ct_pt_dot
 from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
 from tpufhe_torch.ops.zq import Modulus
 from tpufhe_torch.utils.rngs import expand_seed
@@ -217,9 +223,23 @@ def substitute(x: torch.Tensor, exp: SubstitutionExponent,
     return torch.where(exp.sign_power, exp.ctx.neg(gathered), gathered)
 
 
+def scale_into(to_ctx: Context, scaler: RnsScaler, x_pb: torch.Tensor,
+               start: int, size: int, ntt: bool) -> torch.Tensor:
+    """Rows start .. start + size of `to_ctx` scaled from the power-basis
+    rows x_pb (K2 on the card), forward-NTT'd with `to_ctx`'s tables for
+    those rows only (K1's limb_slice) when `ntt`: the scaled half of
+    tpufhe's Scaler.scale (rq.py:1303-1313) and the extend of the
+    multiplication programs."""
+    rows = scaler.scale(x_pb, starting_index=start, size=size)
+    if not ntt:
+        return rows
+    return ntt_forward(to_ctx, rows, limb_slice=slice(start, start + size))
+
+
 class Scaler:
     """Context-to-context scaler with the common-moduli fast path
-    (rq/scaler.rs:18-127); only the power-basis form is needed here."""
+    (rq/scaler.rs:18-127): the first ``number_common_moduli`` rows are
+    copied, the others scaled (HPS, K2 on the card)."""
 
     def __init__(self, from_ctx: Context, to_ctx: Context, factor: ScalingFactor):
         if from_ctx.degree != to_ctx.degree:
@@ -239,3 +259,43 @@ class Scaler:
                                  "contexts")
         self.rns_scaler = RnsScaler(from_ctx.rns, to_ctx.rns, factor,
                                     from_ctx.dtype)
+
+    def scale(self, x: torch.Tensor, ntt: bool) -> torch.Tensor:
+        """(..., k_from, N) canonical rows of from_ctx, power basis or (ntt)
+        NTT domain -> (..., k_to, N) rows of to_ctx in the same form
+        (tpufhe rq.py:1293-1316): rows below number_common_moduli copied,
+        the rest from the power basis (K1 inverse first when ntt) by
+        scale_into."""
+        ncm, k_out = self.number_common_moduli, self.to_ctx.k
+        parts = [x[..., :ncm, :]] if ncm else []
+        if ncm < k_out:
+            x_pb = ntt_backward(self.from_ctx, x) if ntt else x
+            parts.append(scale_into(self.to_ctx, self.rns_scaler, x_pb, ncm,
+                                    k_out - ncm, ntt))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def dot_product(ctx: Context, ps: list, qs: list) -> torch.Tensor:
+    """sum_i ps[i] qs[i] of NTT-domain (..., k, N) rows of ctx over the
+    first min(len(ps), len(qs)) terms, with deferred 128-bit accumulation
+    (tpufhe rq.py:1337-1368, rq/ops.rs:448-550): kernel ct_pt_dot on the
+    card. Each qs[i] has ps[i]'s shape, or is one (k, N) polynomial for
+    every batch row of ps[i]."""
+    if not ps or not qs:
+        raise TooFewValues(0, 1)
+    count = min(len(ps), len(qs))
+    e, d = torch.stack(ps[:count]), torch.stack(qs[:count])
+    lead, k, n = e.shape[1:-2], ctx.k, ctx.degree
+    if e.shape[-2:] != (k, n):
+        raise ValueError(f"dot_product: rows {tuple(e.shape[1:])}, expected "
+                         f"(..., {k}, {n})")
+    if d.shape[1:] == e.shape[1:]:
+        # one product per row: the batch folds into the rows
+        out = ct_pt_dot(ctx, [e.reshape(count, 1, -1, n)],
+                        d.reshape(count, 1, -1, n))
+    elif d.shape[1:] == (k, n):
+        out = ct_pt_dot(ctx, [e.reshape(count, -1, k, n)], d[:, None])
+    else:
+        raise ValueError(f"dot_product: operand rows {tuple(d.shape[1:])} "
+                         f"against {tuple(e.shape[1:])}")
+    return out.reshape(lead + (k, n))

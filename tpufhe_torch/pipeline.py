@@ -1,8 +1,10 @@
 """End-to-end BFV programs over raw coefficient tensors: the fused
 multiply + relinearize (default HPS strategy and strategy 2), the square +
-relinearize, the Galois rotation, inner sum and oblivious expansion, and
-the encryption and decryption cores. The port of the matching parts of
-tpufhe/pipeline.py.
+relinearize, the Galois rotation, inner sum and oblivious expansion, the
+symmetric and public-key encryption cores, the decryption core, the
+ciphertext add and the ct x pt dot products (kernel ct_pt_dot, ops/dot.py),
+and the key switch behind RelinearizationKey.relinearizes. The port of the
+matching parts of tpufhe/pipeline.py.
 
 A default mul+relin step runs six kernel launches, in tpufhe's structure
 (pipeline.py:509-569):
@@ -61,9 +63,11 @@ import torch
 
 from tpufhe_torch import kernels
 from tpufhe_torch.bfv.keys.evaluation_key import EXPANSION_NARROW
+from tpufhe_torch.bfv.keys.key_switching_key import decomposition_digits
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
+from tpufhe_torch.ops.dot import ct_pt_dot
 from tpufhe_torch.ops.intt_scale import intt_scale, intt_scale_fits
 from tpufhe_torch.ops.ntt import backward_plain, forward_plain
 from tpufhe_torch.ops.rns import RnsScaler, ScalingFactor
@@ -73,6 +77,7 @@ from tpufhe_torch.ops.rq import (
     SubstitutionExponent,
     ntt_backward,
     ntt_forward,
+    scale_into,
     substitute,
 )
 from tpufhe_torch.utils.primes import generate_prime
@@ -91,6 +96,15 @@ def _ksk_digits(ctx: Context, c2_pb: torch.Tensor) -> torch.Tensor:
     return torch.remainder(rows, ctx.p_col).contiguous()
 
 
+def ksk_rows(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    """The decomposition rows of power-basis c2 (..., k, N) for `ksk`: a
+    single-modulus key's base-2^log_base digits, else the Garner digits.
+    Returns (rows, ..., k, N)."""
+    if ksk.log_base:
+        return decomposition_digits(c2_pb, ksk.log_base, ksk.c0.shape[0])
+    return _ksk_digits(ctx, c2_pb)
+
+
 def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
     """sum_i d_i ksk.c{0,1}_i with Shoup products on NTT-domain rows
     (key_switching_key.rs:227-239); the plain version of the accumulate
@@ -104,12 +118,15 @@ def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
     return acc0, acc1
 
 
-def _check_key(name: str, ksk, k: int, n: int) -> None:
-    """Raise unless the key's four tables are (k, k, n)."""
+def _check_key(name: str, ksk, k: int, n: int, digits: int | None = None
+               ) -> None:
+    """Raise unless the key's four tables are (digits, k, n), digits = k
+    (the Garner rows) unless given."""
+    digits = k if digits is None else digits
     for t in (ksk.c0, ksk.c0_shoup, ksk.c1, ksk.c1_shoup):
-        if tuple(t.shape) != (k, k, n):
+        if tuple(t.shape) != (digits, k, n):
             raise ValueError(f"{name}: key shape {tuple(t.shape)}, "
-                             f"expected ({k}, {k}, {n})")
+                             f"expected ({digits}, {k}, {n})")
 
 
 # ---------------------------------------------------------------------------
@@ -345,13 +362,14 @@ def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
 # ---------------------------------------------------------------------------
 
 _KS_ACCUMULATE_ARGS = ([ctypes.c_void_p] * 4
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def ks_accumulate_plain(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
                         add1=None) -> torch.Tensor:
-    """NTT-domain digit rows (k, ..., k, N) -> stacked (2, ..., k, N)
+    """NTT-domain digit rows (d, ..., k, N) (d = k Garner rows, or a
+    single-modulus key's base-2^log_base digits) -> stacked (2, ..., k, N)
     (add0 + sum_i d_i ksk0_i, add1 + sum_i d_i ksk1_i), no add where an
     addend is None: _ksk_accumulate and the adds, the plain version of
     ks_accumulate."""
@@ -370,14 +388,14 @@ def ks_accumulate_cuda(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
     addends = [t for t in (add0, add1) if t is not None]
     kernels.require_cuda("ks_accumulate", ctx.dtype, lifted, ksk.c0,
                          ksk.c0_shoup, ksk.c1, ksk.c1_shoup, *addends)
-    k, n = ctx.k, ctx.degree
-    if lifted.shape[0] != k or lifted.shape[-2:] != (k, n):
+    k, n, digits = ctx.k, ctx.degree, ksk.c0.shape[0]
+    if lifted.shape[0] != digits or lifted.shape[-2:] != (k, n):
         raise ValueError(f"ks_accumulate: shape {tuple(lifted.shape)}, "
-                         f"expected ({k}, ..., {k}, {n})")
+                         f"expected ({digits}, ..., {k}, {n})")
     if any(t.shape != lifted.shape[1:] for t in addends):
         raise ValueError("ks_accumulate: addends must be "
                          f"{tuple(lifted.shape[1:])}")
-    _check_key("ks_accumulate", ksk, k, n)
+    _check_key("ks_accumulate", ksk, k, n, digits)
     out = torch.empty((2,) + lifted.shape[1:], dtype=ctx.dtype,
                       device=lifted.device)
     plane = lifted[0].numel()
@@ -389,7 +407,8 @@ def ks_accumulate_cuda(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
     err = fn(kernels.ptr(lifted),
              None if add0 is None else kernels.ptr(add0),
              None if add1 is None else kernels.ptr(add1), kernels.ptr(out),
-             plane, k, n, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+             plane, digits, k, n, kernels.ptr(ksk.c0),
+             kernels.ptr(ksk.c0_shoup),
              kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
              kernels.ptr(ctx.tables.p), lifted.element_size(),
              kernels.stream())
@@ -407,23 +426,48 @@ def ks_accumulate(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
 
 
 def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk):
-    """What K4 computes, unfused: the Garner digits of c2, one forward NTT
-    of the stacked (c0, c1, digits) and the accumulate with the two adds,
-    as tpufhe merges them (pipeline.py:559-569)."""
-    digits = _ksk_digits(ctx, dsc[2])
+    """What K4 computes, unfused: the decomposition rows of c2 (Garner, or
+    a single-modulus key's digits), one forward NTT of the stacked (c0, c1,
+    rows) and the accumulate with the two adds, as tpufhe merges them
+    (pipeline.py:559-569)."""
+    digits = ksk_rows(ctx, dsc[2], ksk)
     ntts = ntt_forward(ctx, torch.cat([dsc[:2], digits]))
     c0, c1 = ks_accumulate(ctx, ntts[2:], ksk, ntts[0], ntts[1])
     return c0, c1
 
 
+def key_switch(ctx: Context, c2_pb: torch.Tensor, ksk, add0=None,
+               add1=None) -> torch.Tensor:
+    """(add0 + ks0, add1 + ks1) stacked, (ks0, ks1) the key switch of
+    power-basis c2 (..., k, N): the forward NTT of its decomposition rows
+    (K1, or K9 when narrow) and ks_accumulate (key_switching_key.rs:214-289
+    with the adds of relinearization_key.rs:71-98 and galois_key.rs:62-87).
+    Either key mode."""
+    lifted = ntt_forward(ctx, ksk_rows(ctx, c2_pb, ksk))
+    return ks_accumulate(ctx, lifted, ksk, add0, add1)
+
+
 def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
                         ksk):
-    """What K5 computes, unfused: the forward NTT of c2's Garner digits and
-    the accumulate with the add of s0 (tpufhe pipeline.py:778-779,
+    """What K5 computes, unfused: the forward NTT of c2's decomposition
+    rows and the accumulate with the add of s0 (tpufhe pipeline.py:778-779,
     _key_switch_batched)."""
-    lifted = ntt_forward(ctx, _ksk_digits(ctx, c2_pb))
-    c0, c1 = ks_accumulate(ctx, lifted, ksk, s0)
+    c0, c1 = key_switch(ctx, c2_pb, ksk, s0)
     return c0, c1
+
+
+def relinearize(ctx: Context, ksk, c0: torch.Tensor, c1: torch.Tensor,
+                c2_pb: torch.Tensor) -> tuple:
+    """(c0 + ks0, c1 + ks1) for NTT-domain c0, c1 and power-basis c2
+    (relinearization_key.rs:71-98). A Garner key where kernels.tail_fits
+    holds: K5 forms c0 + ks0 and ks1 (the rotate tail's computation on
+    s0 = c0), then one add; otherwise key_switch with both adds."""
+    c0, c1 = c0.contiguous(), c1.contiguous()  # a user's parts, kernel inputs
+    if _fused_tail(ctx, ksk):
+        r0, ks1 = rotate_tail(ctx, c0, c2_pb, ksk)
+        return r0, ctx.add(c1, ks1)
+    c = key_switch(ctx, c2_pb, ksk, c0, c1)
+    return c[0], c[1]
 
 
 # ---------------------------------------------------------------------------
@@ -431,10 +475,13 @@ def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _fused_tail(ctx: Context) -> bool:
+def _fused_tail(ctx: Context, ksk=None) -> bool:
     """Whether the programs over ctx run the fused kernels K3, K4 and K5:
     wide rows whose three rows of N words fit one block (K3's need; the
-    tails follow the same route)."""
+    tails follow the same route). The tails K4 and K5 form Garner digits,
+    so a single-modulus key (ksk.log_base) takes the unfused tail."""
+    if ksk is not None and ksk.log_base:
+        return False
     return not ctx.narrow and kernels.tail_fits(ctx.degree)
 
 
@@ -521,15 +568,15 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
         raise UnsupportedOperation(
             f"the fused extend does not take {k} limbs of degree {ctx.degree}")
     fused = _fused_tail(ctx)
+    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
     square = tensor32 if ctx.narrow else tensor
 
     def new_limbs(x, x_pb):
         """The extend's new limbs k .. k_mul of x in the NTT domain, from
         the power basis x_pb unless the extend is fused."""
-        if ext_fuse:
-            rows = intt_scale(ctx, mb.ext, x, k, k_mul - k)
-        else:
-            rows = mb.ext.scale(x_pb, starting_index=k, size=k_mul - k)
+        if not ext_fuse:
+            return scale_into(ctx_mul, mb.ext, x_pb, k, k_mul - k, ntt=True)
+        rows = intt_scale(ctx, mb.ext, x, k, k_mul - k)
         return ntt_forward(ctx_mul, rows, limb_slice=slice(k, k_mul))
 
     def step(a0, a1, b0, b1):
@@ -550,12 +597,10 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
             ext = torch.cat([lhs, ntt_forward(ctx_mul, rhs)])
         # tensor product + inverse NTT, the down-scale, then the tail
         if fused:
-            dsc = mb.down.scale(tensor_intt(ctx_mul, ext), starting_index=0,
-                                size=k)
-            return relin_tail(ctx, dsc, ksk)
-        t_pb = ntt_backward(ctx_mul, square(ctx_mul, *ext))
-        dsc = mb.down.scale(t_pb, starting_index=0, size=k)
-        return relin_tail_unfused(ctx, dsc, ksk)
+            t_pb = tensor_intt(ctx_mul, ext)
+        else:
+            t_pb = ntt_backward(ctx_mul, square(ctx_mul, *ext))
+        return tail(ctx, mb.down.scale(t_pb, starting_index=0, size=k), ksk)
 
     return step
 
@@ -577,13 +622,12 @@ def make_square_relin(par: BfvParameters, rk, level: int = 0):
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
     square = tensor32 if ctx.narrow else tensor
-    tail = relin_tail if _fused_tail(ctx) else relin_tail_unfused
+    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
 
     def step(a0, a1):
         x = torch.stack([a0, a1])
-        new_rows = mb.ext.scale(ntt_backward(ctx, x), starting_index=k,
-                                size=k_mul - k)
-        new_rows = ntt_forward(ctx_mul, new_rows, limb_slice=slice(k, k_mul))
+        new_rows = scale_into(ctx_mul, mb.ext, ntt_backward(ctx, x), k,
+                              k_mul - k, ntt=True)
         ext = torch.cat([x, new_rows], dim=-2)
         t = square(ctx_mul, ext[0], ext[1], ext[0], ext[1])
         dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
@@ -621,6 +665,53 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
     return step
 
 
+def make_pk_encrypt(par: BfvParameters, level: int = 0):
+    """(u, e1, e2, m, pk0, pk1) -> (u pk0 + e1 + m, u pk1 + e2): the
+    public-key encryption core (public_key.rs:24-37, tpufhe
+    pipeline.py:677-697), the three power-basis samples forward-NTT'd in
+    one launch (K1, or K9 when narrow); m and the key in the NTT domain."""
+    ctx = par.context_at_level(level)
+
+    def step(u_pb, e1_pb, e2_pb, m, pk0, pk1):
+        u, e1, e2 = ntt_forward(ctx, torch.stack([u_pb, e1_pb, e2_pb]))
+        c0 = ctx.add(ctx.add(ctx.mul(u, pk0), e1), m)
+        return c0, ctx.add(ctx.mul(u, pk1), e2)
+
+    return step
+
+
+def make_add(par: BfvParameters, level: int = 0):
+    """(a0, a1, b0, b1) -> (a0 + b0, a1 + b1) of NTT-domain parts (tpufhe
+    pipeline.py:1165-1173)."""
+    ctx = par.context_at_level(level)
+
+    def step(a0, a1, b0, b1):
+        return ctx.add(a0, b0), ctx.add(a1, b1)
+
+    return step
+
+
+def make_ct_pt_dot(par: BfvParameters, n: int, m: int, level: int = 0):
+    """(e0, e1, db) -> (r0, r1), r_p[j] = sum_{i < n} db[i, j] e_p[i]: m
+    ciphertext x plaintext dot products over n terms (tpufhe
+    pipeline.py:1091-1162), one ct_pt_dot launch. e0, e1: (>= n, B, k, N)
+    NTT-domain parts; db: (n, m, k, N) plaintext NTT residues; returns two
+    (m, B, k, N) tensors. Raises NotImplementedError on narrow parameters,
+    as tpufhe does."""
+    ctx = par.context_at_level(level)
+    if ctx.narrow:
+        raise NotImplementedError("narrow (w30) ct-pt dot path")
+
+    def step(e0, e1, db):
+        if tuple(db.shape[:2]) != (n, m):
+            raise ValueError(f"make_ct_pt_dot: db shape {tuple(db.shape)}, "
+                             f"expected ({n}, {m}, ...)")
+        r = ct_pt_dot(ctx, [e0, e1], db)
+        return r[0], r[1]
+
+    return step
+
+
 def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     """(c0, c1) -> the Galois-rotated ciphertext (galois_key.rs:62-87):
     substitute both parts, inverse NTT of the substituted c1 (K1), then
@@ -633,7 +724,7 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     if ksk.ciphertext_level != ksk.ksk_level or ksk.ctx_ciphertext is not ctx:
         raise UnsupportedOperation(
             "only Galois keys at the ciphertext's level are ported")
-    tail = rotate_tail if _fused_tail(ctx) else rotate_tail_unfused
+    tail = rotate_tail if _fused_tail(ctx, ksk) else rotate_tail_unfused
 
     def rot(c0, c1):
         s0 = substitute(c0, exp, ntt=True)
