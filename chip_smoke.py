@@ -37,8 +37,11 @@ Phases, in order; any failure exits nonzero before the last line:
    (int32), its general instance; ks_accumulate on the int32 rows of the
    narrow mul+relin (two addends) and rotation (one); ct_pt_dot at the dot
    bench's (128 terms, 4 x 62-bit at N = 8192), PIR's first dimension (64
-   terms, 8 columns, 6 x 62-bit at N = 16384) and across its 14-term
-   window (15 and 29 terms, 3 x 62-bit); and at the shapes of phases 16,
+   terms, 8 columns, 6 x 62-bit at N = 16384), across its 14-term window
+   (15 and 29 terms, 3 x 62-bit), at dot_product_scalar of 16 with two
+   and three parts, rq.dot_product of 16 with a batch folded into the rows
+   and 29 terms over phase 18's moduli, each with its launch plan
+   (instance, ring stages, CTAs per SM); and at the shapes of phases 16,
    17 and 18 every kernel those phases launch: SIMD encoding's and
    decoding's ntt modulo t, public-key encryption's ntt, ct_mul's (ntt, rns_scale, tensor), the relinearization's (ntt and
    rotate_tail; for phase 17's single-modulus key ntt of the two digit
@@ -130,7 +133,6 @@ import ctypes
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -211,6 +213,10 @@ DOT_RATE_STEPS = 32
 # 14 terms at 3 x 62-bit
 DOT_PIR = (64, 8)
 DOT_WINDOW_TERMS = (15, 29)
+# and rq.dot_product with a batch of 2 folded into the rows, and 29 terms
+# over phase 18's moduli
+DOT_FOLD = 2
+DOT_D128_TERMS = 29
 # phase 16: the object API at BASELINE config 3 on phase 4's keys
 API_SEED = SEED + 7
 API_PRODUCT_LAUNCHES = {"ntt": 6, "rns_scale": 3, "tensor": 1}
@@ -1537,17 +1543,6 @@ def wider_path(pars, card: str) -> dict:
     return out
 
 
-def source_define(source: str, name: str) -> int:
-    """The value of `#define name N` in tpufhe_torch/csrc/`source`."""
-    from tpufhe_torch import kernels
-
-    with open(os.path.join(kernels.CSRC, source)) as f:
-        found = re.findall(rf"^#define {name} (\d+)$", f.read(), re.MULTILINE)
-    if len(found) != 1:
-        raise SystemExit(f"{source}: no single #define {name}")
-    return int(found[0])
-
-
 def dot_case(label, ctx, parts, db):
     """A run_cases item for ct_pt_dot: every part and db read once, the
     output written once; per output word n 128-bit products and one
@@ -1567,39 +1562,63 @@ def dot_case(label, ctx, parts, db):
 
 
 def check_dot_kernels(pars, gen, int32_rate: float) -> dict:
-    """Phase 3, ct_pt_dot against its plain version: at the dot bench's
-    shape (128 terms, m = B = 1, 4 x 62-bit at N = 8192; phase 15), at
-    PIR's first dimension (64 terms, 8 columns, 6 x 62-bit at N = 16384)
-    and at 15 and 29 terms over 3 x 62-bit at N = 8192, across one and two
-    reductions of the 14-term window. Returns {label: record}."""
-    shapes = [("dot bench", pars["dot"], DOT_PAIRS, 1),
-              ("PIR first dimension", pars["n16k"], *DOT_PIR)]
-    shapes += [(f"{t} terms", pars["main"], t, 1) for t in DOT_WINDOW_TERMS]
+    """Phase 3, ct_pt_dot against its plain version at every shape its
+    callers launch: the dot bench (128 terms, m = B = 1, 4 x 62-bit at
+    N = 8192; phase 15's make_ct_pt_dot), PIR's first dimension (64 terms,
+    8 columns, 6 x 62-bit at N = 16384), 15 and 29 terms over 3 x 62-bit
+    at N = 8192 (one and two reductions of the 14-term window), phase 15's
+    dot_product_scalar of 16, rq.dot_product of 16 with a batch of
+    DOT_FOLD folded into the rows (one part, R = DOT_FOLD k), a three-part
+    ciphertext through dot_product_scalar (the general instance) and 29
+    terms over phase 18's 5 x 44-bit moduli. Each record carries the
+    call's launch plan from the kernel's own plan and occupancy entry
+    points. Returns {label: record}."""
+    rot, n16k, main, d128 = (pars[key].context_at_level(0)
+                             for key in ("dot", "n16k", "main", "d128"))
+    # (label, context, parts, terms, columns, batch rows, rows per limb set)
+    shapes = [("dot bench", rot, 2, DOT_PAIRS, 1, 1, 1),
+              ("PIR first dimension", n16k, 2, *DOT_PIR, 1, 1)]
+    shapes += [(f"{t} terms", main, 2, t, 1, 1, 1) for t in DOT_WINDOW_TERMS]
+    shapes += [(f"dot_product_scalar of {DOT_SCALAR}", rot, 2, DOT_SCALAR,
+                1, 1, 1),
+               (f"rq.dot_product of {DOT_SCALAR}, rows folded", rot, 1,
+                DOT_SCALAR, 1, 1, DOT_FOLD),
+               (f"three-part dot_product_scalar of {DOT_SCALAR}", rot, 3,
+                DOT_SCALAR, 1, 1, 1),
+               (f"{DOT_D128_TERMS} terms, 5 x 44-bit", d128, 2,
+                DOT_D128_TERMS, 1, 1, 1)]
     from tpufhe_torch import kernels
 
-    fn = kernels.function("ct_pt_dot", "tpufhe_ct_pt_dot_occupancy",
-                          [ctypes.c_void_p])
-    blocks_per_sm = ctypes.c_int()
-    kernels.check(fn(ctypes.byref(blocks_per_sm)), "occupancy")
-    # the launch plan as the kernel's source fixes it: a thread per output
-    # word and part, DOT_COLS columns' sums a pass
-    threads, cols = (source_define("ct_pt_dot.cu", d)
-                     for d in ("DOT_THREADS", "DOT_COLS"))
+    plan_fn = kernels.function(
+        "ct_pt_dot", "tpufhe_ct_pt_dot_plan",
+        [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    occ_fn = kernels.function(
+        "ct_pt_dot", "tpufhe_ct_pt_dot_occupancy",
+        [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
     out = {}
-    for label, par, n, m in shapes:
-        ctx = par.context_at_level(0)
-        parts = [rand_residues((n, 1, ctx.k, ctx.degree), ctx.tables.p, gen)
-                 for _ in range(2)]
-        db = rand_residues((n, m, ctx.k, ctx.degree), ctx.tables.p, gen)
+    for label, ctx, nparts, n, m, b, fold in shapes:
+        r = ctx.k * fold
+        p = ctx.tables.p.repeat(fold)
+        parts = [rand_residues((n, b, r, ctx.degree), p, gen)
+                 for _ in range(nparts)]
+        db = rand_residues((n, m, r, ctx.degree), p, gen)
         out[label] = run_cases("ct_pt_dot", [dot_case(label, ctx, parts, db)],
                                int32_rate, "per call")
-        blocks = -(-2 * ctx.k * ctx.degree // threads)
-        out[label]["plan"] = {"threads": threads, "blocks": blocks,
-                              "columns_a_pass": min(m, cols),
-                              "blocks_per_sm": blocks_per_sm.value}
-        log(f"  plan ct_pt_dot {label}: {blocks} blocks x {threads} threads, "
-            f"{min(m, cols)} columns a pass, "
-            f"{blocks_per_sm.value} blocks per SM")
+        plane = b * r * ctx.degree
+        plan = (ctypes.c_longlong * 7)()
+        kernels.check(plan_fn(nparts, m, plane, plan), "plan")
+        blocks_per_sm = ctypes.c_int()
+        kernels.check(occ_fn(nparts, m, plane, ctypes.byref(blocks_per_sm)),
+                      "occupancy")
+        keys = ("parts", "columns", "stages", "threads", "blocks",
+                "shared_bytes", "general")
+        rec = dict(zip(keys, plan)) | {"blocks_per_sm": blocks_per_sm.value}
+        out[label]["plan"] = rec
+        log(f"  plan ct_pt_dot {label}: instance <{rec['parts']}, "
+            f"{rec['columns']}>{' (general)' if rec['general'] else ''}, "
+            f"a ring of {rec['stages']} terms, {rec['blocks']} blocks x "
+            f"{rec['threads']} threads, {rec['shared_bytes']} shared bytes, "
+            f"{rec['blocks_per_sm']} blocks per SM")
     return out
 
 
@@ -2157,7 +2176,8 @@ def main() -> int:
     records["ks_accumulate"] = n16k_records["ks_accumulate"]
     wider_records = check_wider_kernels(par_wider, gen, int32_rate)
     dot_records = check_dot_kernels({"dot": par_rot, "n16k": par_16k,
-                                     "main": par}, gen, int32_rate)
+                                     "main": par, "d128": par_d128}, gen,
+                                    int32_rate)
     records["ct_pt_dot"] = dot_records.pop("dot bench")
     api_records = check_api_kernels(par, gen, int32_rate)
     k1_records = check_single_modulus_kernels(par_k1, gen, int32_rate)

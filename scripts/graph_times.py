@@ -12,12 +12,12 @@ above the replay's, the call is bound by the host, not by the kernel.
 The cases are ks_accumulate at the N = 16384, 6 x 62-bit batch-16
 relinearization (two addends) and at the narrow 7 x 30-bit batch-32
 rotation (one addend), and ct_pt_dot at the dot bench's shape (128 terms,
-4 x 62-bit, N = 8192) and at 15 terms over 3 x 62-bit. With OTHER_CHECKOUT
-(a checkout of another commit), the cases run in turns, this tree, the
-other, the other, this tree, each in a process of its own importing its
-own tpufhe_torch; a case the other tree has no wrapper for is skipped
-there. Prints the card's name and power limit, one line per case and run,
-then one JSON line with every time.
+4 x 62-bit, N = 8192) and at 15 and 29 terms over 3 x 62-bit. With
+OTHER_CHECKOUT (a checkout of another commit), the cases run in turns,
+this tree, the other, the other, this tree, each in a process of its own
+importing its own tpufhe_torch; a case the other tree has no wrapper for
+is skipped there. Prints the card's name and power limit, one line per
+case and run, then one JSON line with every time.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ def cases(gen):
     except ImportError:
         return out
     for label, sizes, terms in (("ct_pt_dot dot bench", [62] * 4, 128),
-                                ("ct_pt_dot 15 terms", [62] * 3, 15)):
+                                ("ct_pt_dot 15 terms", [62] * 3, 15),
+                                ("ct_pt_dot 29 terms", [62] * 3, 29)):
         ctx = params(8192, sizes).context_at_level(0)
         parts = [residues((terms, 1, ctx.k, 8192), ctx) for _ in range(2)]
         db = residues((terms, 1, ctx.k, 8192), ctx)

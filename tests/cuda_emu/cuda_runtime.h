@@ -1,7 +1,7 @@
 // A CPU stand-in for the parts of the CUDA runtime that the port's pass
-// kernels use (csrc/ntt.cu, ntt32.cu, tensor_intt.cu, intt_scale.cu,
-// relin_tail.cu, rotate_tail.cu),
-// so that their sources compile with g++ and run on the host:
+// kernels (csrc/ntt.cu, ntt32.cu, tensor_intt.cu, intt_scale.cu,
+// relin_tail.cu, rotate_tail.cu) and ct_pt_dot.cu use, so that their
+// sources compile with g++ and run on the host:
 //
 //   g++ -std=c++17 -shared -fPIC -I tests/cuda_emu -include cuda_runtime.h \
 //       -x c++ tpufhe_torch/csrc/ntt.cu -x none tests/cuda_emu/emu.cpp

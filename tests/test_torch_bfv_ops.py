@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import tpufhe.bfv as J
+from tpufhe.errors import ParametersError as JParametersError
 from tpufhe.ops.rns import ScalingFactor as JScalingFactor
 from tpufhe.ops.rq import NTT, POWER_BASIS, Poly
 from tpufhe.ops.rq import Context as JContext
@@ -39,6 +40,7 @@ from tpufhe_torch import convert
 from tpufhe_torch.errors import (
     InvalidCiphertext,
     NoMoreContext,
+    ParametersError,
     TooFewValues,
     UnsupportedOperation,
 )
@@ -484,8 +486,12 @@ def test_default_parameters_128_match_tpufhe(nbits):
     assert [p.degree() for p in tsets][:2] == ([1024, 2048] if nbits == 20
                                               else [2048, 4096])
     assert tsets[0].context_at_level(0).narrow == (nbits == 20)
-    with pytest.raises(UnsupportedOperation):
+    # no set holds a 63-bit plaintext modulus: both raise ParametersError
+    with pytest.raises(JParametersError) as j_err:
+        J.BfvParameters.default_parameters_128(63)
+    with pytest.raises(ParametersError) as t_err:
         T.BfvParameters.default_parameters_128(63, device="cpu")
+    assert str(t_err.value) == str(j_err.value)
 
 
 def test_level_of_context(pair):

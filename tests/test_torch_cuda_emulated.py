@@ -10,8 +10,10 @@ split) in both directions, K3's cluster of three, both tails, K9's narrow
 passes (the general instance, a row of one pass at n = 8, the fixed
 n = 8192) in both directions, K8's cluster (the fixed k_in = 3 instances
 and the general one, with more limbs than CTAs), and ct_pt_dot's 128-bit
-sums across its reduction windows. The card remains the judge
-of speed and of races; this holds the kernels' arithmetic, indexing,
+sums across its reduction windows at each of its instances, through its
+ring of cp.async stages (tests/cuda_emu/cuda_pipeline.h carries a
+thread's copies out only when it waits for them). The card remains the
+judge of speed and of races; this holds the kernels' arithmetic, indexing,
 barriers and cluster exchanges on every CPU run."""
 
 from __future__ import annotations
@@ -234,3 +236,66 @@ def test_ct_pt_dot_kernel_matches_plain(on_host, monkeypatch, n, m, k, bits,
     assert got.shape == (2, m, b, k * fold, 256)
     assert torch.equal(got, dot.ct_pt_dot_plain(ctx, parts, db))
     assert on_host["ct_pt_dot"] == 1
+
+
+# (parts, terms n, columns m, limbs, bits, batch rows, rows folded per limb
+# set, degree, window, words the parts start past a 16-byte boundary):
+# every instance of the kernel (<1, 1>, <2, 1>, <2, 8> and the general one
+# of up to 8 parts and 2 columns a group) at m below, at and above its
+# column group, over a part-filled CTA and several
+# CTAs, term counts that are no multiple of the ring or the window; 29 terms
+# whose first words are p - 1 overflow 128 bits without the window's
+# reductions
+DOT_PLAN_CASES = [(1, 29, 1, 2, 62, 1, 2, 64, None, 0),
+                  (1, 15, 1, 3, 62, 2, 1, 256, None, 0),
+                  (2, 29, 1, 3, 62, 2, 1, 256, None, 0),
+                  (2, 29, 1, 3, 62, 2, 1, 256, None, 1),
+                  (2, 17, 1, 2, 62, 1, 1, 64, None, 0),
+                  (2, 29, 1, 2, 62, 1, 1, 256, 3, 0),
+                  (2, 15, 3, 2, 62, 2, 1, 256, None, 0),
+                  (2, 29, 8, 2, 62, 2, 1, 256, None, 0),
+                  (2, 29, 8, 3, 62, 1, 1, 64, None, 0),
+                  (2, 21, 10, 2, 62, 1, 1, 64, None, 0),
+                  (3, 29, 1, 2, 62, 2, 1, 256, None, 0),
+                  (3, 17, 2, 3, 62, 1, 1, 128, None, 0),
+                  (3, 15, 5, 1, 44, 1, 1, 64, None, 0),
+                  (8, 29, 1, 2, 62, 1, 1, 64, None, 0),
+                  (8, 15, 3, 2, 44, 2, 1, 256, 3, 0)]
+
+
+def _dot_instance(parts: int, m: int) -> tuple:
+    """(parts, columns) of the kernel instance a call of `parts` parts and
+    m columns takes."""
+    if parts <= 2 and m == 1:
+        return parts, 1
+    return (2, 8) if parts == 2 else (dot.MAX_PARTS, 2)
+
+
+@pytest.mark.parametrize("parts,n,m,k,bits,b,fold,deg,win,shift",
+                         DOT_PLAN_CASES)
+def test_ct_pt_dot_instances_match_plain(on_host, emulated, monkeypatch,
+                                         parts, n, m, k, bits, b, fold, deg,
+                                         win, shift):
+    ctx = _context(deg, k, bits)
+    if win is not None:
+        monkeypatch.setattr(dot, "dot_window", lambda c: win)
+    plan_fn = emulated["ct_pt_dot"].tpufhe_ct_pt_dot_plan
+    plan_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_void_p]
+    plan = (ctypes.c_longlong * 7)()
+    assert plan_fn(parts, m, b * k * fold * deg, plan) == 0
+    assert tuple(plan[:2]) == _dot_instance(parts, m)
+    moduli = list(ctx.moduli) * fold
+    es = [_residues((n + i % 2, b, k * fold, deg), moduli, 20 + i)
+          for i in range(parts)]
+    if shift:
+        # the same words at an address 8 bytes past a 16-byte boundary
+        es = [torch.cat([e.new_zeros(shift), e.flatten()])[shift:]
+              .view(e.shape) for e in es]
+        assert all(e.data_ptr() % 16 for e in es)
+    db = _residues((n, m, k * fold, deg), moduli, 19)
+    got = dot.ct_pt_dot_cuda(ctx, es, db)
+    assert got.shape == (parts, m, b, k * fold, deg)
+    assert torch.equal(got, dot.ct_pt_dot_plain(ctx, es, db))
+    assert on_host["ct_pt_dot"] == 1
+

@@ -24,7 +24,6 @@ from tpufhe_torch.errors import (
     InvalidContext,
     InvalidLevel,
     ParametersError,
-    UnsupportedOperation,
 )
 from tpufhe_torch.ops.rns import ScalingFactor
 from tpufhe_torch.ops.rq import Context, Scaler
@@ -169,10 +168,6 @@ class BfvParameters:
         if not 0 < plaintext_nbits < 64:
             raise ParametersError("plaintext_nbits must be in 1..=63")
         device = resolve_device(device)
-        if plaintext_nbits > 62:
-            raise UnsupportedOperation(
-                "plaintext moduli of 62 bits and more are not supported by "
-                "tpufhe_torch yet")
         out = []
         for n, moduli in sorted(DEFAULT_128_MODULI.items()):
             t = generate_prime(plaintext_nbits, 2 * n,

@@ -27,8 +27,13 @@ BUILD = os.path.join(_DIR, "_build")
 KERNELS = {
     "ntt": ("ntt.cu", "tpufhe/ops/pallas/mxu_ntt_kernel.py:319 _mxu4_kernel"
                       " and tpufhe/ops/pallas/ntt_kernel.py:109 _ntt_kernel"),
+    # tpufhe's rns_scale_pallas takes _scale_kernel_bc where every output
+    # modulus is above k_in 2^57 (rns_kernel.py:589-597), else _scale_kernel
+    # (e.g. default_parameters_128's 43-44-bit moduli); both compute the
+    # same function
     "rns_scale": ("rns_scale.cu",
-                  "tpufhe/ops/pallas/rns_kernel.py:361 _scale_kernel_bc"),
+                  "tpufhe/ops/pallas/rns_kernel.py:361 _scale_kernel_bc and"
+                  " :243 _scale_kernel"),
     "tensor_intt": ("tensor_intt.cu",
                     "tpufhe/ops/pallas/mxu_ntt_kernel.py:738 _tensor_intt_kernel"),
     "relin_tail": ("relin_tail.cu",

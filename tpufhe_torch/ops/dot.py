@@ -27,15 +27,24 @@ from tpufhe_torch.ops import zq
 # the kernel's limit on parts (csrc/ct_pt_dot.cu DOT_MAX_PARTS)
 MAX_PARTS = 8
 
-_DOT_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5
-             + [ctypes.c_void_p] * 4)
+_DOT_ARGS = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+# what does not change between calls: the launcher per loader (argument
+# types set once), and per context its window and table pointers
+_LAUNCHERS: dict = {}
+_WINDOWS: dict = {}
+_TABLES: dict = {}
 
 
 def dot_window(ctx) -> int:
     """Products the kernel sums in 128 bits before a reduction: tpufhe's
     min_l 2^(2 lz(q_l)) - 2 (14 for 62-bit moduli), at least 1."""
-    return max(1, min(1 << (2 * q.leading_zeros) for q in ctx.q) - 2)
+    win = _WINDOWS.get(ctx)
+    if win is None:
+        win = _WINDOWS[ctx] = max(
+            1, min(1 << (2 * q.leading_zeros) for q in ctx.q) - 2)
+    return win
 
 
 def _check(name: str, ctx, parts: list, db: torch.Tensor) -> tuple:
@@ -44,23 +53,26 @@ def _check(name: str, ctx, parts: list, db: torch.Tensor) -> tuple:
     if ctx.narrow:
         raise UnsupportedOperation(
             f"{name}: narrow (w30) contexts have no ct x pt dot kernel")
-    k, n_deg = ctx.k, ctx.degree
-    if db.dim() != 4 or db.shape[-1] != n_deg or db.shape[2] % k:
-        raise ValueError(f"{name}: db shape {tuple(db.shape)}, expected "
-                         f"(n, m, R, {n_deg}) with R a multiple of {k}")
-    n, m, r = db.shape[:3]
+    n_deg = ctx.degree
+    shape = db.shape
+    if len(shape) != 4 or shape[3] != n_deg or shape[2] % ctx.k:
+        raise ValueError(f"{name}: db shape {tuple(shape)}, expected "
+                         f"(n, m, R, {n_deg}) with R a multiple of {ctx.k}")
+    n, m, r, _ = shape
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"{name}: {len(parts)} parts, expected 1 to "
                          f"{MAX_PARTS}")
-    shape = tuple(parts[0].shape)
+    first = parts[0].shape
+    b = first[1] if len(first) == 4 else None
     for e in parts:
-        if (e.dim() != 4 or tuple(e.shape[1:]) != shape[1:] or e.shape[0] < n
-                or e.shape[2:] != (r, n_deg)):
-            raise ValueError(f"{name}: part shape {tuple(e.shape)}, expected "
+        s = e.shape
+        if (len(s) != 4 or s[0] < n or s[1] != b or s[2] != r
+                or s[3] != n_deg):
+            raise ValueError(f"{name}: part shape {tuple(s)}, expected "
                              f"(>= {n}, B, {r}, {n_deg}) alike")
     if n < 1 or m < 1:
         raise ValueError(f"{name}: no terms or no columns")
-    return n, m, shape[1], r
+    return n, m, b, r
 
 
 def ct_pt_dot_plain(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
@@ -81,9 +93,30 @@ def ct_pt_dot_plain(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _launcher():
+    """The kernel's C entry point, its argument types set once for each
+    loader (kernels.function, or one put in its place)."""
+    fn = _LAUNCHERS.get(kernels.function)
+    if fn is None:
+        fn = _LAUNCHERS[kernels.function] = kernels.function(
+            "ct_pt_dot", "tpufhe_ct_pt_dot", _DOT_ARGS)
+    return fn
+
+
+def _tables(ctx) -> tuple:
+    """(moduli, Barrett lo, Barrett hi) pointers of a context's tables."""
+    c = _TABLES.get(ctx)
+    if c is None:
+        tb = ctx.tables
+        c = _TABLES[ctx] = (tb.p.data_ptr(), tb.barrett_lo.data_ptr(),
+                            tb.barrett_hi.data_ptr())
+    return c
+
+
 def ct_pt_dot_cuda(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
-    """Launch ct_pt_dot on int64 CUDA tensors: one thread per output word of
-    a part, all columns. Returns (P, m, B, R, N)."""
+    """Launch ct_pt_dot on int64 CUDA tensors: a thread serves every part
+    and up to 8 columns of its output word, the terms streamed through a
+    ring in shared memory. Returns (P, m, B, R, N)."""
     kernels.require_cuda("ct_pt_dot", torch.int64, db, *parts)
     n, m, b, r = _check("ct_pt_dot", ctx, parts, db)
     n_deg = ctx.degree
@@ -92,15 +125,13 @@ def ct_pt_dot_cuda(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     plane = b * r * n_deg
     if plane == 0:
         return out
-    tb = ctx.tables
-    ptrs = (ctypes.c_void_p * len(parts))(*(e.data_ptr() for e in parts))
-    fn = kernels.function("ct_pt_dot", "tpufhe_ct_pt_dot", _DOT_ARGS)
+    p, b_lo, b_hi = _tables(ctx)
+    fn = _launcher()
+    ptrs = (ctypes.c_void_p * len(parts))(*[e.data_ptr() for e in parts])
     kernels.count("ct_pt_dot")
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), len(parts), kernels.ptr(db),
-             kernels.ptr(out), plane, r * n_deg, n, m, ctx.k, n_deg,
-             min(dot_window(ctx), n), kernels.ptr(tb.p),
-             kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi),
-             kernels.stream())
+    err = fn(ptrs, len(parts), db.data_ptr(), out.data_ptr(), plane,
+             r * n_deg, n, m, ctx.k, n_deg, min(dot_window(ctx), n), p,
+             b_lo, b_hi, kernels.stream())
     kernels.check(err, "ct_pt_dot")
     return out
 
