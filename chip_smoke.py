@@ -48,7 +48,19 @@ Phases, in order; any failure exits nonzero before the last line:
    rows and ks_accumulate), the decryption's (ntt, rns_scale),
    Multiplicator.strategy2(rk, 1)'s over the 4-limb basis (phase 16),
    make_mul_relin's at N = 2048 (phase 17, tensor_intt among them) and on
-   phase 18's moduli of 43 and 44 bits (relin_tail among them);
+   phase 18's moduli of 43 and 44 bits (relin_tail among them); and, on
+   the inputs each kernel wrapper records in one run of the PIR programs
+   (KernelRecorder, after their set-up: keys, database, queries), every
+   distinct call of phase 19's database build and response (ntt,
+   rns_scale, ks_accumulate, ct_pt_dot) and of phase 20's key generation
+   (rns_scale at the Switcher's scale-up, ntt), database build, leveled
+   expansion (ntt over the ciphertext's and the key's moduli,
+   ks_accumulate with 2 digit rows over 3 limbs) and response (ct_pt_dot
+   at 58 terms x 57 columns, ntt, rns_scale, relin_tail), with ct_pt_dot's
+   launch plans; and the second dimension both ways on each program's own
+   input, (a) tensor over all j and modular adds, (b) three ct_pt_dot
+   (the programs' route), equal and timed, tensor held to its plain
+   version there;
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -118,12 +130,35 @@ Phases, in order; any failure exits nonzero before the last line:
 18. default_parameters_128(20)'s N = 8192 set (seed 2035; 5 moduli of 43
     and 44 bits): public-key encryptions (ntt 2 each), make_mul_relin
     (phase 4's counts) and Multiplicator.default at batch 16, equal, every
-    slot checked, chained steps timed.
+    slot checked, chained steps timed;
+19. PIR at BASELINE config 5 (bench.py:509-552; seed 2036): N = 16384,
+    6 x 62-bit, t = 65537, dims 8 x 8 (64 SIMD plaintexts of seeded random
+    slots, built on the card by encode_pir_database: ntt 2), keys at
+    level 0, an expansion of 4 levels; make_pir_response on a batch of 4
+    queries, each selecting its own cell, held to its exact counts (ntt
+    12, ks_accumulate 5, rns_scale 2, ct_pt_dot 4), every slot of every
+    answer checked against its cell, the noise printed, chained responses
+    timed (PIR responses/s);
+20. MulPIR at its own configuration (tpufhe/models/pir.py:69-77; seed
+    2037): N = 8192, moduli of 50, 55 and 55 bits, t = 1,785,857, 65,536
+    elements of 1 KiB: dims (58, 57), 3,306 plaintexts in Encoding.poly(1)
+    (3,277 of seeded random coefficients below 2^20, the rest zero; ntt
+    1); the query at level 1, the expansion keys for level 1 held at level
+    0, the relinearization key at level 1 (keygen and upload on the host
+    clock); for two queries make_expand(level=1) (7 leveled doublings:
+    ntt 28, ks_accumulate 7) and make_pir_response_db(level=1) (ct_pt_dot
+    4, ntt 3, rns_scale 2, relin_tail 1), each held to its exact counts,
+    the answer switched to the last level and all 8192 coefficients
+    checked; the expansion and the response timed apart with CUDA events,
+    each doubling's rotation beside its switch-down; then a ciphertext
+    switched to each level, Multiplicator.default with mod switching and
+    public-key encryptions below the key's level, each decrypted.
 
 The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
-its split_ms), the last one {"ok": true,
+its split_ms; other_shapes holds each program's records, those of
+phases 19 and 20 as launched in one run), the last one {"ok": true,
 "device": {...}}. Exits nonzero without a CUDA card.
 """
 
@@ -234,6 +269,44 @@ K1_SEED = SEED + 8
 D128_BITS = 20
 D128_BATCH = 16
 D128_SEED = SEED + 9
+# phase 19: BASELINE config 5, the PIR server response (bench.py:509-552):
+# phase 12's ring, dims 8 x 8 (64 SIMD plaintexts), keys at level 0, an
+# expansion of 4 levels, a batch of 4 queries (bench.py's max(2, 64 // 16))
+PIR_SEED = SEED + 10
+PIR_DIMS = (8, 8)
+PIR_BATCH = 4
+PIR_RATE_STEPS = 8
+# expansion (ntt 2 + ks_accumulate 1 a level), the first dimension and the
+# three second-dimension dot products (ct_pt_dot 4), the extend (ntt 2,
+# rns_scale 1), the down-scale (ntt 1, rns_scale 1), the unfused
+# relinearization (ntt 1, ks_accumulate 1)
+PIR_LAUNCHES = {"ntt": 12, "ks_accumulate": 5, "rns_scale": 2, "ct_pt_dot": 4}
+# SIMD rows: the inverse NTT over t, then the forward over q
+PIR_DB_LAUNCHES = {"ntt": 2}
+# phase 20: MulPIR at its own configuration (tpufhe/models/pir.py:69-77,
+# examples/mulpir.rs): N = 8192, moduli of 50, 55 and 55 bits, t =
+# 2^20 + 2^19 + 2^17 + 2^16 + 2^14 + 1, 65,536 elements of 1 KiB; the query
+# at level 1, expansion keys at level 0, the relinearization key at level 1
+MULPIR_DEGREE = 8192
+MULPIR_MODULI_SIZES = [50, 55, 55]
+MULPIR_PLAINTEXT = (1 << 20) + (1 << 19) + (1 << 17) + (1 << 16) + (1 << 14) + 1
+MULPIR_ELEMENTS = 65536
+MULPIR_ELEMENT_BYTES = 1024
+# elements a plaintext, rows, dims and expansion levels, as tpufhe's
+# encode_database and its own run give them (benches/logs/pir_paper_r5.log)
+MULPIR_SHAPE = (20, 3277, 58, 57, 7)
+MULPIR_SEED = SEED + 11
+MULPIR_QUERIES = 2
+MULPIR_REPS = 5
+# each of the 7 leveled doublings: K1 inverse, K1 forward of the digits over
+# the key's 3 moduli, ks_accumulate, K1 inverse there, the switch-down (no
+# kernel), K1 forward over the ciphertext's 2
+MULPIR_EXPAND_LAUNCHES = {"ntt": 28, "ks_accumulate": 7}
+# ct_pt_dot 4, the extend (ntt 2, rns_scale 1), the down-scale (ntt 1,
+# rns_scale 1), the relinearization on K4 (N = 8192)
+MULPIR_RESPONSE_LAUNCHES = {"ct_pt_dot": 4, "ntt": 3, "rns_scale": 2,
+                            "relin_tail": 1}
+MULPIR_DB_LAUNCHES = {"ntt": 1}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -1587,14 +1660,6 @@ def check_dot_kernels(pars, gen, int32_rate: float) -> dict:
                 DOT_SCALAR, 1, 1, 1),
                (f"{DOT_D128_TERMS} terms, 5 x 44-bit", d128, 2,
                 DOT_D128_TERMS, 1, 1, 1)]
-    from tpufhe_torch import kernels
-
-    plan_fn = kernels.function(
-        "ct_pt_dot", "tpufhe_ct_pt_dot_plan",
-        [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
-    occ_fn = kernels.function(
-        "ct_pt_dot", "tpufhe_ct_pt_dot_occupancy",
-        [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
     out = {}
     for label, ctx, nparts, n, m, b, fold in shapes:
         r = ctx.k * fold
@@ -1604,22 +1669,36 @@ def check_dot_kernels(pars, gen, int32_rate: float) -> dict:
         db = rand_residues((n, m, r, ctx.degree), p, gen)
         out[label] = run_cases("ct_pt_dot", [dot_case(label, ctx, parts, db)],
                                int32_rate, "per call")
-        plane = b * r * ctx.degree
-        plan = (ctypes.c_longlong * 7)()
-        kernels.check(plan_fn(nparts, m, plane, plan), "plan")
-        blocks_per_sm = ctypes.c_int()
-        kernels.check(occ_fn(nparts, m, plane, ctypes.byref(blocks_per_sm)),
-                      "occupancy")
-        keys = ("parts", "columns", "stages", "threads", "blocks",
-                "shared_bytes", "general")
-        rec = dict(zip(keys, plan)) | {"blocks_per_sm": blocks_per_sm.value}
-        out[label]["plan"] = rec
-        log(f"  plan ct_pt_dot {label}: instance <{rec['parts']}, "
-            f"{rec['columns']}>{' (general)' if rec['general'] else ''}, "
-            f"a ring of {rec['stages']} terms, {rec['blocks']} blocks x "
-            f"{rec['threads']} threads, {rec['shared_bytes']} shared bytes, "
-            f"{rec['blocks_per_sm']} blocks per SM")
+        out[label]["plan"] = dot_plan(nparts, m, b * r * ctx.degree)
     return out
+
+
+def dot_plan(nparts: int, m: int, plane: int) -> dict:
+    """The launch plan of a ct_pt_dot call of `nparts` parts, m columns and
+    `plane` words a part and column, from the kernel's plan and occupancy
+    entry points: its instance, ring stages, grid, shared bytes and CTAs
+    per SM (printed)."""
+    from tpufhe_torch import kernels
+
+    argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    plan_fn = kernels.function("ct_pt_dot", "tpufhe_ct_pt_dot_plan", argtypes)
+    occ_fn = kernels.function("ct_pt_dot", "tpufhe_ct_pt_dot_occupancy",
+                              argtypes)
+    plan = (ctypes.c_longlong * 7)()
+    kernels.check(plan_fn(nparts, m, plane, plan), "plan")
+    blocks_per_sm = ctypes.c_int()
+    kernels.check(occ_fn(nparts, m, plane, ctypes.byref(blocks_per_sm)),
+                  "occupancy")
+    keys = ("parts", "columns", "stages", "threads", "blocks", "shared_bytes",
+            "general")
+    rec = dict(zip(keys, plan)) | {"blocks_per_sm": blocks_per_sm.value}
+    log(f"  plan ct_pt_dot {nparts} parts, {m} columns, {plane} words: "
+        f"instance <{rec['parts']}, {rec['columns']}>"
+        f"{' (general)' if rec['general'] else ''}, a ring of "
+        f"{rec['stages']} terms, {rec['blocks']} blocks x {rec['threads']} "
+        f"threads, {rec['shared_bytes']} shared bytes, "
+        f"{rec['blocks_per_sm']} blocks per SM")
+    return rec
 
 
 def object_api_cases(par, b: int, gen) -> dict:
@@ -2100,6 +2179,522 @@ def default128_path(par, card: str) -> None:
         f"ms/step, {b / ms * 1e3:.1f} mul+relin/s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 19 and 20: the PIR server programs
+# ---------------------------------------------------------------------------
+
+
+class KernelRecorder:
+    """While active, each kernel wrapper a program calls on the card records
+    its inputs, once per distinct call (kernel, shapes, context or tables,
+    options), with the number of calls of that signature: phase 3 holds
+    each against its plain version at the program's own shapes
+    (check_recorded). The second dimension's input is kept too, to time
+    its two routes."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.calls: dict = {}
+        self.second = None
+
+    def add(self, name, sig, item, plan=None) -> None:
+        """Count a call of `name` with signature `sig`; keep the run_case
+        item thunk (and ct_pt_dot's plan arguments) of its first."""
+        entry = self.calls.get((name,) + sig)
+        if entry is None:
+            self.calls[(name,) + sig] = [name, 1, item, plan]
+        else:
+            entry[1] += 1
+
+    def __enter__(self):
+        from tpufhe_torch import pipeline
+        from tpufhe_torch.ops import dot
+        from tpufhe_torch.ops import ntt as ntt_mod
+        from tpufhe_torch.ops.rns import RnsScaler
+
+        targets = [(ntt_mod, "ntt_cuda"), (RnsScaler, "scale_cuda"),
+                   (pipeline, "ks_accumulate_cuda"), (dot, "ct_pt_dot_cuda"),
+                   (pipeline, "relin_tail_cuda"),
+                   (pipeline, "_second_dimension")]
+        self._saved = [(owner, name, getattr(owner, name))
+                       for owner, name in targets]
+        orig = {name: fn for _, name, fn in self._saved}
+        label, rec = self.label, self
+
+        def ntt(x, tables, sl, inverse):
+            rec.add("ntt", (tuple(x.shape), id(tables), sl.start, sl.stop,
+                            inverse),
+                    lambda: k1_case(label, x, tables, sl, inverse))
+            return orig["ntt_cuda"](x, tables, sl, inverse)
+
+        def scale(scaler, x, start, size):
+            rec.add("rns_scale", (tuple(x.shape), start, size,
+                                  tuple(scaler.from_ctx.moduli_u64),
+                                  tuple(scaler.to_ctx.moduli_u64),
+                                  scaler.factor),
+                    lambda: k2_case(label, scaler, x, start, size))
+            return orig["scale_cuda"](scaler, x, start, size)
+
+        def ks(ctx, d, key, add0=None, add1=None):
+            rec.add("ks_accumulate", (tuple(d.shape), id(ctx), add0 is None,
+                                      add1 is None),
+                    lambda: ks_case(label, ctx, d, key, add0, add1))
+            return orig["ks_accumulate_cuda"](ctx, d, key, add0, add1)
+
+        def dot_kernel(ctx, parts, db):
+            rec.add("ct_pt_dot", (tuple(tuple(p.shape) for p in parts),
+                                  tuple(db.shape), id(ctx)),
+                    lambda: dot_case(label, ctx, parts, db),
+                    (len(parts), db.shape[1],
+                     parts[0].shape[1] * db.shape[2] * ctx.degree))
+            return orig["ct_pt_dot_cuda"](ctx, parts, db)
+
+        def relin(ctx, dsc, key):
+            rec.add("relin_tail", (tuple(dsc.shape), id(ctx)),
+                    lambda: k4_case(label, ctx, dsc, key))
+            return orig["relin_tail_cuda"](ctx, dsc, key)
+
+        def second(ctx_mul, ext):
+            rec.second = (ctx_mul, ext)
+            return orig["_second_dimension"](ctx_mul, ext)
+
+        for (owner, name, _), fn in zip(self._saved, (ntt, scale, ks,
+                                                      dot_kernel, relin,
+                                                      second)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def check_recorded(rec: KernelRecorder, int32_rate: float, per: str) -> dict:
+    """Phase 3 at a program's recorded calls: each distinct call against
+    its plain version (torch.equal, both timed, ct_pt_dot with its launch
+    plan); per kernel one record of the program's run, each call's time
+    and bound counted as often as the program makes it. Returns
+    {kernel: record}."""
+    by_kernel: dict = {}
+    for name, count, item, plan in rec.calls.values():
+        by_kernel.setdefault(name, []).append((count, item(), plan))
+    out = {}
+    for name, entries in by_kernel.items():
+        bound = Bound(int32_rate)
+        runs = []
+        for count, (label, kfn, pfn, nbytes, ops), plan in entries:
+            r = run_case(name, label if count == 1 else f"{label} x {count}",
+                         kfn, pfn, int32_rate, nbytes, ops)
+            bound.add(count * nbytes, count * ops)
+            if plan is not None:
+                r["plan"] = dot_plan(*plan)
+            runs.append((count, r))
+        bound_ms, bound_by = bound.result()
+        out[name] = {
+            "ms": sum(c * r["ms"] for c, r in runs),
+            "item_ms": [r["ms"] for _, r in runs],
+            "plain_ms": sum(c * r["plain_ms"] for c, r in runs),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(r["max_abs_err"] for _, r in runs),
+            "shapes": [r["label"] for _, r in runs],
+            "launches": sum(c for c, _ in runs),
+            "bytes": bound.bytes, "int32_muls": bound.ops}
+        plans = [r["plan"] for _, r in runs if "plan" in r]
+        if plans:
+            out[name]["plan"] = plans
+        log(f"  {name}: kernel {out[name]['ms']:.4f} ms, plain "
+            f"{out[name]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}) over {out[name]['launches']} launches {per}")
+    return out
+
+
+def pir_setup(par) -> SimpleNamespace:
+    """Phase 19's set-up (BASELINE config 5, bench.py:509-552; seed 2036):
+    secret, relinearization and expansion keys at level 0, the database of
+    dim1 x dim2 SIMD plaintexts of seeded random slots, and a batch of
+    PIR_BATCH queries, each selecting its own cell (i, j) with
+    (2^levels)^-1 mod t on its two selectors (tests/test_pipeline.py:
+    193-200)."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n = par.plaintext.value, par.degree()
+    dim1, dim2 = PIR_DIMS
+    levels = (dim1 + dim2 - 1).bit_length()
+    rng = ChaCha8Rng(seed_from_u64(PIR_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    rk = RelinearizationKey.new(sk, rng)
+    ek = EvaluationKeyBuilder(sk).enable_expansion(levels).build(rng)
+    torch.cuda.synchronize()
+    log(f"  phase 19 set-up: keygen (sk, rk, {len(ek.gk)} Galois keys) "
+        f"{time.perf_counter() - t0:.2f} s")
+    vals = np.random.default_rng(PIR_SEED).integers(0, t, (dim1, dim2, n),
+                                                    dtype=np.uint64)
+    cells = [((3 * b + 1) % dim1, (5 * b + 2) % dim2)
+             for b in range(PIR_BATCH)]
+    inv = pow(1 << levels, -1, t)
+    cts = []
+    for i, j in cells:
+        q = np.zeros(n, dtype=np.uint64)
+        q[i] = q[dim1 + j] = inv
+        cts.append(sk.try_encrypt(
+            Plaintext.try_encode(q, Encoding.poly(), par), rng))
+    query = tuple(torch.stack([c[i] for c in cts]) for i in (0, 1))
+    return SimpleNamespace(par=par, sk=sk, rk=rk, ek=ek, vals=vals,
+                           cells=cells, query=query, dims=(dim1, dim2))
+
+
+def pir_kernels(pir: SimpleNamespace, int32_rate: float, card: str) -> tuple:
+    """Phase 3 at phase 19's shapes: the database build and one PIR
+    response recorded (KernelRecorder), each call held to its plain
+    version, and the second dimension's two routes timed on the
+    response's own input. The database and the recorded inputs are
+    dropped after (phase 19 builds the database again). Returns ({program:
+    {kernel: record}}, the routes' record)."""
+    from tpufhe_torch.bfv import Encoding
+    from tpufhe_torch.pipeline import encode_pir_database, make_pir_response
+
+    with KernelRecorder("PIR database") as rec_db:
+        db = encode_pir_database(pir.par, pir.vals, Encoding.simd())
+    with KernelRecorder("PIR response") as rec:
+        make_pir_response(pir.par, pir.ek, pir.rk, db, *pir.dims)(*pir.query)
+    records = {"pir_database": check_recorded(rec_db, int32_rate,
+                                              "per PIR database build"),
+               "pir_response": check_recorded(rec, int32_rate,
+                                              "per PIR response")}
+    return records, second_dimension_routes("PIR", rec.second, int32_rate,
+                                            card)
+
+
+def mulpir_setup(par) -> SimpleNamespace:
+    """Phase 20's set-up (tpufhe/models/pir.py:69-77; seed 2037): the
+    database shape of 65,536 elements of 1 KiB (tpufhe/models/util.py:
+    25-48: 20 elements a plaintext, 3,277 rows, dims (58, 57), the rest
+    zero), its rows seeded random coefficients below 2^20 in
+    Encoding.poly(1); the secret key, the expansion keys for level-1
+    ciphertexts held at level 0 and the relinearization key at level 1
+    (their generation recorded: K2 scales the keys' secrets up into level
+    0 through the Switcher), and MULPIR_QUERIES queries at level 1."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n = par.plaintext.value, par.degree()
+    nbits = t.bit_length() - 1
+    per_pt = nbits * n // (MULPIR_ELEMENT_BYTES * 8)
+    rows = -(-MULPIR_ELEMENTS // per_pt)
+    dim1 = math.isqrt(rows - 1) + 1
+    dim2 = -(-rows // dim1)
+    levels = max((dim1 + dim2 - 1).bit_length(), 1)
+    if (per_pt, rows, dim1, dim2, levels) != MULPIR_SHAPE:
+        raise SystemExit(f"MulPIR shape {(per_pt, rows, dim1, dim2, levels)}, "
+                         f"expected {MULPIR_SHAPE}")
+    rng = ChaCha8Rng(seed_from_u64(MULPIR_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    with KernelRecorder("MulPIR key generation") as rec_keygen:
+        ek = EvaluationKeyBuilder(sk, 1, 0).enable_expansion(levels).build(rng)
+        rk = RelinearizationKey.new(sk, rng, 1, 1)
+        torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    log(f"  phase 20 set-up: keygen (sk, {len(ek.gk)} Galois keys for level "
+        f"1 held at level 0, rk at level 1) {keygen_s:.2f} s")
+    gen = np.random.default_rng(MULPIR_SEED)
+    vals = gen.integers(0, 1 << nbits, (dim1 * dim2, n), dtype=np.uint64)
+    vals[rows:] = 0
+    vals = vals.reshape(dim1, dim2, n)
+    indices = [int(i) for i in gen.integers(0, MULPIR_ELEMENTS,
+                                            MULPIR_QUERIES)]
+    inv = pow(1 << levels, -1, t)
+    queries = []
+    for index in indices:
+        row = index // per_pt
+        q = np.zeros(n, dtype=np.uint64)
+        q[row // dim2] = q[dim1 + row % dim2] = inv
+        ct = sk.try_encrypt(Plaintext.try_encode(q, Encoding.poly(1), par),
+                            rng)
+        queries.append((ct[0][None], ct[1][None]))
+    return SimpleNamespace(par=par, sk=sk, ek=ek, rk=rk, vals=vals,
+                           indices=indices, queries=queries, per_pt=per_pt,
+                           dims=(dim1, dim2), levels=levels,
+                           keygen_s=keygen_s, rec_keygen=rec_keygen, rng=rng)
+
+
+def mulpir_database(m: SimpleNamespace) -> torch.Tensor:
+    """MulPIR's database on the card: the rows uploaded as int64 and
+    encoded at level 1 (encode_pir_database: one K1 forward)."""
+    from tpufhe_torch.bfv import Encoding
+    from tpufhe_torch.pipeline import encode_pir_database
+
+    values = torch.from_numpy(m.vals.astype(np.int64)).to(m.par.device)
+    return encode_pir_database(m.par, values, Encoding.poly(1))
+
+
+def mulpir_kernels(m: SimpleNamespace, int32_rate: float, card: str) -> tuple:
+    """Phase 3 at phase 20's shapes: the key generation (K2 at the
+    Switcher's scale-up, K1), the database build, the leveled expansion and the
+    response recorded, each call held to its plain version, and the
+    second dimension's two routes timed on the response's own input. Sets
+    m.expand and m.respond; the database and the recorded inputs are
+    dropped after (phase 20 uploads the database again). Returns
+    ({program: {kernel: record}}, the routes' record)."""
+    from tpufhe_torch.pipeline import make_expand, make_pir_response_db
+
+    with KernelRecorder("MulPIR database") as rec_db:
+        db = mulpir_database(m)
+    m.expand = make_expand(m.par, m.ek, m.levels, level=1)
+    m.respond = make_pir_response_db(m.par, m.rk, *m.dims, level=1)
+    with KernelRecorder("MulPIR expansion") as rec_exp:
+        e0, e1 = m.expand(*m.queries[0])
+    with KernelRecorder("MulPIR response") as rec:
+        m.respond(e0, e1, db)
+    records = {
+        "mulpir_keygen": check_recorded(m.rec_keygen, int32_rate,
+                                        "per MulPIR key generation"),
+        "mulpir_database": check_recorded(rec_db, int32_rate,
+                                          "per MulPIR database build"),
+        "mulpir_expansion": check_recorded(rec_exp, int32_rate,
+                                           "per MulPIR expansion"),
+        "mulpir_response": check_recorded(rec, int32_rate,
+                                          "per MulPIR response")}
+    del m.rec_keygen
+    return records, second_dimension_routes("MulPIR", rec.second, int32_rate,
+                                            card)
+
+
+def second_dimension_routes(name: str, second, int32_rate: float,
+                            card: str) -> dict:
+    """The second dimension sum_j sel_j (x) resp_j on the program's own
+    input, both ways: (a) K7 over all j and a tree of modular adds, (b)
+    three ct_pt_dot (pipeline._second_dimension, the route the programs
+    take); both torch.equal, timed with CUDA events, and K7 held to its
+    plain version at this shape. Returns {"a_ms", "b_ms", "tensor"}."""
+    from tpufhe_torch import pipeline
+
+    ctx_mul, ext = second
+    s1, s0, r0, r1 = ext
+
+    def route_a():
+        t = pipeline.tensor_cuda(ctx_mul, s0, s1, r0, r1)
+        while t.shape[1] > 1:
+            h = t.shape[1] // 2
+            head = ctx_mul.add(t[:, :h], t[:, h:2 * h])
+            t = torch.cat([head, t[:, 2 * h:]], dim=1) if t.shape[1] % 2 else head
+        return t[:, 0]
+
+    def route_b():
+        return pipeline._second_dimension(ctx_mul, ext)
+
+    if not torch.equal(route_a(), route_b()):
+        raise SystemExit(f"{name}: the two second-dimension routes disagree")
+    a_ms, b_ms = time_ms(route_a, 10), time_ms(route_b, 10)
+    tensor = run_cases("tensor", [k7_case(f"{name} second dimension", ctx_mul,
+                                          s0, s1, r0, r1)],
+                       int32_rate, f"per {name} response, route (a)")
+    log(f"  {name} second dimension {tuple(ext.shape)}: (a) K7 + adds "
+        f"{a_ms:.4f} ms, (b) 3 x ct_pt_dot {b_ms:.4f} ms "
+        f"(pipeline._second_dimension) on {card}")
+    return {"a_ms": a_ms, "b_ms": b_ms, "tensor": tensor}
+
+
+def torch_ops(fn) -> int:
+    """The torch operations fn() dispatches (each a launch on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def kernel_ms(records: dict) -> float:
+    """The kernels' device ms of one program run: phase 3's records of its
+    recorded calls, each counted as often as the program makes it."""
+    return sum(rec["ms"] for rec in records.values())
+
+
+def pir_path(pir: SimpleNamespace, records: dict, card: str) -> tuple:
+    """Phase 19: the database build (ntt 2) and make_pir_response on the
+    batch of queries, each run with the counters set to 0 just before it
+    and held to its exact counts; every slot of every answer decrypted
+    against its cell, the noise printed; then chained responses (each
+    answer fed back as the next query, as bench_pir_response chains them)
+    timed. Returns (launches, ms per response step)."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding
+    from tpufhe_torch.pipeline import encode_pir_database, make_pir_response
+
+    par, sk = pir.par, pir.sk
+    db, _ = run_program("PIR database build", encode_pir_database,
+                        (par, pir.vals, Encoding.simd()), PIR_DB_LAUNCHES)
+    log(f"  database {tuple(db.shape)} ({db.numel() * 8 / 2**20:.1f} MiB)")
+    step = make_pir_response(par, pir.ek, pir.rk, db, *pir.dims)
+    (c0, c1), launches = run_program(
+        f"PIR response, dims {pir.dims}, batch {PIR_BATCH}", step, pir.query,
+        PIR_LAUNCHES)
+    ctx = par.context_at_level(0)
+    if tuple(c0.shape) != (PIR_BATCH, ctx.k, par.degree()):
+        raise SystemExit(f"PIR: output shape {tuple(c0.shape)}")
+    want = np.stack([pir.vals[cell] for cell in pir.cells])
+    check_outputs("PIR answers", par, sk, c0, c1, want, Encoding.simd())
+    noise = sk.measure_noise(Ciphertext(par, [c0[0], c1[0]], 0))
+    ms = chained_ms(step, pir.query, PIR_RATE_STEPS)
+    kms = kernel_ms(records)
+    log(f"  {PIR_RATE_STEPS} chained PIR responses at batch {PIR_BATCH}: "
+        f"{ms:.3f} ms/step, {PIR_BATCH / ms * 1e3:.1f} PIR responses/s, "
+        f"kernels {kms:.3f} ms, glue {ms - kms:.3f} ms, noise {noise} bits "
+        f"on {card}")
+    return launches, ms
+
+
+def mulpir_levels(m: SimpleNamespace) -> None:
+    """Phase 20, the rest of the leveled path at MulPIR's parameters, each
+    result decrypted: a SIMD ciphertext switched to each level,
+    Multiplicator.default with mod switching (its product one level down),
+    and public-key encryptions below the key's level."""
+    from tpufhe_torch.bfv import (
+        Encoding,
+        Multiplicator,
+        Plaintext,
+        PublicKey,
+        RelinearizationKey,
+    )
+
+    par, sk, rng = m.par, m.sk, m.rng
+    t, n = par.plaintext.value, par.degree()
+    vals = np.random.default_rng(MULPIR_SEED + 1)
+    va = vals.integers(0, t, n, dtype=np.uint64)
+    vb = vals.integers(0, t, n, dtype=np.uint64)
+    ca, cb = (sk.try_encrypt(Plaintext.try_encode(v, Encoding.simd(), par),
+                             rng) for v in (va, vb))
+
+    def check(name, ct, want):
+        got = sk.try_decrypt(ct).try_decode(Encoding.simd())
+        bad = int((got != want).sum())
+        log(f"  {name}: level {ct.level}, wrong slots {bad}, noise "
+            f"{sk.measure_noise(ct)} bits")
+        if bad:
+            raise SystemExit(f"{name}: {bad} slots decrypted wrong")
+
+    down = ca.clone()
+    for level in range(1, par.max_level() + 1):
+        down.switch_to_level(level)
+        check(f"switch_to_level({level})", down, va)
+    mult = Multiplicator.default(RelinearizationKey.new(sk, rng))
+    mult.enable_mod_switching()
+    prod = mult.multiply(ca, cb)
+    if prod.level != 1:
+        raise SystemExit(f"Multiplicator with mod switching: level {prod.level}")
+    check("Multiplicator.default with mod switching", prod,
+          (va.astype(object) * vb % t).astype(np.uint64))
+    pk = PublicKey.new(sk, rng)
+    for level in range(1, par.max_level() + 1):
+        ct = pk.try_encrypt(Plaintext.try_encode(va, Encoding.simd(level),
+                                                 par), rng)
+        check(f"public-key encryption at level {level}", ct, va)
+
+
+def mulpir_path(m: SimpleNamespace, records: dict, card: str) -> dict:
+    """Phase 20: for each query, make_expand at level 1 (7 leveled
+    doublings) and make_pir_response_db, each run with the counters set to
+    0 just before it and held to its exact counts; the answer switched to
+    the last level and decrypted, all N coefficients held to the selected
+    plaintext's. Then the expansion and the response timed apart with CUDA
+    events, the switch-down's share of each doubling, the leveled path's
+    other operations (mulpir_levels). Returns {"expand_ms", "response_ms",
+    "switch_share"}."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding
+    from tpufhe_torch.ops.rq import switch_down_to
+    from tpufhe_torch.pipeline import _rotate_step
+
+    par, sk = m.par, m.sk
+    dim1, dim2 = m.dims
+    ctx1, ctx0 = par.context_at_level(1), par.context_at_level(0)
+    t0 = time.perf_counter()
+    db, _ = run_program("MulPIR database upload and build", mulpir_database,
+                        (m,), MULPIR_DB_LAUNCHES)
+    log(f"  keygen {m.keygen_s:.2f} s, database {tuple(db.shape)} "
+        f"({db.numel() * 8 / 2**20:.1f} MiB) uploaded and built "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    for qi, (index, query) in enumerate(zip(m.indices, m.queries)):
+        (e0, e1), _ = run_program(
+            f"MulPIR expansion of query {qi} ({m.levels} leveled doublings)",
+            m.expand, query, MULPIR_EXPAND_LAUNCHES)
+        if tuple(e0.shape) != (1 << m.levels, 1, ctx1.k, par.degree()):
+            raise SystemExit(f"MulPIR expansion: shape {tuple(e0.shape)}")
+        (o0, o1), _ = run_program(f"MulPIR response to query {qi}",
+                                  m.respond, (e0, e1, db),
+                                  MULPIR_RESPONSE_LAUNCHES)
+        ans = Ciphertext(par, [o0[0], o1[0]], 1)
+        noise = sk.measure_noise(ans)
+        ans.switch_to_level(ans.max_switchable_level())
+        got = sk.try_decrypt(ans).try_decode(Encoding.poly(ans.level))
+        row = index // m.per_pt
+        bad = int((got != m.vals[row // dim2, row % dim2]).sum())
+        log(f"  element {index} (row {row}, cell ({row // dim2}, "
+            f"{row % dim2})): {par.degree()} coefficients, wrong {bad}, noise "
+            f"{noise} bits at level 1, {sk.measure_noise(ans)} at level "
+            f"{ans.level}")
+        if bad:
+            raise SystemExit(f"MulPIR: {bad} coefficients of element {index} "
+                             f"wrong")
+    query = m.queries[0]
+    expand_ms = time_ms(lambda: m.expand(*query), MULPIR_REPS)
+    e0, e1 = m.expand(*query)
+    response_ms = time_ms(lambda: m.respond(e0, e1, db), MULPIR_REPS)
+    exp_k = kernel_ms(records["mulpir_expansion"])
+    resp_k = kernel_ms(records["mulpir_response"])
+    log(f"  MulPIR expansion {expand_ms:.3f} ms (kernels {exp_k:.3f} ms, glue "
+        f"{expand_ms - exp_k:.3f} ms), response {response_ms:.3f} ms "
+        f"(kernels {resp_k:.3f} ms, glue {response_ms - resp_k:.3f} ms), per "
+        f"query, on {card}")
+    gen = torch.Generator(device=ctx1.device).manual_seed(MULPIR_SEED)
+    switch_total = 0.0
+    n = par.degree()
+    for level in range(m.levels):
+        gk = m.ek.gk[(n >> level) + 1]
+        rot = _rotate_step(ctx1, gk.element, gk.ksk)
+        rows = 1 << level
+        x = [rand_residues((rows, 1, ctx1.k, n), ctx1.tables.p, gen)
+             for _ in range(2)]
+        y = rand_residues((2, rows, 1, ctx0.k, n), ctx0.tables.p, gen)
+        rot_ms = time_ms(lambda: rot(*x), MULPIR_REPS)
+        sw_ms = time_ms(lambda: switch_down_to(ctx0, ctx1, y), MULPIR_REPS)
+        switch_total += sw_ms
+        log(f"  doubling {level} ({rows} ciphertexts): rotation "
+            f"{rot_ms:.4f} ms, its switch-down {sw_ms:.4f} ms "
+            f"({100 * sw_ms / rot_ms:.1f} %)")
+    share = switch_total / expand_ms
+    log(f"  switch-downs {switch_total:.4f} ms of the {expand_ms:.3f} ms "
+        f"expansion ({100 * share:.1f} %) on {card}")
+    mono, mono_shoup = m.ek.monomials[0]
+    log(f"  torch operations: a switch-down "
+        f"{torch_ops(lambda: switch_down_to(ctx0, ctx1, y))}, a Shoup "
+        f"product by a monomial "
+        f"{torch_ops(lambda: ctx1.mul_shoup(x[0], mono, mono_shoup))}")
+    mulpir_levels(m)
+    return {"expand_ms": expand_ms, "response_ms": response_ms,
+            "switch_share": share}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2182,6 +2777,14 @@ def main() -> int:
     api_records = check_api_kernels(par, gen, int32_rate)
     k1_records = check_single_modulus_kernels(par_k1, gen, int32_rate)
     d128_records = check_default128_kernels(par_d128, gen, int32_rate)
+    par_mulpir = (BfvParametersBuilder().set_degree(MULPIR_DEGREE)
+                  .set_plaintext_modulus(MULPIR_PLAINTEXT)
+                  .set_moduli_sizes(MULPIR_MODULI_SIZES).build())
+    pir = pir_setup(par_16k)
+    pir_records, pir_routes = pir_kernels(pir, int32_rate, card)
+    mulpir = mulpir_setup(par_mulpir)
+    mulpir_records, mulpir_routes = mulpir_kernels(mulpir, int32_rate, card)
+    torch.cuda.empty_cache()  # the PIR checks' buffers, before phase 4
 
     log("phase 4: main path")
     mp = main_path(par)
@@ -2277,6 +2880,15 @@ def main() -> int:
     log(f"phase 18: default_parameters_128({D128_BITS}), N = {DEGREE}")
     default128_path(par_d128, card)
 
+    log(f"phase 19: PIR at BASELINE config 5, N = {N16K}, 6 x 62-bit, dims "
+        f"{PIR_DIMS}, batch {PIR_BATCH}")
+    pir_path(pir, pir_records["pir_response"], card)
+
+    log(f"phase 20: MulPIR, N = {MULPIR_DEGREE}, moduli of "
+        f"{MULPIR_MODULI_SIZES} bits, {MULPIR_ELEMENTS} elements of "
+        f"{MULPIR_ELEMENT_BYTES} bytes")
+    mulpir_path(mulpir, mulpir_records, card)
+
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
             "tensor": ("square", variants["square"][1]),
@@ -2315,6 +2927,11 @@ def main() -> int:
                       ("default128", d128_records)):
         for name, rec in recs.items():
             other_shapes[name][tag] = rec
+    for tag, recs in (pir_records | mulpir_records).items():
+        for name, rec in recs.items():
+            other_shapes[name][tag] = rec
+    for tag, routes in (("pir", pir_routes), ("mulpir", mulpir_routes)):
+        other_shapes["tensor"][f"{tag}_second_dimension_a"] = routes["tensor"]
     tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters", "plan")
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
@@ -2334,8 +2951,8 @@ def main() -> int:
         if name in other_shapes:
             entry["other_shapes"] = {
                 label: {k: rec[k] for k in
-                        ("ms", "plain_ms", "bound_ms", "bound_by", "split_ms")
-                        + tail_keys if k in rec}
+                        ("ms", "plain_ms", "bound_ms", "bound_by", "split_ms",
+                         "launches") + tail_keys if k in rec}
                 | {"shape": rec.get("shapes", rec.get("label"))}
                 for label, rec in other_shapes[name].items()}
         entry |= {k: r[k] for k in ("split_ms",) + tail_keys if k in r}

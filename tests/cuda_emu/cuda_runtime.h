@@ -1,7 +1,7 @@
 // A CPU stand-in for the parts of the CUDA runtime that the port's pass
 // kernels (csrc/ntt.cu, ntt32.cu, tensor_intt.cu, intt_scale.cu,
-// relin_tail.cu, rotate_tail.cu) and ct_pt_dot.cu use, so that their
-// sources compile with g++ and run on the host:
+// relin_tail.cu, rotate_tail.cu), ct_pt_dot.cu and ks_accumulate.cu use,
+// so that their sources compile with g++ and run on the host:
 //
 //   g++ -std=c++17 -shared -fPIC -I tests/cuda_emu -include cuda_runtime.h \
 //       -x c++ tpufhe_torch/csrc/ntt.cu -x none tests/cuda_emu/emu.cpp
@@ -137,4 +137,16 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
            },
            &launch);
   return cudaSuccess;
+}
+
+// The triple-chevron launch, which g++ cannot parse: a source that uses it
+// is compiled after `kernel<<<grid, block, shmem, stream>>>(args)` is
+// rewritten as `emu_chevron(kernel, grid, block, shmem, stream)(args)`.
+template <class... P>
+auto emu_chevron(void (*kernel)(P...), dim3 grid, dim3 block,
+                 size_t shmem = 0, cudaStream_t stream = nullptr) {
+  return [=](auto&&... args) {
+    cudaLaunchConfig_t cfg{grid, block, shmem, stream, nullptr, 0};
+    cudaLaunchKernelEx(&cfg, kernel, args...);
+  };
 }

@@ -250,8 +250,16 @@ def test_multiplicator_matches_tpufhe_and_make_mul_relin(pair, kp):
 def test_multiplicator_refusals(pair):
     p = pair
     m = T.Multiplicator.default(p.trk)
-    with pytest.raises(UnsupportedOperation, match="switch"):
-        m.enable_mod_switching()
+    jm = J.Multiplicator.default(p.jrk)
+    # mod switching: the product is switched one level down, as tpufhe's
+    jm.enable_mod_switching()
+    m.enable_mod_switching()
+    (ja, ta), (jb, tb) = p.ca, p.cb
+    switched = m.multiply(ta, tb)
+    assert switched.level == 1
+    _same(jm.multiply(ja, jb), switched)
+    np.testing.assert_array_equal(p.decrypt(jm.multiply(ja, jb), switched),
+                                  p.mod(p.va.astype(object) * p.vb))
     one = T.BfvParametersBuilder().set_degree(16).set_plaintext_modulus(
         65537).set_moduli_sizes([62]).set_device("cpu").build()
     m1 = T.Multiplicator(ScalingFactor.one(), ScalingFactor.one(),

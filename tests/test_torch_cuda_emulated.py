@@ -1,6 +1,7 @@
 """The CUDA sources of K1 (ntt.cu), K3 (tensor_intt.cu), K4 (relin_tail.cu),
-K5 (rotate_tail.cu), K8 (intt_scale.cu), K9 (ntt32.cu) and ct_pt_dot
-(ct_pt_dot.cu), compiled with g++
+K5 (rotate_tail.cu), K8 (intt_scale.cu), K9 (ntt32.cu), ct_pt_dot
+(ct_pt_dot.cu) and ks_accumulate (ks_accumulate.cu, its <<<>>> launches
+rewritten as calls of the stand-in's emu_chevron), compiled with g++
 against the CPU stand-in of tests/cuda_emu (each CTA an OS thread, each CUDA
 thread a fiber switched at barriers, distributed shared memory mapped
 between the cluster's threads) and run through the port's own wrappers on
@@ -9,17 +10,19 @@ CPU tensors, word for word against their plain versions: every K1 instance
 split) in both directions, K3's cluster of three, both tails, K9's narrow
 passes (the general instance, a row of one pass at n = 8, the fixed
 n = 8192) in both directions, K8's cluster (the fixed k_in = 3 instances
-and the general one, with more limbs than CTAs), and ct_pt_dot's 128-bit
+and the general one, with more limbs than CTAs), ct_pt_dot's 128-bit
 sums across its reduction windows at each of its instances, through its
 ring of cp.async stages (tests/cuda_emu/cuda_pipeline.h carries a
-thread's copies out only when it waits for them). The card remains the
-judge of speed and of races; this holds the kernels' arithmetic, indexing,
-barriers and cluster exchanges on every CPU run."""
+thread's copies out only when it waits for them), and ks_accumulate's
+Garner, digit and leveled rows (fewer digit rows than key limbs). The
+card remains the judge of speed and of races; this holds the kernels'
+arithmetic, indexing, barriers and cluster exchanges on every CPU run."""
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -41,7 +44,9 @@ from tpufhe_torch.ops.rq import Context, Scaler
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
-           "intt_scale", "ct_pt_dot")
+           "intt_scale", "ct_pt_dot", "ks_accumulate")
+# the sources that launch with <<<>>>, rewritten for g++ before the build
+CHEVRON = ("ks_accumulate",)
 
 
 @pytest.fixture(scope="module")
@@ -54,10 +59,18 @@ def emulated(tmp_path_factory):
 
     def build(name):
         lib = str(out / f"{name}.so")
+        src = os.path.join(kernels.CSRC, f"{name}.cu")
+        if name in CHEVRON:
+            with open(src) as f:
+                text = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>",
+                              r"emu_chevron(\1, \2)", f.read(), flags=re.S)
+            src = str(out / f"{name}.cu")
+            with open(src, "w") as f:
+                f.write(text)
         cmd = [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", EMU,
-               "-include", "cuda_runtime.h", "-x", "c++",
-               os.path.join(kernels.CSRC, f"{name}.cu"), "-x", "none",
-               os.path.join(EMU, "emu.cpp"), "-o", lib, "-lpthread"]
+               "-I", kernels.CSRC, "-include", "cuda_runtime.h", "-x", "c++",
+               src, "-x", "none", os.path.join(EMU, "emu.cpp"), "-o", lib,
+               "-lpthread"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
         return name, ctypes.CDLL(lib)
@@ -97,8 +110,10 @@ def _residues(shape, moduli, seed):
 
 
 def _context(n, k, bits=62):
-    return Context(T.BfvParametersBuilder.generate_moduli([bits] * k, n), n,
-                   "cpu", narrow=bits <= 30)
+    """A context of k moduli of `bits` bits (or of the sizes in `bits`)."""
+    sizes = [bits] * k if isinstance(bits, int) else list(bits)
+    return Context(T.BfvParametersBuilder.generate_moduli(sizes, n), n,
+                   "cpu", narrow=max(sizes) <= 30)
 
 
 # (n, limbs of the context, limb_slice, batch rows): the general instance
@@ -245,7 +260,9 @@ def test_ct_pt_dot_kernel_matches_plain(on_host, monkeypatch, n, m, k, bits,
 # column group, over a part-filled CTA and several
 # CTAs, term counts that are no multiple of the ring or the window; 29 terms
 # whose first words are p - 1 overflow 128 bits without the window's
-# reductions
+# reductions; MulPIR's first dimension (58 terms, 57 columns: 7 groups of
+# 8 and a tail of 1) over its level-1 moduli of 50 and 55 bits, whose
+# window holds every term
 DOT_PLAN_CASES = [(1, 29, 1, 2, 62, 1, 2, 64, None, 0),
                   (1, 15, 1, 3, 62, 2, 1, 256, None, 0),
                   (2, 29, 1, 3, 62, 2, 1, 256, None, 0),
@@ -260,7 +277,8 @@ DOT_PLAN_CASES = [(1, 29, 1, 2, 62, 1, 2, 64, None, 0),
                   (3, 17, 2, 3, 62, 1, 1, 128, None, 0),
                   (3, 15, 5, 1, 44, 1, 1, 64, None, 0),
                   (8, 29, 1, 2, 62, 1, 1, 64, None, 0),
-                  (8, 15, 3, 2, 44, 2, 1, 256, 3, 0)]
+                  (8, 15, 3, 2, 44, 2, 1, 256, 3, 0),
+                  (2, 58, 57, 2, (50, 55), 1, 1, 64, None, 0)]
 
 
 def _dot_instance(parts: int, m: int) -> tuple:
@@ -299,3 +317,34 @@ def test_ct_pt_dot_instances_match_plain(on_host, emulated, monkeypatch,
     assert torch.equal(got, dot.ct_pt_dot_plain(ctx, es, db))
     assert on_host["ct_pt_dot"] == 1
 
+
+
+# (digit rows, key limbs, batch rows, n, bits, addends): the Garner rows
+# (digits = k), a leveled key's (k_ct = 2 digit rows over its 3 limbs, as
+# the MulPIR expansion's last doubling), a single-modulus key's base-2^31
+# digits (2 rows, 1 limb) and narrow int32 words
+KS_CASES = [(3, 3, 2, 64, 62, 2), (2, 3, 4, 64, 62, 0), (2, 3, 1, 256, 50, 1),
+            (2, 1, 3, 64, 62, 2), (2, 3, 2, 64, 30, 1)]
+
+
+@pytest.mark.parametrize("digits,k,rows,n,bits,adds", KS_CASES)
+def test_ks_accumulate_kernel_matches_plain(on_host, digits, k, rows, n, bits,
+                                            adds):
+    ctx = _context(n, k, bits)
+    moduli = ctx.moduli
+
+    def words(shape, seed):
+        return _residues(shape, moduli, seed).to(ctx.dtype)
+
+    key = {name: words((digits, k, n), 30 + i)
+           for i, name in enumerate(("c0", "c1"))}
+    ksk = SimpleNamespace(log_base=0, c0=key["c0"], c1=key["c1"],
+                          c0_shoup=shoup_of(key["c0"], moduli),
+                          c1_shoup=shoup_of(key["c1"], moduli))
+    lifted = words((digits, rows, k, n), 40)
+    addends = [words((rows, k, n), 41 + i) if i < adds else None
+               for i in range(2)]
+    got = tpl.ks_accumulate_cuda(ctx, lifted, ksk, *addends)
+    assert torch.equal(got, tpl.ks_accumulate_plain(ctx, lifted, ksk,
+                                                    *addends))
+    assert on_host["ks_accumulate"] == 1

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import tpufhe.bfv as J
+from tpufhe.errors import InvalidContext as JInvalidContext
 from tpufhe.bfv.keys.evaluation_key import EvaluationKeyBuilder as JEkb
 from tpufhe.bfv.keys.galois_key import GaloisKey as JGaloisKey
 from tpufhe.ops.rq import NTT, POWER_BASIS, Poly
@@ -29,6 +30,7 @@ from tpufhe_torch import convert
 from tpufhe_torch.bfv.keys.evaluation_key import EvaluationKeyBuilder
 from tpufhe_torch.bfv.keys.galois_key import GaloisKey
 from tpufhe_torch.errors import (
+    InvalidContext,
     InvalidGaloisElement,
     InvalidRotationStep,
     UnsupportedOperation,
@@ -329,6 +331,17 @@ def test_programs_match_object_api_at_degree_256(pair256):
 # ---------------------------------------------------------------------------
 
 
+def _same_tables(jksk, tksk):
+    """A tpufhe and a port key-switching key have the same seed and rows."""
+    assert jksk.seed == tksk.seed
+    for name in ("c0", "c0_shoup", "c1", "c1_shoup"):
+        attr = "coeffs_shoup" if name.endswith("shoup") else "coeffs"
+        rows = np.stack([np.asarray(getattr(q, attr))
+                         for q in getattr(jksk, name[:2])])
+        np.testing.assert_array_equal(convert.lanes_to_words(rows),
+                                      getattr(tksk, name).numpy())
+
+
 def _ksk_arrays(ksk):
     return (ksk.seed, [np.asarray(q.coeffs) for q in ksk.c0],
             [np.asarray(q.coeffs_shoup) for q in ksk.c0],
@@ -358,13 +371,26 @@ def test_keys_carried_across_by_convert(pair16):
 
 def test_refusals(pair16):
     p = pair16
-    par = (T.BfvParametersBuilder().set_degree(16).set_plaintext_modulus(T_PLAIN)
-           .set_moduli_sizes(SIZES).set_device("cpu").build())
-    sk = T.SecretKey.random(par, ChaCha8Rng(seed_from_u64(7)))
-    with pytest.raises(UnsupportedOperation):
-        GaloisKey.new(sk, 3, 0, 1, ChaCha8Rng(seed_from_u64(8)))
-    with pytest.raises(UnsupportedOperation):
-        EvaluationKeyBuilder(sk, 1, 0)
+    # keys at other levels than the ciphertexts', built as tpufhe builds
+    # them: a Galois key in the smaller context of level 1 for level-0
+    # ciphertexts (which its rotation refuses, as tpufhe's does), and an
+    # evaluation key for level-1 ciphertexts held at level 0
+    sk = T.SecretKey.random(p.tp, ChaCha8Rng(seed_from_u64(7)))
+    jsk = J.SecretKey.random(p.jp, JRng(j_seed(7)))
+    jgk = JGaloisKey.new(jsk, 3, 0, 1, JRng(j_seed(8)))
+    gk = GaloisKey.new(sk, 3, 0, 1, ChaCha8Rng(seed_from_u64(8)))
+    assert gk.ksk.c0.shape == (4, 3, p.n)
+    _same_tables(jgk.ksk, gk.ksk)
+    with pytest.raises(JInvalidContext):
+        jgk.relinearize(p.jsimd[0])
+    with pytest.raises(InvalidContext):
+        gk.relinearize(p.tsimd[0])
+    jek = JEkb(jsk, 1, 0).enable_expansion(1).build(JRng(j_seed(9)))
+    tek = EvaluationKeyBuilder(sk, 1, 0).enable_expansion(1).build(
+        ChaCha8Rng(seed_from_u64(9)))
+    assert sorted(tek.gk) == sorted(jek.gk)
+    for e, g in jek.gk.items():
+        _same_tables(g.ksk, tek.gk[e].ksk)
     ek = EvaluationKeyBuilder(p.tsk).enable_expansion(1).build(
         ChaCha8Rng(seed_from_u64(9)))
     with pytest.raises(InvalidRotationStep):

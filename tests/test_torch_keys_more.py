@@ -20,6 +20,8 @@ import pytest
 import torch
 
 import tpufhe.bfv as J
+from tpufhe.errors import InvalidContext as JInvalidContext
+from tpufhe.errors import UnsupportedOperation as JUnsupportedOperation
 from tpufhe.ops.rq import Poly
 from tpufhe.utils.rngs import ChaCha8Rng as JRng
 from tpufhe.utils.rngs import seed_from_u64 as j_seed
@@ -28,6 +30,7 @@ import tpufhe_torch.bfv as T
 from tpufhe_torch import convert, kernels
 from tpufhe_torch.errors import (
     InvalidCiphertext,
+    InvalidContext,
     InvalidLevel,
     TooFewValues,
     UnsupportedOperation,
@@ -149,9 +152,13 @@ def test_public_key_matches_tpufhe(keys):
     jpt, tpt = k.encode(k.va)
     state = ChaCha8Rng(seed_from_u64(7)), JRng(j_seed(7))
     _same(jpk.try_encrypt(jpt, state[1]), carried.try_encrypt(tpt, state[0]))
+    # below the key's level: the key is switched down first, as in tpufhe
+    jpt1 = J.Plaintext.try_encode(k.va, J.Encoding.simd(1), k.jp)
     pt1 = T.Plaintext.try_encode(k.va, T.Encoding.simd(1), k.tp)
-    with pytest.raises(UnsupportedOperation, match="switch"):
-        tpk.try_encrypt(pt1, k.tr)
+    state = ChaCha8Rng(seed_from_u64(8)), JRng(j_seed(8))
+    tc1 = tpk.try_encrypt(pt1, state[0])
+    _same(jpk.try_encrypt(jpt1, state[1]), tc1)
+    np.testing.assert_array_equal(k.slots(tc1), k.va)
 
 
 # (label, t, moduli sizes or moduli): a 62-bit modulus (log_base 31, two
@@ -181,6 +188,9 @@ def test_single_modulus_key_matches_tpufhe(label, t, mod):
     T.RelinearizationKey(tk).relinearizes(tc)
     _same(jc, tc)
     np.testing.assert_array_equal(k.slots(tc), k.product())
+    # a relinearization key of one modulus is refused, as by tpufhe
+    with pytest.raises(JUnsupportedOperation):
+        J.RelinearizationKey.new(k.jsk, k.jr)
     with pytest.raises(UnsupportedOperation):
         T.RelinearizationKey.new(k.tsk, k.tr)
     # tpufhe's key carried across relinearizes to the same words
@@ -240,16 +250,31 @@ def test_key_switch_refuses_other_contexts(keys):
 
 
 def test_key_switch_refuses_a_key_below_the_ciphertext_level(keys):
-    """A key at level 1 for level-0 ciphertexts needs the switch-down:
-    key_switch and relinearizes_poly raise UnsupportedOperation, not a
-    shape error."""
+    """A key held at level 1 (a smaller context) for level-0 ciphertexts:
+    tpufhe builds it (one Garner row per ciphertext modulus over the key's
+    two moduli) and key_switch returns the accumulate in the key's
+    context; relinearizes refuses it, switching down from the smaller
+    context (InvalidContext). The port does the same, word for word."""
     k = keys
-    ctx1 = k.tp.context_at_level(1)
+    jctx1, ctx1 = k.jp.context_at_level(1), k.tp.context_at_level(1)
+    js = Poly.from_i64_coeffs(k.jsk.coeffs, jctx1).into_ntt()
     s = k.tsk.s_ntt(ctx1)
+    jksk = J.KeySwitchingKey.new(k.jsk, (js * js).into_power_basis(), 0, 1,
+                                 JRng(j_seed(8)))
     ksk = T.KeySwitchingKey.new(k.tsk, ntt_backward(ctx1, ctx1.mul(s, s)),
                                 0, 1, ChaCha8Rng(seed_from_u64(8)))
+    _same_ksk(jksk, ksk)
+    assert ksk.c0.shape == (3, 2, 16)
+    j2 = Poly.from_i64_coeffs(k.jsk.coeffs, k.jp.context_at_level(0))
     c2 = from_i64_coeffs(k.tsk.coeffs, k.tp.context_at_level(0))
-    with pytest.raises(UnsupportedOperation, match="switch-down"):
-        ksk.key_switch(c2)
-    with pytest.raises(UnsupportedOperation, match="switch-down"):
-        T.RelinearizationKey(ksk).relinearizes_poly(c2)
+    for got in (ksk.key_switch(c2),
+                T.RelinearizationKey(ksk).relinearizes_poly(c2)):
+        for x, y in zip(jksk.key_switch(j2), got):
+            assert y.shape == (2, 16)
+            np.testing.assert_array_equal(_words(x), y.numpy())
+    (ja, ta), (jb, tb) = k.ca, k.cb
+    jc, tc = J.ct_mul(ja, jb), T.ct_mul(ta, tb)
+    with pytest.raises(JInvalidContext):
+        J.RelinearizationKey(jksk).relinearizes(jc)
+    with pytest.raises(InvalidContext):
+        T.RelinearizationKey(ksk).relinearizes(tc)

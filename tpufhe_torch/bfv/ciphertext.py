@@ -6,6 +6,9 @@ the optional 32-byte seed that regenerates the last part of a fresh
 ciphertext (ciphertext.rs:22-29). As in tpufhe, the list may be empty:
 ``Ciphertext.zero`` is the identity of ct_add and ct_sub, the start of a
 running sum; ``Ciphertext.new`` checks for at least two parts.
+``switch_down`` divides every part by the last modulus of its level and
+rounds (K1 inverse, the switch-down of ops/rq.py, K1 forward), moving the
+ciphertext one level down the modulus chain.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from dataclasses import dataclass
 import torch
 
 from tpufhe_torch.bfv.parameters import BfvParameters
-from tpufhe_torch.errors import InvalidCiphertext, TooFewValues
+from tpufhe_torch.errors import InvalidCiphertext, InvalidLevel, TooFewValues
+from tpufhe_torch.ops.rq import ntt_backward, ntt_forward, switch_down
 
 
 @dataclass
@@ -61,6 +65,26 @@ class Ciphertext:
 
     def clone(self) -> "Ciphertext":
         return Ciphertext(self.par, list(self.c), self.level, self.seed)
+
+    def max_switchable_level(self) -> int:
+        return self.par.max_level()
+
+    def switch_down(self):
+        """Every part divided by the last modulus and rounded, one level
+        down; a no-op at the last level (ciphertext.rs:86-97)."""
+        if self.level < self.max_switchable_level():
+            self.seed = None
+            if self.c:
+                ctx = self.par.context_at_level(self.level)
+                x = switch_down(ctx, ntt_backward(ctx, torch.stack(self.c)))
+                self.c = list(ntt_forward(ctx.next_context, x))
+            self.level += 1
+
+    def switch_to_level(self, target: int):
+        if target < self.level or target > self.max_switchable_level():
+            raise InvalidLevel(target, self.level, self.max_switchable_level())
+        while self.level < target:
+            self.switch_down()
 
     # the operators of ops/mod.rs (impl Add/Sub/Neg/Mul for Ciphertext);
     # imported here to avoid the ciphertext <-> ops cycle

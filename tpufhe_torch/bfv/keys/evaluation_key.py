@@ -4,9 +4,11 @@ tpufhe's EvaluationKey and EvaluationKeyBuilder).
 
 The oblivious expansion is Angel et al. (eprint 2019/1483): log-depth
 doubling with Galois exponents (n >> l) + 1 and monomials x^{-2^l}
-(evaluation_key.rs:153-193). Only keys at the ciphertext's level are
-ported (see galois_key.py), and the expansion only for wide contexts:
-narrow (w30) keys serve rotations and the inner sum.
+(evaluation_key.rs:153-193). Keys may sit below the ciphertext's level
+(evaluation_key_level < ciphertext_level, see galois_key.py), as MulPIR
+builds its expansion keys; the expansion is ported for wide contexts only:
+narrow (w30) keys serve rotations and the inner sum at the ciphertext's
+level.
 """
 
 from __future__ import annotations
@@ -153,9 +155,6 @@ class EvaluationKeyBuilder:
         if (ciphertext_level < evaluation_key_level
                 or ciphertext_level > sk.par.max_level()):
             raise InvalidLevel(ciphertext_level)
-        if ciphertext_level != evaluation_key_level:
-            raise UnsupportedOperation(
-                "evaluation keys below the ciphertext level are not ported yet")
         self.sk = sk
         self.ciphertext_level = ciphertext_level
         self.evaluation_key_level = evaluation_key_level

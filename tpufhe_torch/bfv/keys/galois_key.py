@@ -1,19 +1,25 @@
 """Galois keys: key-switch s(x^i) -> s(x) (fhe/src/bfv/keys/galois_key.rs;
 tpufhe's GaloisKey).
 
-Only keys at the ciphertext's level are ported: there tpufhe's
-Switcher(ctx_ct, ctx_gk) is the identity (factor 1, every modulus common),
-so the key switches from the substituted secret directly. Keys below the
-ciphertext level need the Switcher and the switch-down, which are not
-ported yet.
+A key below the ciphertext's level lives in a larger context: the
+substituted secret is switched up into it (rq.Switcher, K2), and a
+rotation key-switches there and switches back down
+(pipeline.key_switch_down). At the ciphertext's level the Switcher is a
+copy.
 """
 
 from __future__ import annotations
 
 from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
+from tpufhe_torch.bfv.keys.relinearization_key import LEVELED_NARROW
 from tpufhe_torch.errors import InvalidCiphertext, UnsupportedOperation
-from tpufhe_torch.ops.rq import SubstitutionExponent, from_i64_coeffs, substitute
+from tpufhe_torch.ops.rq import (
+    SubstitutionExponent,
+    Switcher,
+    from_i64_coeffs,
+    substitute,
+)
 
 
 class GaloisKey:
@@ -24,13 +30,15 @@ class GaloisKey:
     @staticmethod
     def new(sk, exponent: int, ciphertext_level: int, galois_key_level: int,
             rng) -> "GaloisKey":
-        if ciphertext_level != galois_key_level:
-            raise UnsupportedOperation(
-                "Galois keys below the ciphertext level are not ported yet")
-        ctx = sk.par.context_at_level(ciphertext_level)
-        element = SubstitutionExponent(ctx, exponent)
-        s_sub = substitute(from_i64_coeffs(sk.coeffs, ctx), element, ntt=False)
-        ksk = KeySwitchingKey.new(sk, s_sub, ciphertext_level,
+        ctx_gk = sk.par.context_at_level(galois_key_level)
+        ctx_ct = sk.par.context_at_level(ciphertext_level)
+        if ctx_gk is not ctx_ct and ctx_ct.narrow:
+            raise UnsupportedOperation(LEVELED_NARROW)
+        element = SubstitutionExponent(ctx_ct, exponent)
+        s_sub = substitute(from_i64_coeffs(sk.coeffs, ctx_ct), element,
+                           ntt=False)
+        s_sub_up = Switcher(ctx_ct, ctx_gk).switch(s_sub, ntt=False)
+        ksk = KeySwitchingKey.new(sk, s_sub_up, ciphertext_level,
                                   galois_key_level, rng)
         return GaloisKey(element, ksk)
 

@@ -8,6 +8,9 @@ KeySwitchingKey), in the reference's two decomposition modes:
   (key_switching_key.rs:70-88, 172-211); a ciphertext row is cut into its
   base-2^log_base digits.
 
+The key lives in the context of its level (ksk_level), which may hold more
+moduli than the ciphertext's (a leveled key, ksk_level < ciphertext_level):
+it has one Garner row per ciphertext modulus, each over the key's moduli.
 c1_i are seed-chained uniform polynomials. Both are kept in the NTT domain
 as (rows, k, N) tensors of the context's word type beside their Shoup
 constants (floor(v 2^64 / p), or floor(v 2^32 / p) for a narrow context,
@@ -19,11 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufhe_torch.errors import (
-    InvalidContext,
-    TooFewValues,
-    UnsupportedOperation,
-)
+from tpufhe_torch.errors import InvalidContext, TooFewValues
 from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.rns import RnsContext
 from tpufhe_torch.ops.rq import (
@@ -131,16 +130,13 @@ class KeySwitchingKey:
         return ntt_forward(ctx, b)
 
     def key_switch(self, p: torch.Tensor) -> tuple:
-        """(c0, c1) = sum_i d_i (c0_i, c1_i) in the NTT domain, d_i the
-        decomposition rows of power-basis p (..., k, N) forward-NTT'd
-        (key_switching_key.rs:214-289): K1 (K9 when narrow) and
-        ks_accumulate on the card. Keys at the ciphertext's level only."""
+        """(c0, c1) = sum_i d_i (c0_i, c1_i) in the NTT domain of the key's
+        context, d_i the decomposition rows of power-basis p (..., k, N) of
+        the ciphertext's context, reduced modulo every key modulus and
+        forward-NTT'd (key_switching_key.rs:214-289): K1 (K9 when narrow)
+        and ks_accumulate on the card."""
         from tpufhe_torch.pipeline import key_switch
 
-        if self.ksk_level != self.ciphertext_level:
-            raise UnsupportedOperation(
-                "key switching with a key below the ciphertext's level needs "
-                "the switch-down, which is not ported yet")
         ctx = self.ctx_ciphertext
         if tuple(p.shape[-2:]) != (ctx.k, ctx.degree):
             raise InvalidContext(

@@ -1,7 +1,8 @@
 """Public keys (fhe/src/bfv/keys/public_key.rs; tpufhe's PublicKey):
 pk = Enc_sk(0) at level 0; encryption draws u, e1 and e2 from the CBD
 sampler, in that order, then runs one program (pipeline.make_pk_encrypt):
-c0 = u pk0 + e1 + Delta m, c1 = u pk1 + e2."""
+c0 = u pk0 + e1 + Delta m, c1 = u pk1 + e2. A plaintext below the key's
+level is encrypted under the key switched down to its level."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.encoding import Encoding
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.bfv.plaintext import Plaintext
-from tpufhe_torch.errors import ContextMismatch, UnsupportedOperation
+from tpufhe_torch.errors import ContextMismatch
 from tpufhe_torch.ops.rq import from_i64_coeffs
 from tpufhe_torch.utils.sampling import sample_vec_cbd
 
@@ -35,15 +36,14 @@ class PublicKey:
     def try_encrypt(self, pt: Plaintext, rng) -> Ciphertext:
         if pt.par != self.par:
             raise ContextMismatch("Incompatible BFV parameters")
-        if pt.level != self.c.level:
-            # tpufhe switches the key down to the plaintext's level first
-            raise UnsupportedOperation(
-                "encrypting below the public key's level needs the "
-                "switch-down, which is not ported yet")
-        ctx = self.par.context_at_level(self.c.level)
+        ct = self.c
+        if ct.level != pt.level:
+            ct = ct.clone()
+            ct.switch_to_level(pt.level)
+        ctx = self.par.context_at_level(ct.level)
         var = self.par.variance
         u, e1, e2 = (from_i64_coeffs(sample_vec_cbd(ctx.degree, var, rng), ctx)
                      for _ in range(3))
-        c0, c1 = self._encrypt_fn(self.c.level)(u, e1, e2, pt.to_poly(),
-                                                self.c[0], self.c[1])
-        return Ciphertext(self.par, [c0, c1], self.c.level)
+        c0, c1 = self._encrypt_fn(ct.level)(u, e1, e2, pt.to_poly(), ct[0],
+                                            ct[1])
+        return Ciphertext(self.par, [c0, c1], ct.level)

@@ -37,9 +37,6 @@ from tpufhe_torch.ops.rns import ScalingFactor
 from tpufhe_torch.ops.rq import Context, Scaler
 from tpufhe_torch.utils.primes import generate_prime
 
-# the levels (Ciphertext.switch_down) are not ported yet
-SWITCH_DOWN = "switching a ciphertext down a level is not ported yet"
-
 
 def _check_par(a: Ciphertext, b) -> None:
     if a.par != b.par:
@@ -242,12 +239,13 @@ class Multiplicator:
     def enable_mod_switching(self):
         if self.par.context_at_level(self.par.max_level()) is self.base_ctx:
             raise NoMoreContext()
-        raise UnsupportedOperation(SWITCH_DOWN)
+        self.mod_switch = True
 
     def multiply(self, lhs: Ciphertext, rhs: Ciphertext) -> Ciphertext:
-        """lhs * rhs, relinearized when a key is set: extenders (K1
-        inverse, K2, K1 forward each), K7, the down-scale, then
-        RelinearizationKey.relinearizes."""
+        """lhs * rhs, relinearized when a key is set and switched one
+        level down when mod switching is on: extenders (K1 inverse, K2, K1
+        forward each), K7, the down-scale, RelinearizationKey.relinearizes,
+        then Ciphertext.switch_down."""
         if lhs.par != self.par or rhs.par != self.par:
             raise ContextMismatch("Ciphertexts do not have the same parameters")
         if lhs.level != self.level or rhs.level != self.level:
@@ -263,6 +261,8 @@ class Multiplicator:
                         self.level)
         if self.rk is not None:
             self.rk.relinearizes(ct)
+        if self.mod_switch:
+            ct.switch_down()
         return ct
 
 

@@ -71,54 +71,61 @@ def secret_key(coeffs: np.ndarray, par):
 
 
 def key_switching_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
-                      level: int = 0, log_base: int = 0):
-    """A tpufhe_torch KeySwitchingKey from tpufhe's ksk rows, ciphertext and
-    key at `level`: each of c0, c0_shoup, c1, c1_shoup is a list (one per
-    decomposition row) of lane-folded arrays, e.g.
-    [np.asarray(p.coeffs) for p in ksk.c0]; log_base is tpufhe's
-    ksk.log_base (nonzero for a single-modulus key)."""
+                      level: int = 0, log_base: int = 0,
+                      key_level: int | None = None):
+    """A tpufhe_torch KeySwitchingKey from tpufhe's ksk rows, for
+    ciphertexts at `level` and held at `key_level` (default `level`; below
+    it for a leveled key, tpufhe's ksk.ksk_level): each of c0, c0_shoup,
+    c1, c1_shoup is a list (one per decomposition row) of lane-folded
+    arrays, e.g. [np.asarray(p.coeffs) for p in ksk.c0]; log_base is
+    tpufhe's ksk.log_base (nonzero for a single-modulus key)."""
     from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
 
     def rows(arrs):
         return torch.from_numpy(
             np.stack([lanes_to_words(a) for a in arrs])).to(par.device)
 
+    key_level = level if key_level is None else key_level
     return KeySwitchingKey(par, seed, rows(c0), rows(c0_shoup), rows(c1),
-                           rows(c1_shoup), level, level, log_base)
-
+                           rows(c1_shoup), level, key_level, log_base)
 
 
 def relinearization_key(par, seed: bytes, c0, c0_shoup, c1, c1_shoup,
-                        level: int = 0, log_base: int = 0):
+                        level: int = 0, log_base: int = 0,
+                        key_level: int | None = None):
     """A tpufhe_torch RelinearizationKey from tpufhe's ksk rows (as for
     key_switching_key)."""
     from tpufhe_torch.bfv.keys.relinearization_key import RelinearizationKey
 
     return RelinearizationKey(key_switching_key(
-        par, seed, c0, c0_shoup, c1, c1_shoup, level, log_base))
+        par, seed, c0, c0_shoup, c1, c1_shoup, level, log_base, key_level))
 
 
 def galois_key(par, exponent: int, seed: bytes, c0, c0_shoup, c1, c1_shoup,
-               level: int = 0):
+               level: int = 0, key_level: int | None = None):
     """A tpufhe_torch GaloisKey for x -> x^exponent from tpufhe's ksk rows
-    (as for relinearization_key), with ciphertext and key at `level`."""
+    (as for key_switching_key), for ciphertexts at `level`, held at
+    `key_level` (default `level`)."""
     from tpufhe_torch.bfv.keys.galois_key import GaloisKey
     from tpufhe_torch.ops.rq import SubstitutionExponent
 
     element = SubstitutionExponent(par.context_at_level(level), exponent)
-    return GaloisKey(element, key_switching_key(par, seed, c0, c0_shoup, c1,
-                                                c1_shoup, level))
+    return GaloisKey(element, key_switching_key(
+        par, seed, c0, c0_shoup, c1, c1_shoup, level, key_level=key_level))
 
 
-def evaluation_key(par, keys: dict, level: int = 0):
+def evaluation_key(par, keys: dict, level: int = 0,
+                   key_level: int | None = None):
     """A tpufhe_torch EvaluationKey from tpufhe's Galois keys: `keys` maps
     each exponent to the arguments (seed, c0, c0_shoup, c1, c1_shoup) of
-    galois_key. The monomials need no randomness and are rebuilt."""
+    galois_key, for ciphertexts at `level`, held at `key_level` (default
+    `level`). The monomials need no randomness and are rebuilt."""
     from tpufhe_torch.bfv.keys.evaluation_key import EvaluationKey, monomials
 
-    gk = {e: galois_key(par, e, *args, level=level)
+    key_level = level if key_level is None else key_level
+    gk = {e: galois_key(par, e, *args, level=level, key_level=key_level)
           for e, args in keys.items()}
-    return EvaluationKey(par, level, level, gk,
+    return EvaluationKey(par, level, key_level, gk,
                          EvaluationKey.construct_rot_to_gk_exponent(par),
                          monomials(par.context_at_level(level)))
 

@@ -2,9 +2,10 @@
 //   out0 = add0 + sum_i d_i ksk0_i,  out1 = add1 + sum_i d_i ksk1_i  (mod p_j)
 // on NTT-domain rows (fhe.rs key_switching_key.rs:227-239), where d_i is
 // the forward NTT of the i-th decomposition row: the k Garner digit rows
-// (ks_accumulate_kernel), or the base-2^log_base digits of a
-// single-modulus key (k == 1, key_switching_key.rs:172-211;
-// ks_digits_kernel). The programs run it where the fused tails (K4, K5)
+// (ks_accumulate_kernel), or (ks_digits_kernel) the base-2^log_base digits
+// of a single-modulus key (k == 1, key_switching_key.rs:172-211) or the
+// Garner rows of a leveled key, one per ciphertext modulus over the key's
+// k limbs. The programs run it where the fused tails (K4, K5)
 // do not fit in shared memory or cannot take the key, after one K1 forward
 // NTT of the stacked rows.
 //
@@ -74,7 +75,9 @@ __global__ void ks_accumulate_kernel(const W* __restrict__ d,
                 limb_p);
 }
 
-// Any other number of rows: a single-modulus key's digits.
+// Any other number of rows: a single-modulus key's digits, or the Garner
+// rows of a key below the ciphertext's level (one row per ciphertext
+// modulus, fewer than the key's limbs).
 template <typename W>
 __global__ void ks_digits_kernel(const W* __restrict__ d,
                                  const W* __restrict__ add0,

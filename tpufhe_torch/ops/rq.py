@@ -1,7 +1,8 @@
 """Polynomials in R_q[x] = Z_q[x]/(x^N + 1) with RNS coefficients: the
 subset of tpufhe.ops.rq that the BFV operations, the multiply +
-relinearize and the Galois rotation paths need, with the context-to-context
-scaler and the deferred-reduction dot product.
+relinearize and the Galois rotation paths need, with the modulus
+switch-down, the context-to-context scaler and switcher, and the
+deferred-reduction dot product.
 
 Coefficients are tensors shaped (..., k, N), one canonical residue per
 word (int64, or int32 for a narrow w30 context), in power basis or in
@@ -18,6 +19,7 @@ from tpufhe_torch.device import resolve_device
 from tpufhe_torch.errors import (
     InvalidContext,
     InvalidGaloisElement,
+    NoMoreContext,
     TooFewValues,
 )
 from tpufhe_torch.ops import ntt as ntt_mod
@@ -33,8 +35,9 @@ _CONTEXT_CACHE: dict = {}
 class Context:
     """Moduli + NTT operators + RNS context of one ring, on one device.
 
-    Mirrors rq/context.rs:9-156 without the switch-down chain. Cached by
-    (moduli, degree, device, narrow).
+    Mirrors rq/context.rs:9-156. Cached by (moduli, degree, device,
+    narrow); ``next_context`` drops the last modulus (the switch-down
+    chain).
 
     ``narrow=True`` selects tpufhe's single-word w30 representation (every
     modulus below 2^30): rows are int32 (``dtype``), the NTT is kernel K9
@@ -74,10 +77,29 @@ class Context:
                 raise InvalidContext("Impossible to construct a Ntt operator")
             self.ops.append(op)
         self._tables = None
+        self._switch = None
 
     @property
     def k(self) -> int:
         return len(self.moduli)
+
+    @property
+    def next_context(self) -> "Context | None":
+        """The context without the last modulus, None for one modulus."""
+        if self.k < 2:
+            return None
+        return Context(self.moduli[:-1], self.degree, self.device,
+                       self.narrow)
+
+    def niterations_to(self, other: "Context") -> int:
+        """Switch-downs from this context to `other` (rq/context.rs:120-137)."""
+        n, cur = 0, self
+        while cur is not other:
+            cur = cur.next_context
+            if cur is None:
+                raise InvalidContext("Invalid context (not in chain)")
+            n += 1
+        return n
 
     def modulus(self) -> int:
         return self.rns.product
@@ -141,6 +163,57 @@ def ntt_backward(ctx: Context, x: torch.Tensor) -> torch.Tensor:
     """Inverse NTT of canonical (..., k, N) rows (K1 on the card, K9 for a
     narrow context). Counterpart of tpufhe.ops.rq.ntt_backward_any."""
     return ntt_mod.ntt_transform(x, ctx.tables, None, inverse=True)
+
+
+def _switch_tables(ctx: Context) -> tuple:
+    """(q_last^-1, its Shoup constant, floor(q_last / 2)) mod each of the
+    first k - 1 moduli, (k - 1, 1) columns of the context's word type."""
+    if ctx._switch is None:
+        q_last = ctx.moduli[-1]
+        rest = ctx.q[:-1]
+        inv = [q.inv(q.reduce(q_last)) for q in rest]
+        shoup = ([q.shoup32(v) for q, v in zip(rest, inv)] if ctx.narrow
+                 else zq.as_int64(np.array(
+                     [q.shoup(v) for q, v in zip(rest, inv)], np.uint64)))
+        half = [(q_last // 2) % q.p for q in rest]
+
+        def col(vals):
+            return torch.tensor(np.asarray(vals, np.int64), device=ctx.device
+                                ).to(ctx.dtype)[:, None]
+
+        ctx._switch = (col(inv), col(shoup), col(half))
+    return ctx._switch
+
+
+def switch_down(ctx: Context, x: torch.Tensor) -> torch.Tensor:
+    """Power-basis (..., k, N) rows of ctx divided by the last modulus and
+    rounded, (..., k - 1, N) rows of ctx.next_context (tpufhe
+    Poly.switch_down and _switch_down_fn, rq/mod.rs:390-449, eprint
+    2018/931 Alg. 2): out_i = (x_i + floor(q_last / 2) - x') q_last^-1 mod
+    q_i with x' = (x_last + floor(q_last / 2)) mod q_last. Canonical in and
+    out, wide or narrow; plain torch on every device, as tpufhe's is XLA."""
+    nxt = ctx.next_context
+    if nxt is None:
+        raise NoMoreContext()
+    if x.shape[-2:] != (ctx.k, ctx.degree):
+        raise InvalidContext(f"switch_down: rows {tuple(x.shape)}, expected "
+                             f"(..., {ctx.k}, {ctx.degree})")
+    inv, inv_shoup, half = _switch_tables(ctx)
+    q_last = ctx.moduli[-1]
+    last = x[..., -1:, :] + q_last // 2
+    last = torch.where(last >= q_last, last - q_last, last)
+    rest = nxt.add(x[..., :-1, :], half)
+    rest = nxt.sub(rest, torch.remainder(last, nxt.p_col))
+    return nxt.mul_shoup(rest, inv, inv_shoup)
+
+
+def switch_down_to(ctx: Context, target: Context, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """switch_down from ctx until the rows are target's (Poly.switch_down_to)."""
+    for _ in range(ctx.niterations_to(target)):
+        x = switch_down(ctx, x)
+        ctx = ctx.next_context
+    return x
 
 
 def from_i64_coeffs(coeffs, ctx: Context) -> torch.Tensor:
@@ -273,6 +346,20 @@ class Scaler:
             parts.append(scale_into(self.to_ctx, self.rns_scaler, x_pb, ncm,
                                     k_out - ncm, ntt))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+class Switcher:
+    """Context switch by the factor to_modulus / from_modulus
+    (rq/switcher.rs:11-27, tpufhe rq.py:1319-1329): a copy where both
+    contexts are the same, else every row scaled by K2 (exact when scaling
+    up into a context whose modulus is a multiple of from's)."""
+
+    def __init__(self, from_ctx: Context, to_ctx: Context):
+        self.scaler = Scaler(from_ctx, to_ctx,
+                             ScalingFactor(to_ctx.modulus(), from_ctx.modulus()))
+
+    def switch(self, x: torch.Tensor, ntt: bool) -> torch.Tensor:
+        return self.scaler.scale(x, ntt)
 
 
 def dot_product(ctx: Context, ps: list, qs: list) -> torch.Tensor:

@@ -3,8 +3,10 @@ multiply + relinearize (default HPS strategy and strategy 2), the square +
 relinearize, the Galois rotation, inner sum and oblivious expansion, the
 symmetric and public-key encryption cores, the decryption core, the
 ciphertext add and the ct x pt dot products (kernel ct_pt_dot, ops/dot.py),
-and the key switch behind RelinearizationKey.relinearizes. The port of the
-matching parts of tpufhe/pipeline.py.
+the MulPIR server response (expansion, two dot-product dimensions, one
+relinearization), and the key switch behind RelinearizationKey.relinearizes,
+also for keys below the ciphertext's level. The port of the matching parts
+of tpufhe/pipeline.py.
 
 A default mul+relin step runs six kernel launches, in tpufhe's structure
 (pipeline.py:509-569):
@@ -59,13 +61,15 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.bfv.encoding import SIMD, Encoding
 from tpufhe_torch.bfv.keys.evaluation_key import EXPANSION_NARROW
 from tpufhe_torch.bfv.keys.key_switching_key import decomposition_digits
 from tpufhe_torch.bfv.parameters import BfvParameters
-from tpufhe_torch.errors import UnsupportedOperation
+from tpufhe_torch.errors import SimdNotSupported, UnsupportedOperation
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.dot import ct_pt_dot
 from tpufhe_torch.ops.intt_scale import intt_scale, intt_scale_fits
@@ -79,6 +83,7 @@ from tpufhe_torch.ops.rq import (
     ntt_forward,
     scale_into,
     substitute,
+    switch_down_to,
 )
 from tpufhe_torch.utils.primes import generate_prime
 
@@ -447,6 +452,21 @@ def key_switch(ctx: Context, c2_pb: torch.Tensor, ksk, add0=None,
     return ks_accumulate(ctx, lifted, ksk, add0, add1)
 
 
+def key_switch_down(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    """The key switch (ks0, ks1) of power-basis c2 (..., k, N) of ctx by a
+    key in the larger context ksk.ctx_ksk, switched down to ctx and
+    stacked (2, ..., k, N) in ctx's NTT domain (tpufhe
+    _rotate_step_leveled, pipeline.py:784-812, and the switch-down of
+    relinearization_key.rs:71-98 and galois_key.rs:62-87): c2's Garner
+    digits reduced modulo every key modulus, their forward NTT (K1),
+    ks_accumulate there, K1 inverse, the switch-down (plain torch) and
+    K1 forward. The key's extra moduli divide the key-switch noise."""
+    ctx_ksk = ksk.ctx_ksk
+    lifted = ntt_forward(ctx_ksk, _ksk_digits(ctx_ksk, c2_pb))
+    ks_pb = ntt_backward(ctx_ksk, ks_accumulate(ctx_ksk, lifted, ksk))
+    return ntt_forward(ctx, switch_down_to(ctx_ksk, ctx, ks_pb))
+
+
 def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
                         ksk):
     """What K5 computes, unfused: the forward NTT of c2's decomposition
@@ -719,11 +739,21 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     not fit (kernels.tail_fits false) and on a narrow context, the key
     switch is tpufhe's unfused composition (_key_switch_batched,
     pipeline.py:778-779): the Garner digits, their forward NTT (K1, or K9
-    when narrow) and ks_accumulate. Only keys at the ciphertext's level are ported; leveled keys
-    need the switch-down."""
-    if ksk.ciphertext_level != ksk.ksk_level or ksk.ctx_ciphertext is not ctx:
-        raise UnsupportedOperation(
-            "only Galois keys at the ciphertext's level are ported")
+    when narrow) and ks_accumulate. A key below the ciphertext's level
+    (a larger context) takes key_switch_down, unfused, as K5 takes a key
+    of the ciphertext's context only (tpufhe _rotate_step_leveled):
+    ntt 4, ks_accumulate 1."""
+    if ksk.ctx_ciphertext is not ctx:
+        raise ValueError(f"rotation: the key is for {ksk.ctx_ciphertext}, "
+                         f"not {ctx}")
+    if ksk.ksk_level != ksk.ciphertext_level:
+        def rot_leveled(c0, c1):
+            s0 = substitute(c0, exp, ntt=True)
+            c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
+            ks = key_switch_down(ctx, c2_pb, ksk)
+            return ctx.add(s0, ks[0]), ks[1]
+
+        return rot_leveled
     tail = rotate_tail if _fused_tail(ctx, ksk) else rotate_tail_unfused
 
     def rot(c0, c1):
@@ -767,7 +797,10 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     2^level_count ciphertexts: at doubling level l all 2^l live ciphertexts
     rotate in one batched step, and the monomial x^{-2^l} fold is one
     Shoup multiply. (c0, c1) of shape (B, k, N) -> a pair of
-    (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands."""
+    (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands.
+    Each rotation takes its key's route (_rotate_step): leveled keys, as
+    MulPIR builds them, key-switch in their larger context and switch
+    back down (tpufhe build_expand_step, pipeline.py:843-885)."""
     ctx = par.context_at_level(level)
     if ctx.narrow:
         raise UnsupportedOperation(EXPANSION_NARROW)
@@ -775,7 +808,6 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
         raise UnsupportedOperation(
             "This key does not support expansion at this level")
     n = par.degree()
-    mod = ctx.mod
     levels = []
     for l in range(level_count):
         gk = ek.gk[(n >> l) + 1]
@@ -786,10 +818,120 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
         cur0, cur1 = c0[None], c1[None]
         for rot, mono, mono_shoup in levels:
             sub0, sub1 = rot(cur0, cur1)
-            new0 = zq.mul_shoup(zq.sub(cur0, sub0, mod), mono, mono_shoup, mod)
-            new1 = zq.mul_shoup(zq.sub(cur1, sub1, mod), mono, mono_shoup, mod)
-            cur0 = torch.cat([zq.add(cur0, sub0, mod), new0])
-            cur1 = torch.cat([zq.add(cur1, sub1, mod), new1])
+            new0 = ctx.mul_shoup(ctx.sub(cur0, sub0), mono, mono_shoup)
+            new1 = ctx.mul_shoup(ctx.sub(cur1, sub1), mono, mono_shoup)
+            cur0 = torch.cat([ctx.add(cur0, sub0), new0])
+            cur1 = torch.cat([ctx.add(cur1, sub1), new1])
         return cur0, cur1
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# MulPIR server response (examples/mulpir.rs:163-183)
+# ---------------------------------------------------------------------------
+
+
+def encode_pir_database(par: BfvParameters, values, encoding: Encoding
+                        ) -> torch.Tensor:
+    """Plaintext rows (..., N) of values in [0, t) (numpy uint64 or an int64
+    tensor) -> their NTT residues (..., k, N) at the encoding's level, each
+    row equal to Plaintext.try_encode(row, encoding, par).poly_ntt, all rows
+    in one batched lift and forward NTT (K1): the database of the PIR
+    programs. SIMD rows are first permuted into the slots and inverse-
+    transformed over t (K1), as PlaintextVec.try_encode does."""
+    ctx = par.context_at_level(encoding.level)
+    if isinstance(values, np.ndarray):
+        values = torch.from_numpy(zq.as_int64(values.astype(np.uint64)))
+    v = values.to(device=ctx.device, dtype=torch.int64)
+    if v.shape[-1] != ctx.degree:
+        raise ValueError(f"encode_pir_database: rows of {v.shape[-1]} values, "
+                         f"expected {ctx.degree}")
+    if encoding.encoding == SIMD:
+        if par.ntt_operator is None:
+            raise SimdNotSupported("no plaintext NTT for these parameters")
+        slots = torch.empty_like(v)
+        slots[..., torch.from_numpy(par.matrix_reps_index_map).to(v.device)] = v
+        v = ntt_backward(par.ntt_operator, slots[..., None, :])[..., 0, :]
+    rows = torch.remainder(v[..., None, :], ctx.mod.p).to(ctx.dtype)
+    return ntt_forward(ctx, rows)
+
+
+def _second_dimension(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
+    """sum_j sel_j (x) resp_j in the NTT domain of the multiplication basis,
+    (3, B, k_mul, N): ext is (4, dim2, B, k_mul, N) in the order (s1, s0,
+    r0, r1), so every operand is a view with the batch folded into the
+    rows. Row 0 = sum_j s0_j r0_j and row 2 = sum_j s1_j r1_j are dot
+    products of dim2 terms, row 1 = sum_j s1_j r0_j + s0_j r1_j one of
+    2 dim2 terms: three ct_pt_dot launches. The residues are canonical, so
+    the sums equal tpufhe's deferred 128-bit ones (pipeline.py:1060-1075)."""
+    d2, n = ext.shape[1], ctx_mul.degree
+    s1, s0, r0, r1 = (x.reshape(d2, 1, -1, n) for x in ext)
+    pairs = ((s0, r0), (ext[:2].reshape(2 * d2, 1, -1, n),
+                        ext[2:].reshape(2 * d2, 1, -1, n)), (s1, r1))
+    rows = [ct_pt_dot(ctx_mul, [e], d)[0, 0, 0] for e, d in pairs]
+    return torch.stack(rows).reshape((3,) + ext.shape[2:])
+
+
+def make_pir_response_db(par: BfvParameters, rk, dim1: int, dim2: int,
+                         level: int = 0):
+    """(e0, e1, db) -> (c0, c1): the MulPIR server response on an expanded
+    query (tpufhe pipeline.py:974-1088). e0, e1: (>= dim1 + dim2, B, k, N)
+    NTT-domain parts from make_expand; db: (dim1, dim2, k, N) plaintext NTT
+    residues (encode_pir_database). Launches per call:
+
+    - the first dimension, resp_j = sum_i db[i, j] exp_i: one ct_pt_dot
+      of both parts over all dim2 columns;
+    - the extend of the selectors exp_{dim1 + j} and the responses into
+      the multiplication basis: K1 inverse, K2, K1 forward of the new
+      limbs (scale_into);
+    - the second dimension, sum_j sel_j (x) resp_j, summed in the
+      multiplication basis before the one down-scale: three ct_pt_dot
+      (_second_dimension);
+    - the down-scale (K1 inverse, K2) and one relinearization: K4 where
+      kernels.tail_fits holds, else K1 forward + ks_accumulate.
+
+    The relinearization key is at the ciphertexts' level. Raises
+    NotImplementedError on narrow parameters, as tpufhe does."""
+    ctx = par.context_at_level(level)
+    if ctx.narrow:
+        raise NotImplementedError("narrow (w30) PIR response path")
+    ksk = rk.ksk
+    assert ksk.ciphertext_level == level and ksk.ksk_level == level
+    mb = mul_basis(par, level)
+    ctx_mul = mb.ctx_mul
+    k, k_mul = ctx.k, ctx_mul.k
+    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
+
+    def step(e0, e1, db):
+        if e0.shape[0] < dim1 + dim2 or tuple(db.shape[:2]) != (dim1, dim2):
+            raise ValueError(f"make_pir_response_db: {e0.shape[0]} expanded "
+                             f"ciphertexts and db {tuple(db.shape)} for dims "
+                             f"({dim1}, {dim2})")
+        resp = ct_pt_dot(ctx, [e0, e1], db)  # (2, dim2, B, k, N)
+        sel = torch.stack([e1[dim1:dim1 + dim2], e0[dim1:dim1 + dim2]])
+        both = torch.cat([sel, resp])  # (s1, s0, r0, r1)
+        new_rows = scale_into(ctx_mul, mb.ext, ntt_backward(ctx, both), k,
+                              k_mul - k, ntt=True)
+        t = _second_dimension(ctx_mul, torch.cat([both, new_rows], dim=-2))
+        dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
+        return tail(ctx, dsc, ksk)
+
+    return step
+
+
+def make_pir_response(par: BfvParameters, ek, rk, db: torch.Tensor,
+                      dim1: int, dim2: int, level: int = 0):
+    """(c0, c1) -> (c0, c1): the MulPIR server response to a query of
+    shape (B, k, N) (tpufhe pipeline.py:891-971): make_expand into
+    2^L ciphertexts, L = bit length of dim1 + dim2 - 1, then
+    make_pir_response_db on the database `db` (dim1, dim2, k, N), held by
+    the step on the parameters' device."""
+    respond = make_pir_response_db(par, rk, dim1, dim2, level)
+    expand = make_expand(par, ek, (dim1 + dim2 - 1).bit_length(), level)
+    db = db.to(par.device)
+
+    def step(c0, c1):
+        return respond(*expand(c0, c1), db)
 
     return step
