@@ -50,9 +50,11 @@ Phases, in order; any failure exits nonzero before the last line:
    make_mul_relin's at N = 2048 (phase 17, tensor_intt among them) and on
    phase 18's moduli of 43 and 44 bits (relin_tail among them); and, on
    the inputs each kernel wrapper records in one run of the PIR programs
-   (KernelRecorder, after their set-up: keys, database, queries), every
-   distinct call of phase 19's database build and response (ntt,
-   rns_scale, ks_accumulate, ct_pt_dot) and of phase 20's key generation
+   (KernelRecorder, after their set-up: keys, database, queries; the
+   calls it records per kernel must equal the launch counters' reading
+   over that run and the program's exact counts), every distinct call
+   of phase 19's database build and response (ntt, rns_scale,
+   ks_accumulate, ct_pt_dot) and of phase 20's key generation
    (rns_scale at the Switcher's scale-up, ntt), database build, leveled
    expansion (ntt over the ciphertext's and the key's moduli,
    ks_accumulate with 2 digit rows over 3 limbs) and response (ct_pt_dot
@@ -150,7 +152,8 @@ Phases, in order; any failure exits nonzero before the last line:
     4, ntt 3, rns_scale 2, relin_tail 1), each held to its exact counts,
     the answer switched to the last level and all 8192 coefficients
     checked; the expansion and the response timed apart with CUDA events,
-    each doubling's rotation beside its switch-down; then a ciphertext
+    and inside the expansion each doubling, its key switch and its
+    switch-down marked with CUDA events as it runs; then a ciphertext
     switched to each level, Multiplicator.default with mod switching and
     public-key encryptions below the key's level, each decrypted.
 
@@ -158,8 +161,8 @@ The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
-phases 19 and 20 as launched in one run), the last one {"ok": true,
-"device": {...}}. Exits nonzero without a CUDA card.
+phases 19 and 20 with the launches of their counted runs there), the
+last one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -307,6 +310,10 @@ MULPIR_EXPAND_LAUNCHES = {"ntt": 28, "ks_accumulate": 7}
 MULPIR_RESPONSE_LAUNCHES = {"ct_pt_dot": 4, "ntt": 3, "rns_scale": 2,
                             "relin_tail": 1}
 MULPIR_DB_LAUNCHES = {"ntt": 1}
+# the key generation: the forward NTTs of the keys' rows and secrets (ntt
+# 32) and the Switcher's scale-up of s and s^2 into the key context
+# (rns_scale 7)
+MULPIR_KEYGEN_LAUNCHES = {"ntt": 32, "rns_scale": 7}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -2190,12 +2197,14 @@ class KernelRecorder:
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
     (check_recorded). The second dimension's input is kept too, to time
-    its two routes."""
+    its two routes. The launch counters are set to 0 on entry and read on
+    exit (launches), so a kernel call the recorder missed shows."""
 
     def __init__(self, label: str):
         self.label = label
         self.calls: dict = {}
         self.second = None
+        self.launches: dict = {}
 
     def add(self, name, sig, item, plan=None) -> None:
         """Count a call of `name` with signature `sig`; keep the run_case
@@ -2207,7 +2216,7 @@ class KernelRecorder:
             entry[1] += 1
 
     def __enter__(self):
-        from tpufhe_torch import pipeline
+        from tpufhe_torch import kernels, pipeline
         from tpufhe_torch.ops import dot
         from tpufhe_torch.ops import ntt as ntt_mod
         from tpufhe_torch.ops.rns import RnsScaler
@@ -2262,20 +2271,33 @@ class KernelRecorder:
                                                       dot_kernel, relin,
                                                       second)):
             setattr(owner, name, fn)
+        kernels.reset_launches()
         return self
 
     def __exit__(self, *exc) -> bool:
+        from tpufhe_torch import kernels
+
         for owner, name, fn in self._saved:
             setattr(owner, name, fn)
+        self.launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         return False
 
 
-def check_recorded(rec: KernelRecorder, int32_rate: float, per: str) -> dict:
-    """Phase 3 at a program's recorded calls: each distinct call against
-    its plain version (torch.equal, both timed, ct_pt_dot with its launch
-    plan); per kernel one record of the program's run, each call's time
-    and bound counted as often as the program makes it. Returns
-    {kernel: record}."""
+def check_recorded(rec: KernelRecorder, int32_rate: float, per: str,
+                   expected: dict) -> dict:
+    """Phase 3 at a program's recorded calls: fails unless the calls
+    recorded per kernel equal both the launch counters' reading over the
+    recorded run and `expected` (the program's exact counts); then each
+    distinct call against its plain version (torch.equal, both timed,
+    ct_pt_dot with its launch plan); per kernel one record of the
+    program's run, each call's time and bound counted as often as the
+    program makes it. Returns {kernel: record}."""
+    recorded: dict = {}
+    for name, count, _, _ in rec.calls.values():
+        recorded[name] = recorded.get(name, 0) + count
+    if recorded != rec.launches or recorded != expected:
+        raise SystemExit(f"{rec.label}: recorded calls {recorded}, launches "
+                         f"counted {rec.launches}, expected {expected}")
     by_kernel: dict = {}
     for name, count, item, plan in rec.calls.values():
         by_kernel.setdefault(name, []).append((count, item(), plan))
@@ -2367,9 +2389,11 @@ def pir_kernels(pir: SimpleNamespace, int32_rate: float, card: str) -> tuple:
     with KernelRecorder("PIR response") as rec:
         make_pir_response(pir.par, pir.ek, pir.rk, db, *pir.dims)(*pir.query)
     records = {"pir_database": check_recorded(rec_db, int32_rate,
-                                              "per PIR database build"),
+                                              "per PIR database build",
+                                              PIR_DB_LAUNCHES),
                "pir_response": check_recorded(rec, int32_rate,
-                                              "per PIR response")}
+                                              "per PIR response",
+                                              PIR_LAUNCHES)}
     return records, second_dimension_routes("PIR", rec.second, int32_rate,
                                             card)
 
@@ -2463,13 +2487,17 @@ def mulpir_kernels(m: SimpleNamespace, int32_rate: float, card: str) -> tuple:
         m.respond(e0, e1, db)
     records = {
         "mulpir_keygen": check_recorded(m.rec_keygen, int32_rate,
-                                        "per MulPIR key generation"),
+                                        "per MulPIR key generation",
+                                        MULPIR_KEYGEN_LAUNCHES),
         "mulpir_database": check_recorded(rec_db, int32_rate,
-                                          "per MulPIR database build"),
+                                          "per MulPIR database build",
+                                          MULPIR_DB_LAUNCHES),
         "mulpir_expansion": check_recorded(rec_exp, int32_rate,
-                                           "per MulPIR expansion"),
+                                           "per MulPIR expansion",
+                                           MULPIR_EXPAND_LAUNCHES),
         "mulpir_response": check_recorded(rec, int32_rate,
-                                          "per MulPIR response")}
+                                          "per MulPIR response",
+                                          MULPIR_RESPONSE_LAUNCHES)}
     del m.rec_keygen
     return records, second_dimension_routes("MulPIR", rec.second, int32_rate,
                                             card)
@@ -2538,13 +2566,15 @@ def pir_path(pir: SimpleNamespace, records: dict, card: str) -> tuple:
     and held to its exact counts; every slot of every answer decrypted
     against its cell, the noise printed; then chained responses (each
     answer fed back as the next query, as bench_pir_response chains them)
-    timed. Returns (launches, ms per response step)."""
+    timed. Returns ({program: launches} of the counted runs, ms per
+    response step)."""
     from tpufhe_torch.bfv import Ciphertext, Encoding
     from tpufhe_torch.pipeline import encode_pir_database, make_pir_response
 
     par, sk = pir.par, pir.sk
-    db, _ = run_program("PIR database build", encode_pir_database,
-                        (par, pir.vals, Encoding.simd()), PIR_DB_LAUNCHES)
+    db, db_launches = run_program("PIR database build", encode_pir_database,
+                                  (par, pir.vals, Encoding.simd()),
+                                  PIR_DB_LAUNCHES)
     log(f"  database {tuple(db.shape)} ({db.numel() * 8 / 2**20:.1f} MiB)")
     step = make_pir_response(par, pir.ek, pir.rk, db, *pir.dims)
     (c0, c1), launches = run_program(
@@ -2562,7 +2592,7 @@ def pir_path(pir: SimpleNamespace, records: dict, card: str) -> tuple:
         f"{ms:.3f} ms/step, {PIR_BATCH / ms * 1e3:.1f} PIR responses/s, "
         f"kernels {kms:.3f} ms, glue {ms - kms:.3f} ms, noise {noise} bits "
         f"on {card}")
-    return launches, ms
+    return {"pir_database": db_launches, "pir_response": launches}, ms
 
 
 def mulpir_levels(m: SimpleNamespace) -> None:
@@ -2618,31 +2648,30 @@ def mulpir_path(m: SimpleNamespace, records: dict, card: str) -> dict:
     0 just before it and held to its exact counts; the answer switched to
     the last level and decrypted, all N coefficients held to the selected
     plaintext's. Then the expansion and the response timed apart with CUDA
-    events, the switch-down's share of each doubling, the leveled path's
-    other operations (mulpir_levels). Returns {"expand_ms", "response_ms",
-    "switch_share"}."""
+    events, the switch-down timed inside the expansion
+    (expansion_switch_downs), the leveled path's other operations
+    (mulpir_levels). Returns {"expand_ms", "response_ms", "switch_share",
+    "launches": {program: launches} of the counted runs}."""
     from tpufhe_torch.bfv import Ciphertext, Encoding
-    from tpufhe_torch.ops.rq import switch_down_to
-    from tpufhe_torch.pipeline import _rotate_step
 
     par, sk = m.par, m.sk
     dim1, dim2 = m.dims
-    ctx1, ctx0 = par.context_at_level(1), par.context_at_level(0)
+    ctx1 = par.context_at_level(1)
     t0 = time.perf_counter()
-    db, _ = run_program("MulPIR database upload and build", mulpir_database,
-                        (m,), MULPIR_DB_LAUNCHES)
+    db, db_launches = run_program("MulPIR database upload and build",
+                                  mulpir_database, (m,), MULPIR_DB_LAUNCHES)
     log(f"  keygen {m.keygen_s:.2f} s, database {tuple(db.shape)} "
         f"({db.numel() * 8 / 2**20:.1f} MiB) uploaded and built "
         f"{time.perf_counter() - t0:.3f} s (host clock)")
     for qi, (index, query) in enumerate(zip(m.indices, m.queries)):
-        (e0, e1), _ = run_program(
+        (e0, e1), exp_launches = run_program(
             f"MulPIR expansion of query {qi} ({m.levels} leveled doublings)",
             m.expand, query, MULPIR_EXPAND_LAUNCHES)
         if tuple(e0.shape) != (1 << m.levels, 1, ctx1.k, par.degree()):
             raise SystemExit(f"MulPIR expansion: shape {tuple(e0.shape)}")
-        (o0, o1), _ = run_program(f"MulPIR response to query {qi}",
-                                  m.respond, (e0, e1, db),
-                                  MULPIR_RESPONSE_LAUNCHES)
+        (o0, o1), resp_launches = run_program(
+            f"MulPIR response to query {qi}", m.respond, (e0, e1, db),
+            MULPIR_RESPONSE_LAUNCHES)
         ans = Ciphertext(par, [o0[0], o1[0]], 1)
         noise = sk.measure_noise(ans)
         ans.switch_to_level(ans.max_switchable_level())
@@ -2666,33 +2695,94 @@ def mulpir_path(m: SimpleNamespace, records: dict, card: str) -> dict:
         f"{expand_ms - exp_k:.3f} ms), response {response_ms:.3f} ms "
         f"(kernels {resp_k:.3f} ms, glue {response_ms - resp_k:.3f} ms), per "
         f"query, on {card}")
-    gen = torch.Generator(device=ctx1.device).manual_seed(MULPIR_SEED)
-    switch_total = 0.0
-    n = par.degree()
-    for level in range(m.levels):
-        gk = m.ek.gk[(n >> level) + 1]
-        rot = _rotate_step(ctx1, gk.element, gk.ksk)
-        rows = 1 << level
-        x = [rand_residues((rows, 1, ctx1.k, n), ctx1.tables.p, gen)
-             for _ in range(2)]
-        y = rand_residues((2, rows, 1, ctx0.k, n), ctx0.tables.p, gen)
-        rot_ms = time_ms(lambda: rot(*x), MULPIR_REPS)
-        sw_ms = time_ms(lambda: switch_down_to(ctx0, ctx1, y), MULPIR_REPS)
-        switch_total += sw_ms
-        log(f"  doubling {level} ({rows} ciphertexts): rotation "
-            f"{rot_ms:.4f} ms, its switch-down {sw_ms:.4f} ms "
-            f"({100 * sw_ms / rot_ms:.1f} %)")
-    share = switch_total / expand_ms
-    log(f"  switch-downs {switch_total:.4f} ms of the {expand_ms:.3f} ms "
-        f"expansion ({100 * share:.1f} %) on {card}")
-    mono, mono_shoup = m.ek.monomials[0]
-    log(f"  torch operations: a switch-down "
-        f"{torch_ops(lambda: switch_down_to(ctx0, ctx1, y))}, a Shoup "
-        f"product by a monomial "
-        f"{torch_ops(lambda: ctx1.mul_shoup(x[0], mono, mono_shoup))}")
+    share = expansion_switch_downs(m, query, card)
     mulpir_levels(m)
     return {"expand_ms": expand_ms, "response_ms": response_ms,
-            "switch_share": share}
+            "switch_share": share,
+            "launches": {"mulpir_database": db_launches,
+                         "mulpir_expansion": exp_launches,
+                         "mulpir_response": resp_launches}}
+
+
+def expansion_switch_downs(m: SimpleNamespace, query, card: str) -> float:
+    """The switch-down inside MulPIR's expansion: MULPIR_REPS expansions of
+    `query` after a warm-up, with CUDA events recorded on the stream as the
+    step runs (no synchronization in between) at the step's ends, at each
+    doubling's first substitution, and around each key_switch_down and
+    the switch_down_to in it. Prints per doubling its span, its key switch
+    and its switch-down, and the switch-downs' share of the expansion.
+    Returns that share."""
+    from tpufhe_torch import pipeline
+
+    ctx1 = m.par.context_at_level(1)
+    names = ("substitute", "key_switch_down", "switch_down_to")
+    orig = {name: getattr(pipeline, name) for name in names}
+    marks: dict = {name: [] for name in names}
+    last = {}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def marked(name):
+        def call(*args, **kwargs):
+            start = event()
+            out = orig[name](*args, **kwargs)
+            marks[name].append((start, event()))
+            last[name] = args
+            return out
+        return call
+
+    m.expand(*query)
+    torch.cuda.synchronize()
+    for name in names:
+        setattr(pipeline, name, marked(name))
+    try:
+        spans = []
+        for _ in range(MULPIR_REPS):
+            start = event()
+            m.expand(*query)
+            spans.append((start, event()))
+    finally:
+        for name in names:
+            setattr(pipeline, name, orig[name])
+    torch.cuda.synchronize()
+    lv = m.levels
+    if any(len(marks[name]) != k * lv * MULPIR_REPS
+           for name, k in zip(names, (2, 1, 1))):
+        raise SystemExit(f"expansion marks: "
+                         f"{ {k: len(v) for k, v in marks.items()} }")
+
+    def ms(a, b):
+        return a.elapsed_time(b) / MULPIR_REPS
+
+    total = sum(a.elapsed_time(b) for a, b in spans) / MULPIR_REPS
+    switch_total = 0.0
+    for level in range(lv):
+        span = ks = sw = 0.0
+        for rep in range(MULPIR_REPS):
+            first = marks["substitute"][2 * (rep * lv + level)][0]
+            nxt = (spans[rep][1] if level == lv - 1 else
+                   marks["substitute"][2 * (rep * lv + level + 1)][0])
+            span += ms(first, nxt)
+            ks += ms(*marks["key_switch_down"][rep * lv + level])
+            sw += ms(*marks["switch_down_to"][rep * lv + level])
+        switch_total += sw
+        log(f"  doubling {level} ({1 << level} ciphertexts): {span:.4f} ms, "
+            f"its key switch {ks:.4f} ms (K1 x 3, ks_accumulate and the "
+            f"switch-down), the switch-down {sw:.4f} ms "
+            f"({100 * sw / span:.1f} % of the doubling)")
+    share = switch_total / total
+    log(f"  switch-downs {switch_total:.4f} ms of the {total:.3f} ms "
+        f"expansion ({100 * share:.1f} %), timed inside it, on {card}")
+    mono, mono_shoup = m.ek.monomials[0]
+    switch = last["switch_down_to"]
+    log(f"  torch operations: a switch-down "
+        f"{torch_ops(lambda: orig['switch_down_to'](*switch))}, a "
+        f"Shoup product by a monomial "
+        f"{torch_ops(lambda: ctx1.mul_shoup(query[0], mono, mono_shoup))}")
+    return share
 
 
 def main() -> int:
@@ -2882,12 +2972,18 @@ def main() -> int:
 
     log(f"phase 19: PIR at BASELINE config 5, N = {N16K}, 6 x 62-bit, dims "
         f"{PIR_DIMS}, batch {PIR_BATCH}")
-    pir_path(pir, pir_records["pir_response"], card)
+    path_launches, _ = pir_path(pir, pir_records["pir_response"], card)
 
     log(f"phase 20: MulPIR, N = {MULPIR_DEGREE}, moduli of "
         f"{MULPIR_MODULI_SIZES} bits, {MULPIR_ELEMENTS} elements of "
         f"{MULPIR_ELEMENT_BYTES} bytes")
-    mulpir_path(mulpir, mulpir_records, card)
+    path_launches |= mulpir_path(mulpir, mulpir_records, card)["launches"]
+    # each PIR program's launches from its counted run in phase 19 or 20
+    # (the key generation's from its recorded run, counted likewise)
+    program_records = pir_records | mulpir_records
+    for tag, launches in path_launches.items():
+        for name, count in launches.items():
+            program_records[tag][name]["launches"] = count
 
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
@@ -2927,7 +3023,7 @@ def main() -> int:
                       ("default128", d128_records)):
         for name, rec in recs.items():
             other_shapes[name][tag] = rec
-    for tag, recs in (pir_records | mulpir_records).items():
+    for tag, recs in program_records.items():
         for name, rec in recs.items():
             other_shapes[name][tag] = rec
     for tag, routes in (("pir", pir_routes), ("mulpir", mulpir_routes)):

@@ -457,13 +457,12 @@ def key_switch_down(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
     key in the larger context ksk.ctx_ksk, switched down to ctx and
     stacked (2, ..., k, N) in ctx's NTT domain (tpufhe
     _rotate_step_leveled, pipeline.py:784-812, and the switch-down of
-    relinearization_key.rs:71-98 and galois_key.rs:62-87): c2's Garner
-    digits reduced modulo every key modulus, their forward NTT (K1),
-    ks_accumulate there, K1 inverse, the switch-down (plain torch) and
-    K1 forward. The key's extra moduli divide the key-switch noise."""
+    relinearization_key.rs:71-98 and galois_key.rs:62-87): key_switch in
+    the key's context (c2's Garner digits reduced modulo every key
+    modulus, K1, ks_accumulate), K1 inverse, the switch-down (plain torch)
+    and K1 forward. The key's extra moduli divide the key-switch noise."""
     ctx_ksk = ksk.ctx_ksk
-    lifted = ntt_forward(ctx_ksk, _ksk_digits(ctx_ksk, c2_pb))
-    ks_pb = ntt_backward(ctx_ksk, ks_accumulate(ctx_ksk, lifted, ksk))
+    ks_pb = ntt_backward(ctx_ksk, key_switch(ctx_ksk, c2_pb, ksk))
     return ntt_forward(ctx, switch_down_to(ctx_ksk, ctx, ks_pb))
 
 
