@@ -62,7 +62,15 @@ Phases, in order; any failure exits nonzero before the last line:
    launch plans; and the second dimension both ways on each program's own
    input, (a) tensor over all j and modular adds, (b) three ct_pt_dot
    (the programs' route), equal and timed, tensor held to its plain
-   version there;
+   version there; and, after phase 22, every distinct call of phases 21
+   and 22 recorded the same way (a KernelRecorder around each phase, the
+   calls recorded per kernel equal to the counters' reading over it): the
+   decoders' ntt, the walkthroughs' ntt, rns_scale, tensor and
+   rotate_tail at N = 8192, the external product's ntt and ks_accumulate
+   at batch 64, make_mul_relin's tensor_intt and relin_tail, rns_scale
+   down-scaling by t = 2^127 - 1 (a 127-bit numerator) from the
+   11-limb basis, and the applications' PIR calls (SealPIR's two ct_pt_dot
+   shapes, its folds' ntt);
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -155,13 +163,44 @@ Phases, in order; any failure exits nonzero before the last line:
     and inside the expansion each doubling, its key switch and its
     switch-down marked with CUDA events as it runs; then a ciphertext
     switched to each level, Multiplicator.default with mod switching and
-    public-key encryptions below the key's level, each decrypted.
+    public-key encryptions below the key's level, each decrypted;
+21. the wire format (fhe.rs's proto3 messages, byte for byte tpufhe's):
+    every object kind (parameters of configs 3, 4 and MulPIR; phase 4's
+    secret and relinearization keys; phase 16's public key; phase 6's
+    Galois and evaluation keys; phase 20's leveled expansion key,
+    level-1 relinearization key and seeded level-1 query; an RGSW
+    ciphertext; seeded fresh ciphertexts, a product ciphertext; a Poly in
+    each representation) serialized on the card, its length equal to its
+    closed form (sum_i nbits_i N / 8 bytes a polynomial, 32 a seed, plus
+    the envelope), decoded on the card torch.equal to the original,
+    decoded on the CPU and serialized again to the same bytes; the decoded
+    ciphertexts decrypted, every slot checked; 64 ciphertexts, the
+    relinearization key and MulPIR's expansion key serialized and
+    deserialized three times each, ms and MB/s on the host clock;
+22. the applications (tpufhe_torch.models) on the card: run_bfv_basic,
+    run_bfv_ops and run_rgsw at N = 8192, 3 x 62-bit, t = 65537 (t =
+    1153 has no SIMD slots at N = 8192), every result pair equal; the
+    external product of phase 4's 64 ciphertexts by one RGSW ciphertext
+    (ntt 3, ks_accumulate 2), decrypted equal to make_mul_relin on the same
+    pairs, chained products timed (external products/s); t = 2^127 - 1 at
+    N = 8192, 5 x 60-bit (seed 2040): 16 encryptions decrypted, ct_add and
+    ct_mul without relinearization (ntt 6, rns_scale 3, tensor 1) of the
+    batch, every coefficient against exact Python ints; run_mulpir
+    (repeat=2: the seeded index and, warm, index + 1) and run_sealpir at
+    65,536 x 1 KiB, N = 8192, MulPIR's t and moduli, each element byte
+    for byte, each server phase of each query held to its exact counts
+    (MulPIR expand ntt 28, ks_accumulate 7, response ct_pt_dot 4, ntt 5,
+    rns_scale 2, relin_tail 1; SealPIR expand the same, dot1 ct_pt_dot 1,
+    ntt 2, fold none, dot2 ntt 3, ct_pt_dot 1), the report printed; the
+    CLI (models.pir.main) for each scheme at 4,096 elements; MulPIR's
+    object-API path at 4,096 retrieving what its programs retrieve.
 
 The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
-phases 19 and 20 with the launches of their counted runs there), the
+phases 19 and 20 with the launches of their counted runs there, those of
+phases 21 and 22 under wire_format and applications), the
 last one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
 """
 
@@ -314,6 +353,39 @@ MULPIR_DB_LAUNCHES = {"ntt": 1}
 # 32) and the Switcher's scale-up of s and s^2 into the key context
 # (rns_scale 7)
 MULPIR_KEYGEN_LAUNCHES = {"ntt": 32, "rns_scale": 7}
+# phase 21: the wire format at BASELINE config 3 (phase 4's parameters),
+# ciphertexts and keys timed through serialization WIRE_REPS times
+WIRE_SEED = SEED + 12
+WIRE_REPS = 3
+# phase 22: the applications. The walkthroughs run at degree 8192 with
+# phase 4's t = 65537: BfvParameters.default's t = 1153 has no SIMD slots
+# there (the batch encoder needs 2N | t - 1, and 1152 = 2^7 9)
+APP_MODULI = 3
+RGSW_SEED = SEED + 13
+RGSW_BATCH = BATCH
+RGSW_CHAIN = 8
+# K1 inverse of both parts, then per key switch K1 of its digits and
+# ks_accumulate
+RGSW_LAUNCHES = {"ntt": 3, "ks_accumulate": 2}
+BIGT_PLAINTEXT = (1 << 127) - 1  # the reference's big t (biguint.rs)
+BIGT_MODULI_SIZES = [60] * 5
+BIGT_SEED = SEED + 14
+BIGT_BATCH = 16
+BIGT_SPARSE = 4  # nonzero coefficients of each product's second operand
+BIGT_MUL_LAUNCHES = API_PRODUCT_LAUNCHES
+PIR_CLI_ELEMENTS = 4096
+# the PIR server phases of models/pir.py per query, fused: MulPIR's
+# expansion and response (make_pir_response_db, then the switch of the
+# answer to the last level: ntt 2); SealPIR's expansion, its first
+# dimension (one ct_pt_dot, the batched switch to the last level), the
+# host fold, and its second dimension (the folds encoded in one K1
+# launch, one ct_pt_dot, the switch)
+MULPIR_APP_LAUNCHES = {
+    "expand": MULPIR_EXPAND_LAUNCHES,
+    "response": {"ct_pt_dot": 4, "ntt": 5, "rns_scale": 2, "relin_tail": 1}}
+SEALPIR_APP_LAUNCHES = {"expand": MULPIR_EXPAND_LAUNCHES,
+                        "dot1": {"ct_pt_dot": 1, "ntt": 2}, "fold": {},
+                        "dot2": {"ntt": 3, "ct_pt_dot": 1}}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -550,9 +622,10 @@ def k5_case(label, ctx, s0, c2, key):
     key."""
     from tpufhe_torch import pipeline
 
-    b, k, n = s0.shape
+    k, n = s0.shape[-2:]
+    b = s0.numel() // (k * n)
     return (f"{label} s0, c2 {tuple(s0.shape)} + ksk 4 x {(k, k, n)} -> "
-            f"(2, {b}, {k}, {n})",
+            f"(2, {', '.join(map(str, s0.shape))})",
             lambda: pipeline.rotate_tail_cuda(ctx, s0, c2, key),
             lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key),
             (4 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
@@ -1162,7 +1235,7 @@ def main_path(par) -> SimpleNamespace:
     log(f"  noise: fresh {fresh} bits, product {prod} bits")
     if prod >= sum(MODULI_SIZES) - 18:
         raise SystemExit("product noise leaves no budget")
-    return SimpleNamespace(sk=sk, rk=rk, va=va, vb=vb,
+    return SimpleNamespace(sk=sk, rk=rk, va=va, vb=vb, fresh=cas,
                            inputs=(a0, a1, b0, b1), step=step,
                            launches=launches, product=(c0, c1),
                            margin=sum(MODULI_SIZES) - prod)
@@ -1209,7 +1282,8 @@ def check_outputs(name, par, sk, c0, c1, want, encoding) -> None:
 
 
 def rotation_path(par) -> dict:
-    """Phase 6. Returns {program: (launches, step, inputs)}."""
+    """Phase 6. Returns {program: (launches, step, inputs)} and, under
+    "keys", (the secret key, the evaluation key)."""
     from tpufhe_torch.bfv import (
         Encoding,
         EvaluationKeyBuilder,
@@ -1279,6 +1353,7 @@ def rotation_path(par) -> dict:
                      ).astype(np.uint64)
     check_outputs("expansion", par, sk, c0, c1, want, Encoding.poly())
     out["expand"] = (launches, expand, (p0, p1))
+    out["keys"] = (sk, ek)
     return out
 
 
@@ -2026,13 +2101,14 @@ def dot_path(par, card: str) -> tuple:
     return launches, ms
 
 
-def object_api_path(par, mp: SimpleNamespace, variants: dict) -> None:
+def object_api_path(par, mp: SimpleNamespace, variants: dict):
     """Phase 16, the object API at BASELINE config 3 on phase 4's keys and
     64 pairs: PublicKey (seed 2033) encryption, ct_mul to three parts and
     their decryption, ct_square, relinearizes, and Multiplicator.default
     and strategy2(rk, 1), each torch.equal to make_mul_relin's output
     (default and strategy 2 kP = 1) on the same ciphertexts; every run held
-    to its exact launch counts, every slot checked, the noise printed."""
+    to its exact launch counts, every slot checked, the noise printed.
+    Returns the public key."""
     from tpufhe_torch.bfv import (
         Ciphertext,
         Encoding,
@@ -2086,6 +2162,7 @@ def object_api_path(par, mp: SimpleNamespace, variants: dict) -> None:
                 f"Multiplicator {name} differs from make_mul_relin")
         check_parts(f"Multiplicator {name}", par, mp.sk, ct, want)
     log(f"  phase 4's product noise: {sum(MODULI_SIZES) - mp.margin} bits")
+    return pk
 
 
 def single_modulus_path(par) -> None:
@@ -2196,8 +2273,9 @@ class KernelRecorder:
     its inputs, once per distinct call (kernel, shapes, context or tables,
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
-    (check_recorded). The second dimension's input is kept too, to time
-    its two routes. The launch counters are set to 0 on entry and read on
+    (check_recorded): ntt, rns_scale, ks_accumulate, ct_pt_dot, relin_tail,
+    tensor, rotate_tail and tensor_intt. The second dimension's input is kept too, to
+    time its two routes. The launch counters are set to 0 on entry and read on
     exit (launches), so a kernel call the recorder missed shows."""
 
     def __init__(self, label: str):
@@ -2224,7 +2302,9 @@ class KernelRecorder:
         targets = [(ntt_mod, "ntt_cuda"), (RnsScaler, "scale_cuda"),
                    (pipeline, "ks_accumulate_cuda"), (dot, "ct_pt_dot_cuda"),
                    (pipeline, "relin_tail_cuda"),
-                   (pipeline, "_second_dimension")]
+                   (pipeline, "_second_dimension"),
+                   (pipeline, "tensor_cuda"), (pipeline, "rotate_tail_cuda"),
+                   (pipeline, "tensor_intt_cuda")]
         self._saved = [(owner, name, getattr(owner, name))
                        for owner, name in targets]
         orig = {name: fn for _, name, fn in self._saved}
@@ -2267,9 +2347,25 @@ class KernelRecorder:
             rec.second = (ctx_mul, ext)
             return orig["_second_dimension"](ctx_mul, ext)
 
+        def tensor(ctx, a0, a1, b0, b1):
+            rec.add("tensor", (tuple(a0.shape), id(ctx), a0 is b0),
+                    lambda: k7_case(label, ctx, a0, a1, b0, b1))
+            return orig["tensor_cuda"](ctx, a0, a1, b0, b1)
+
+        def rotate(ctx, s0, c2, key):
+            rec.add("rotate_tail", (tuple(s0.shape), id(ctx)),
+                    lambda: k5_case(label, ctx, s0, c2, key))
+            return orig["rotate_tail_cuda"](ctx, s0, c2, key)
+
+        def tensor_intt(ctx_mul, ext):
+            rec.add("tensor_intt", (tuple(ext.shape), id(ctx_mul)),
+                    lambda: k3_case(label, ctx_mul, ext))
+            return orig["tensor_intt_cuda"](ctx_mul, ext)
+
         for (owner, name, _), fn in zip(self._saved, (ntt, scale, ks,
                                                       dot_kernel, relin,
-                                                      second)):
+                                                      second, tensor,
+                                                      rotate, tensor_intt)):
             setattr(owner, name, fn)
         kernels.reset_launches()
         return self
@@ -2284,10 +2380,11 @@ class KernelRecorder:
 
 
 def check_recorded(rec: KernelRecorder, int32_rate: float, per: str,
-                   expected: dict) -> dict:
+                   expected: dict | None) -> dict:
     """Phase 3 at a program's recorded calls: fails unless the calls
     recorded per kernel equal both the launch counters' reading over the
-    recorded run and `expected` (the program's exact counts); then each
+    recorded run and `expected` (the program's exact counts; None for a
+    phase whose runs are held to their counts where they run); then each
     distinct call against its plain version (torch.equal, both timed,
     ct_pt_dot with its launch plan); per kernel one record of the
     program's run, each call's time and bound counted as often as the
@@ -2295,7 +2392,8 @@ def check_recorded(rec: KernelRecorder, int32_rate: float, per: str,
     recorded: dict = {}
     for name, count, _, _ in rec.calls.values():
         recorded[name] = recorded.get(name, 0) + count
-    if recorded != rec.launches or recorded != expected:
+    if recorded != rec.launches or recorded != (
+            rec.launches if expected is None else expected):
         raise SystemExit(f"{rec.label}: recorded calls {recorded}, launches "
                          f"counted {rec.launches}, expected {expected}")
     by_kernel: dict = {}
@@ -2443,7 +2541,7 @@ def mulpir_setup(par) -> SimpleNamespace:
     indices = [int(i) for i in gen.integers(0, MULPIR_ELEMENTS,
                                             MULPIR_QUERIES)]
     inv = pow(1 << levels, -1, t)
-    queries = []
+    queries, query_cts = [], []
     for index in indices:
         row = index // per_pt
         q = np.zeros(n, dtype=np.uint64)
@@ -2451,7 +2549,9 @@ def mulpir_setup(par) -> SimpleNamespace:
         ct = sk.try_encrypt(Plaintext.try_encode(q, Encoding.poly(1), par),
                             rng)
         queries.append((ct[0][None], ct[1][None]))
+        query_cts.append(ct)
     return SimpleNamespace(par=par, sk=sk, ek=ek, rk=rk, vals=vals,
+                           query_cts=query_cts,
                            indices=indices, queries=queries, per_pt=per_pt,
                            dims=(dim1, dim2), levels=levels,
                            keygen_s=keygen_s, rec_keygen=rec_keygen, rng=rng)
@@ -2785,6 +2885,517 @@ def expansion_switch_downs(m: SimpleNamespace, query, card: str) -> float:
     return share
 
 
+# ---------------------------------------------------------------------------
+# phases 21 and 22: the wire format and the applications
+# ---------------------------------------------------------------------------
+
+
+def run_counted(name: str, fn, args, expected: dict):
+    """run_program by the counters' change over the call, without setting
+    them to 0 (a KernelRecorder around the phase reads their total): fails
+    unless the launches equal `expected`. Returns (outputs, launches)."""
+    from tpufhe_torch import kernels
+
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+    log(f"  {name} {secs:.3f} s, launches {launches}")
+    if launches != expected:
+        raise SystemExit(f"{name}: launches {launches}, expected {expected}")
+    return out, launches
+
+
+class PhaseLaunches:
+    """While active, each timeit block of tpufhe_torch.models.pir (the
+    applications' phases: setup, keygen, query, expand, response, ...)
+    records the kernel launches made inside it, by label."""
+
+    def __enter__(self):
+        from contextlib import contextmanager
+
+        from tpufhe_torch import kernels
+        from tpufhe_torch.models import pir
+
+        self.orig, self.launches = pir.timeit, {}
+        orig, launches = self.orig, self.launches
+
+        @contextmanager
+        def timed(label, report=None, key=None, n=1):
+            before = dict(kernels.LAUNCHES)
+            with orig(label, report, key, n):
+                yield
+            launches[label] = {k: v - before[k] for k, v in
+                               kernels.LAUNCHES.items() if v != before[k]}
+
+        pir.timeit = timed
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from tpufhe_torch.models import pir
+
+        pir.timeit = self.orig
+        return False
+
+
+def varint_len(v: int) -> int:
+    return max(1, (int(v).bit_length() + 6) // 7)
+
+
+def field_len(n: int) -> int:
+    """A length-delimited field of n bytes (a one-byte tag)."""
+    return 1 + varint_len(n) + n
+
+
+def uint_field_len(v: int) -> int:
+    """A varint field, left out when 0 (proto3)."""
+    return 0 if v == 0 else 1 + varint_len(v)
+
+
+def rq_len(ctx) -> int:
+    """An Rq message: its sum_i nbits_i N / 8 payload bytes, its
+    representation and its degree."""
+    payload = sum(q.nbits for q in ctx.q) * ctx.degree // 8
+    return 2 + uint_field_len(ctx.degree) + field_len(payload)
+
+
+def ksk_len(k) -> int:
+    rows = k.c0.shape[0] * (1 if k.seed is not None else 2)
+    return (rows * field_len(rq_len(k.ctx_ksk))
+            + (field_len(32) if k.seed is not None else 0)
+            + uint_field_len(k.ciphertext_level) + uint_field_len(k.ksk_level)
+            + uint_field_len(k.log_base))
+
+
+def ct_len(ct) -> int:
+    parts = len(ct) - (ct.seed is not None)
+    return (parts * field_len(rq_len(ct.par.context_at_level(ct.level)))
+            + (field_len(32) if ct.seed is not None else 0)
+            + uint_field_len(ct.level))
+
+
+def gk_len(gk) -> int:
+    return field_len(ksk_len(gk.ksk)) + uint_field_len(gk.element.exponent)
+
+
+def wire_len(obj) -> int:
+    """The closed form of obj's wire size: sum_i nbits_i N / 8 bytes a
+    polynomial (a seed 32 bytes), plus the envelope of its messages."""
+    kind = type(obj).__name__
+    if kind == "Poly":
+        return rq_len(obj.ctx)
+    if kind == "Ciphertext":
+        return ct_len(obj)
+    if kind == "SecretKey":
+        zigzag = [2 * c if c >= 0 else -2 * c - 1 for c in obj.coeffs.tolist()]
+        return field_len(sum(varint_len(z) for z in zigzag))
+    if kind == "PublicKey":
+        return field_len(ct_len(obj.c))
+    if kind == "RelinearizationKey":
+        return field_len(ksk_len(obj.ksk))
+    if kind == "GaloisKey":
+        return gk_len(obj)
+    if kind == "EvaluationKey":
+        return (sum(field_len(gk_len(gk)) for gk in obj.gk.values())
+                + uint_field_len(obj.ciphertext_level)
+                + uint_field_len(obj.evaluation_key_level))
+    if kind == "RGSWCiphertext":
+        return field_len(ksk_len(obj.ksk0)) + field_len(ksk_len(obj.ksk1))
+    if kind == "BfvParameters":
+        t = obj.plaintext.value
+        return (uint_field_len(obj.degree())
+                + field_len(sum(varint_len(m) for m in obj.moduli))
+                + uint_field_len(obj.variance)
+                + (1 + varint_len(t) if obj.plaintext.is_small
+                   else field_len((t.bit_length() + 7) // 8)))
+    raise SystemExit(f"no closed form for {kind}")
+
+
+def wire_state(obj) -> list:
+    """What a decoded object must reproduce: its tensors (torch.equal) and
+    its levels, seeds and exponents."""
+    kind = type(obj).__name__
+    if kind == "Poly":
+        return [obj.representation, obj.coeffs] + (
+            [obj.coeffs_shoup] if obj.coeffs_shoup is not None else [])
+    if kind == "Ciphertext":
+        return [obj.level, obj.seed] + list(obj.c)
+    if kind == "SecretKey":
+        return [torch.from_numpy(obj.coeffs)]
+    if kind == "PublicKey":
+        return wire_state(obj.c)
+    if kind == "KeySwitchingKey":
+        return [obj.seed, obj.log_base, obj.ciphertext_level, obj.ksk_level,
+                obj.c0, obj.c0_shoup, obj.c1, obj.c1_shoup]
+    if kind == "RelinearizationKey":
+        return wire_state(obj.ksk)
+    if kind == "GaloisKey":
+        return [obj.element.exponent] + wire_state(obj.ksk)
+    if kind == "EvaluationKey":
+        return ([obj.ciphertext_level, obj.evaluation_key_level, list(obj.gk)]
+                + [x for gk in obj.gk.values() for x in wire_state(gk)]
+                + [x for mono in obj.monomials for x in mono])
+    if kind == "RGSWCiphertext":
+        return wire_state(obj.ksk0) + wire_state(obj.ksk1)
+    return [obj]
+
+
+def same_state(a, b) -> bool:
+    sa, sb = wire_state(a), wire_state(b)
+    return len(sa) == len(sb) and all(
+        (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        for x, y in zip(sa, sb))
+
+
+def wire_case(name, obj, decode, pars) -> object:
+    """Phase 21 for one object: its bytes of the closed-form length,
+    decoded on the card equal to it (torch.equal), decoded on the CPU and
+    serialized again to the same bytes. `decode(data, par)` is the class's
+    decoder; pars = (the card's parameters, the same on the CPU). Returns
+    the card's decoding."""
+    data = obj.to_bytes()
+    torch.cuda.synchronize()
+    want = wire_len(obj)
+    back = decode(data, pars[0])
+    torch.cuda.synchronize()
+    equal = same_state(obj, back)
+    again = decode(data, pars[1]).to_bytes()
+    log(f"  {name}: {len(data)} bytes (closed form {want}), decoded on the "
+        f"card equal {equal}, CPU round trip equal {again == data}")
+    if len(data) != want or not equal or again != data:
+        raise SystemExit(f"wire format: {name} does not round-trip")
+    return back
+
+
+def wire_rate(name, objs, decode, par, card) -> dict:
+    """Serialization and deserialization of `objs` on the card, WIRE_REPS
+    times each, on the host clock (each pass ends on a synchronize):
+    {"bytes", "ser_ms", "de_ms"} with each pass's ms."""
+    ser, de = [], []
+    for _ in range(WIRE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        datas = [o.to_bytes() for o in objs]
+        ser.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        backs = [decode(d, par) for d in datas]
+        torch.cuda.synchronize()
+        de.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(len(d) for d in datas)
+
+    def span(ms):
+        return (f"{min(ms):.1f}-{max(ms):.1f} ms "
+                f"({nbytes / max(ms) / 1e3:.1f}-{nbytes / min(ms) / 1e3:.1f} "
+                f"MB/s)")
+
+    log(f"  {name}: {nbytes} bytes; serialize {span(ser)}, deserialize "
+        f"{span(de)}, host clock, on {card}")
+    return {"bytes": nbytes, "ser_ms": ser, "de_ms": de, "last": backs}
+
+
+def wire_path(par, mp, pk, rot, m, card) -> None:
+    """Phase 21, the wire format: every object kind at BASELINE config 3
+    (phase 4's parameters, keys and pairs, phase 16's public key, a new
+    RGSW ciphertext, a Poly in each representation), phase 6's Galois and
+    evaluation keys (config 4) and phase 20's leveled keys and level-1
+    query (MulPIR), each through wire_case; the decoded ciphertexts
+    decrypted, every slot checked; 64 ciphertexts, the relinearization key
+    and MulPIR's expansion key timed through serialization."""
+    from tpufhe_torch.bfv import (
+        BfvParameters,
+        Ciphertext,
+        Encoding,
+        EvaluationKey,
+        GaloisKey,
+        Plaintext,
+        PublicKey,
+        RelinearizationKey,
+        RGSWCiphertext,
+        SecretKey,
+    )
+    from tpufhe_torch.ops.rq import NTT, Poly
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t = par.plaintext.value
+    rot_par = rot[1].par
+
+    def pair(p):
+        return (p, BfvParameters.try_deserialize(p.to_bytes(), "cpu"))
+
+    cfg3, cfg4, mul = pair(par), pair(rot_par), pair(m.par)
+    for name, p in (("parameters, config 3", par),
+                    ("parameters, config 4", rot_par),
+                    ("parameters, MulPIR", m.par)):
+        wire_case(name, p, lambda d, q: BfvParameters.try_deserialize(
+            d, q.device), pair(p))
+    wire_case("secret key", mp.sk, SecretKey.from_bytes, cfg3)
+    wire_case("public key", pk, PublicKey.from_bytes, cfg3)
+    wire_case("relinearization key", mp.rk, RelinearizationKey.from_bytes,
+              cfg3)
+    ek_rot = rot[1]
+    gk = ek_rot.gk[ek_rot.rot_to_gk_exponent[1]]
+    wire_case("Galois key (config 4)", gk, GaloisKey.from_bytes, cfg4)
+    wire_case("evaluation key, inner sum and expansion (config 4)", ek_rot,
+              EvaluationKey.from_bytes, cfg4)
+    wire_case("MulPIR expansion key (level 1, held at level 0)", m.ek,
+              EvaluationKey.from_bytes, mul)
+    wire_case("MulPIR relinearization key (level 1)", m.rk,
+              RelinearizationKey.from_bytes, mul)
+    rng = ChaCha8Rng(seed_from_u64(WIRE_SEED))
+    rg = RGSWCiphertext.encrypt(mp.sk, Plaintext.try_encode(
+        mp.vb[0], Encoding.simd(), par), rng)
+    wire_case("RGSW ciphertext", rg, RGSWCiphertext.from_bytes, cfg3)
+    ctx = par.context_at_level(0)
+    poly = Poly(ctx, NTT, mp.fresh[0][0])
+    for p in (poly, poly.into_power_basis(), poly.into_ntt_shoup()):
+        wire_case(f"Poly, {p.representation}", p,
+                  lambda d, q, rep=p.representation: Poly.from_bytes(
+                      d, q.context_at_level(0), rep), cfg3)
+
+    # ciphertexts: seeded fresh ones, a product, MulPIR's level-1 query
+    for i in range(2):
+        back = wire_case(f"fresh ciphertext {i} (seeded)", mp.fresh[i],
+                         Ciphertext.from_bytes, cfg3)
+        check_parts(f"decoded fresh ciphertext {i}", par, mp.sk,
+                    Ciphertext(par, [x[None] for x in back.c], 0),
+                    mp.va[i:i + 1])
+    c0, c1 = mp.product
+    back = wire_case("product ciphertext", Ciphertext(par, [c0[0], c1[0]], 0),
+                     Ciphertext.from_bytes, cfg3)
+    query = m.query_cts[0]
+    back_q = wire_case("MulPIR query (level 1, seeded)", query,
+                       Ciphertext.from_bytes, mul)
+    got = m.sk.try_decrypt(back_q).try_decode(Encoding.poly(1))
+    want = m.sk.try_decrypt(query).try_decode(Encoding.poly(1))
+    if back_q.level != 1 or not np.array_equal(got, want) or \
+            np.count_nonzero(got) != 2:
+        raise SystemExit("wire format: the decoded query decrypts wrong")
+    log(f"  decoded query: level 1, its two selectors {got[got != 0]}")
+
+    # timed: 64 products, the relinearization key, MulPIR's expansion key
+    cts = [Ciphertext(par, [c0[i], c1[i]], 0) for i in range(c0.shape[0])]
+    rate = wire_rate(f"{len(cts)} product ciphertexts", cts,
+                     Ciphertext.from_bytes, par, card)
+    decoded = rate.pop("last")
+    check_parts(f"{len(decoded)} decoded products", par, mp.sk,
+                Ciphertext(par, [torch.stack([c[i] for c in decoded])
+                                 for i in (0, 1)], 0),
+                (mp.va.astype(object) * mp.vb % t).astype(np.uint64))
+    wire_rate("relinearization key", [mp.rk], RelinearizationKey.from_bytes,
+              par, card).pop("last")
+    wire_rate("MulPIR expansion key", [m.ek], EvaluationKey.from_bytes,
+              m.par, card).pop("last")
+
+
+def walkthroughs(card: str) -> None:
+    """Phase 22's walkthroughs at degree 8192 on 3 x 62-bit moduli, t =
+    65537: every (got, want) pair of run_bfv_basic, run_bfv_ops and
+    run_rgsw equal; their noise and wire sizes printed."""
+    from tpufhe_torch.models import run_bfv_basic, run_bfv_ops, run_rgsw
+
+    for fn in (run_bfv_basic, run_bfv_ops, run_rgsw):
+        t0 = time.perf_counter()
+        res = fn(num_moduli=APP_MODULI, degree=DEGREE,
+                 plaintext_modulus=PLAINTEXT)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pairs = {k: v for k, v in res.items()
+                 if k not in ("noise_bits", "bytes")}
+        bad = [k for k, (got, want) in pairs.items() if got != want]
+        log(f"  {fn.__name__}: {len(pairs)} results, wrong {bad}, noise "
+            f"{res.get('noise_bits')} bits, bytes {res.get('bytes')}, "
+            f"{secs:.2f} s on {card}")
+        if bad:
+            raise SystemExit(f"{fn.__name__}: {bad} differ")
+
+
+def rgsw_batch(par, mp, card: str) -> float:
+    """Phase 22: the external product of phase 4's 64 ciphertexts of va by
+    one RGSW ciphertext of vb[0] (seed 2039), held to its launch counts,
+    every slot of its decryption equal to va vb[0] mod t, as are the
+    decryptions of make_mul_relin on the same pairs; then chained
+    external products timed with CUDA events. Returns products/s."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding, Plaintext, RGSWCiphertext
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t = par.plaintext.value
+    rng = ChaCha8Rng(seed_from_u64(RGSW_SEED))
+    rg = RGSWCiphertext.encrypt(mp.sk, Plaintext.try_encode(
+        mp.vb[0], Encoding.simd(), par), rng)
+    a0, a1, b0, b1 = mp.inputs
+    ca = Ciphertext(par, [a0, a1], 0)
+    out, _ = run_counted(f"external product of {RGSW_BATCH} ciphertexts",
+                         rg.external_product, (ca,), RGSW_LAUNCHES)
+    want = (mp.va.astype(object) * mp.vb[0] % t).astype(np.uint64)
+    check_parts("external product", par, mp.sk, out, want)
+    r0, r1 = mp.step(a0, a1, b0[:1].expand_as(b0).contiguous(),
+                     b1[:1].expand_as(b1).contiguous())
+    check_parts("make_mul_relin of the same pairs", par, mp.sk,
+                Ciphertext(par, [r0, r1], 0), want)
+
+    def chained():
+        c = ca
+        for _ in range(RGSW_CHAIN):
+            c = rg.external_product(c)
+        return c[0]
+
+    ms = time_ms(chained, 1) / RGSW_CHAIN
+    rate = RGSW_BATCH / ms * 1e3
+    log(f"  {RGSW_CHAIN} chained external products at batch {RGSW_BATCH}: "
+        f"{ms:.3f} ms/step, {rate:.1f} external products/s on {card}")
+    return rate
+
+
+def large_t_path(card: str) -> None:
+    """Phase 22, t = 2^127 - 1 at N = 8192, 5 x 60-bit (seed 2040): 2 x 16
+    encryptions of random coefficients below t (the second operand with
+    BIGT_SPARSE nonzero coefficients), each decrypted; ct_add and ct_mul
+    without relinearization of the batch (ntt 6, rns_scale 3, tensor 1;
+    K2's down-scale by t / q_mul, a 127-bit numerator), every coefficient
+    against exact Python-int arithmetic (the negacyclic product)."""
+    from tpufhe_torch.bfv import (
+        BfvParametersBuilder,
+        Ciphertext,
+        Encoding,
+        Plaintext,
+        SecretKey,
+        ct_add,
+        ct_mul,
+    )
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    big, n = BIGT_PLAINTEXT, DEGREE
+    par = (BfvParametersBuilder().set_degree(n).set_plaintext_modulus(big)
+           .set_moduli_sizes(BIGT_MODULI_SIZES).build())
+    rng = ChaCha8Rng(seed_from_u64(BIGT_SEED))
+    sk = SecretKey.random(par, rng)
+    gen = np.random.default_rng(BIGT_SEED)
+    a = [[int.from_bytes(gen.bytes(16), "little") % big for _ in range(n)]
+         for _ in range(BIGT_BATCH)]
+    b = []
+    for _ in range(BIGT_BATCH):
+        row = [0] * n
+        for j in gen.choice(n, BIGT_SPARSE, replace=False):
+            row[int(j)] = int.from_bytes(gen.bytes(16), "little") % big
+        b.append(row)
+    t0 = time.perf_counter()
+    ca, cb = ([sk.try_encrypt(Plaintext.try_encode(v, Encoding.poly(), par),
+                              rng) for v in vs] for vs in (a, b))
+    torch.cuda.synchronize()
+    log(f"  {2 * BIGT_BATCH} encryptions {time.perf_counter() - t0:.2f} s")
+
+    def rows(ct):
+        return [Ciphertext(par, [x[i] for x in ct.c], 0)
+                for i in range(ct[0].shape[0])]
+
+    def check(name, cts, want):
+        t0 = time.perf_counter()
+        bad = sum(sum(int(x) != y for x, y in zip(
+            sk.try_decrypt(c).try_decode(Encoding.poly()), w))
+            for c, w in zip(cts, want))
+        log(f"  {name}: {len(cts)} ciphertexts, {len(cts) * n} coefficients "
+            f"decrypted, wrong {bad}, noise {sk.measure_noise(cts[0])} bits "
+            f"of {sum(BIGT_MODULI_SIZES)}, {time.perf_counter() - t0:.2f} s")
+        if bad:
+            raise SystemExit(f"large t: {name}: {bad} coefficients wrong")
+
+    check("encrypt, decrypt", ca, a)
+    batch = [Ciphertext(par, [torch.stack([c[i] for c in cs]) for i in (0, 1)],
+                        0) for cs in (ca, cb)]
+    check("ct_add", rows(ct_add(*batch)),
+          [[(x + y) % big for x, y in zip(u, v)] for u, v in zip(a, b)])
+    prod, _ = run_counted(f"ct_mul of {BIGT_BATCH} pairs, t = 2^127 - 1",
+                          ct_mul, batch, BIGT_MUL_LAUNCHES)
+    want = []
+    for u, v in zip(a, b):
+        w = [0] * n
+        for j, vj in enumerate(v):
+            if vj:
+                for i, ui in enumerate(u):
+                    k = i + j
+                    if k < n:
+                        w[k] += ui * vj
+                    else:
+                        w[k - n] -= ui * vj
+        want.append([x % big for x in w])
+    check("ct_mul without relinearization", rows(prod), want)
+
+
+def pir_apps(card: str) -> dict:
+    """Phase 22's PIR: run_mulpir (repeat=2: index and index + 1) and
+    run_sealpir at 65,536 x 1 KiB, N = 8192, the paper's t and moduli,
+    through models.pir on the card (the programs), each retrieving its
+    elements byte for byte, each server phase of each query held to its
+    exact launch counts (PhaseLaunches), the report printed; then the CLI
+    (models.pir.main) for each scheme at PIR_CLI_ELEMENTS, and MulPIR's
+    object-API path (fused=False) at that size retrieving what the
+    programs do. Returns {scheme: report}."""
+    from tpufhe_torch.models import pir
+
+    out = {}
+    for scheme, run, expected, kw in (
+            ("mulpir", pir.run_mulpir, MULPIR_APP_LAUNCHES, {"repeat": 2}),
+            ("sealpir", pir.run_sealpir, SEALPIR_APP_LAUNCHES, {})):
+        report: dict = {}
+        t0 = time.perf_counter()
+        with PhaseLaunches() as phases:
+            got, want = run(MULPIR_ELEMENTS, MULPIR_ELEMENT_BYTES,
+                            MULPIR_DEGREE, MULPIR_PLAINTEXT,
+                            MULPIR_MODULI_SIZES, report=report, **kw)
+        secs = time.perf_counter() - t0
+        log(f"  {scheme}: {MULPIR_ELEMENTS} x {MULPIR_ELEMENT_BYTES} B, "
+            f"retrieved {'the right' if got == want else 'a WRONG'} element"
+            f"{' (and, warm, index + 1)' if kw else ''} in {secs:.2f} s on "
+            f"{card}")
+        if got != want:
+            raise SystemExit(f"{scheme}: wrong element retrieved")
+        for label, launches in phases.launches.items():
+            phase = label.split("/")[1].removesuffix("_warm")
+            held = phase in expected
+            log(f"    {label}: {report.get(label.split('/')[1] + '_s', 0) * 1e3:.3f} "
+                f"ms, launches {launches}{' (held)' if held else ''}")
+            if held and launches != expected[phase]:
+                raise SystemExit(f"{label}: launches {launches}, expected "
+                                 f"{expected[phase]}")
+        missing = [p for p in expected if f"{scheme}/{p}" not in phases.launches]
+        if missing:
+            raise SystemExit(f"{scheme}: phases {missing} did not run")
+        log(f"    report {json.dumps(report)}")
+        out[scheme] = report
+    for scheme in ("mulpir", "sealpir"):
+        t0 = time.perf_counter()
+        args = ["--scheme", scheme, "--database-size", str(PIR_CLI_ELEMENTS),
+                "--element-size", str(MULPIR_ELEMENT_BYTES), "--degree",
+                str(MULPIR_DEGREE)]
+        rc = pir.main(args)
+        log(f"  python -m tpufhe_torch.models.pir {' '.join(args)}: exit {rc}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        if rc != 0:
+            raise SystemExit(f"the {scheme} CLI failed")
+    answers = []
+    for fused in (True, False):
+        report = {}
+        got, want = pir.run_mulpir(PIR_CLI_ELEMENTS, MULPIR_ELEMENT_BYTES,
+                                   MULPIR_DEGREE, MULPIR_PLAINTEXT,
+                                   MULPIR_MODULI_SIZES, report=report,
+                                   fused=fused)
+        answers.append(got)
+        log(f"  mulpir at {PIR_CLI_ELEMENTS} x {MULPIR_ELEMENT_BYTES} B, "
+            f"{'programs' if fused else 'object API'}: "
+            f"{'right' if got == want else 'WRONG'} element, expand "
+            f"{report['expand_s'] * 1e3:.3f} ms, response "
+            f"{report['response_s'] * 1e3:.3f} ms")
+        if got != want:
+            raise SystemExit("mulpir: wrong element retrieved")
+    if answers[0] != answers[1]:
+        raise SystemExit("mulpir: the object API retrieved another element")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2962,7 +3573,7 @@ def main() -> int:
     dot_launches, _ = dot_path(par_rot, card)
 
     log("phase 16: the object API at BASELINE config 3")
-    object_api_path(par, mp, variants)
+    pk = object_api_path(par, mp, variants)
 
     log(f"phase 17: the single-modulus key switch, N = {K1_DEGREE}, 1 x 62-bit")
     single_modulus_path(par_k1)
@@ -2978,6 +3589,24 @@ def main() -> int:
         f"{MULPIR_MODULI_SIZES} bits, {MULPIR_ELEMENTS} elements of "
         f"{MULPIR_ELEMENT_BYTES} bytes")
     path_launches |= mulpir_path(mulpir, mulpir_records, card)["launches"]
+
+    log("phase 21: the wire format at BASELINE config 3")
+    with KernelRecorder("phase 21") as rec21:
+        wire_path(par, mp, pk, programs["keys"], mulpir, card)
+    torch.cuda.empty_cache()
+    log(f"phase 22: the applications, N = {DEGREE}")
+    with KernelRecorder("phase 22") as rec22:
+        walkthroughs(card)
+        rgsw_batch(par, mp, card)
+        large_t_path(card)
+        pir_apps(card)
+    log("phase 3 at the calls of phases 21 and 22")
+    app_records = {
+        "wire_format": check_recorded(rec21, int32_rate, "per phase-21 run",
+                                      None),
+        "applications": check_recorded(rec22, int32_rate, "per phase-22 run",
+                                       None)}
+    del rec21, rec22
     # each PIR program's launches from its counted run in phase 19 or 20
     # (the key generation's from its recorded run, counted likewise)
     program_records = pir_records | mulpir_records
@@ -3023,7 +3652,7 @@ def main() -> int:
                       ("default128", d128_records)):
         for name, rec in recs.items():
             other_shapes[name][tag] = rec
-    for tag, recs in program_records.items():
+    for tag, recs in (program_records | app_records).items():
         for name, rec in recs.items():
             other_shapes[name][tag] = rec
     for tag, routes in (("pir", pir_routes), ("mulpir", mulpir_routes)):
@@ -3048,7 +3677,7 @@ def main() -> int:
             entry["other_shapes"] = {
                 label: {k: rec[k] for k in
                         ("ms", "plain_ms", "bound_ms", "bound_by", "split_ms",
-                         "launches") + tail_keys if k in rec}
+                         "launches", "item_ms") + tail_keys if k in rec}
                 | {"shape": rec.get("shapes", rec.get("label"))}
                 for label, rec in other_shapes[name].items()}
         entry |= {k: r[k] for k in ("split_ms",) + tail_keys if k in r}

@@ -17,7 +17,9 @@ def test_import_pulls_in_no_jax_and_no_tpufhe():
         "import tpufhe_torch.bfv.ops, tpufhe_torch.bfv.keys.evaluation_key\n"
         "import tpufhe_torch.bfv.keys.galois_key, tpufhe_torch.native\n"
         "import tpufhe_torch.ops.intt_scale, tpufhe_torch.ops.zq32\n"
-        "from tpufhe_torch.utils import rngs, sampling\n"
+        "from tpufhe_torch.utils import rngs, sampling, obs, transcode\n"
+        "import tpufhe_torch.serialize, tpufhe_torch.traits\n"
+        "import tpufhe_torch.bfv.rgsw, tpufhe_torch.models\n"
         "assert tpufhe_torch.native.lib() is not None, tpufhe_torch.native.error\n"
         "rngs.ChaCha8Rng(rngs.seed_from_u64(1)).fill_bytes(1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -40,7 +42,9 @@ def test_sources_never_import_tpufhe_or_jax():
     assert len(files) > 10
     for new in ("bfv/ops.py", "bfv/keys/galois_key.py",
                 "bfv/keys/evaluation_key.py", "native/__init__.py",
-                "ops/intt_scale.py", "ops/zq32.py"):
+                "ops/intt_scale.py", "ops/zq32.py", "serialize/codecs.py",
+                "serialize/proto.py", "models/pir.py", "models/util.py",
+                "bfv/rgsw.py", "traits.py", "utils/transcode.py"):
         assert ROOT / "tpufhe_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]

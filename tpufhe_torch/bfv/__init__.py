@@ -29,6 +29,7 @@ from tpufhe_torch.bfv.parameters import (
     PlaintextModulus,
 )
 from tpufhe_torch.bfv.plaintext import Plaintext, PlaintextVec
+from tpufhe_torch.bfv.rgsw import RGSWCiphertext
 
 __all__ = [
     "BfvParameters",
@@ -38,6 +39,7 @@ __all__ = [
     "Plaintext",
     "PlaintextVec",
     "Ciphertext",
+    "RGSWCiphertext",
     "SecretKey",
     "PublicKey",
     "KeySwitchingKey",

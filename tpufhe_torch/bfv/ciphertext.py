@@ -113,3 +113,17 @@ class Ciphertext:
         if isinstance(other, Ciphertext):
             return ops.ct_mul(self, other)
         return ops.ct_mul_pt(self, other)
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_ciphertext
+
+        return serialize_ciphertext(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "Ciphertext":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_ciphertext
+
+        return deserialize_ciphertext(data, par)

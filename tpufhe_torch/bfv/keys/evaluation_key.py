@@ -130,6 +130,20 @@ class EvaluationKey:
         m = 2 * par.degree()
         return {i: pow(3, i, m) for i in range(1, par.degree() // 2)}
 
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_evaluation_key
+
+        return serialize_evaluation_key(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "EvaluationKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_evaluation_key
+
+        return deserialize_evaluation_key(data, par)
+
 
 def monomials(ctx) -> list:
     """x^{-2^l} for l < log2 N in the NTT domain of ctx, each as (values,

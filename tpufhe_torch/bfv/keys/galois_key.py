@@ -54,3 +54,17 @@ class GaloisKey:
         step = _rotate_step(self.element.ctx, self.element, self.ksk)
         c0, c1 = step(ct[0], ct[1])
         return Ciphertext(ct.par, [c0, c1], self.ksk.ciphertext_level)
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_galois_key
+
+        return serialize_galois_key(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "GaloisKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_galois_key
+
+        return deserialize_galois_key(data, par)

@@ -19,31 +19,19 @@ stored by bit pattern), which the key-switch accumulate consumes.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tpufhe_torch.errors import InvalidContext, TooFewValues
-from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.rns import RnsContext
 from tpufhe_torch.ops.rq import (
     from_i64_coeffs,
     ntt_backward,
     ntt_forward,
     random_rows,
+    shoup_of,
 )
 from tpufhe_torch.utils.rngs import ChaCha8Rng, expand_seed
 from tpufhe_torch.utils.sampling import sample_vec_cbd
-
-
-def shoup_of(x: torch.Tensor, moduli) -> torch.Tensor:
-    """Shoup constants of canonical (..., k, N) residues, same device and
-    word type: floor(v 2^64 / p) for int64 rows, floor(v 2^32 / p) for the
-    int32 rows of a narrow context (tpufhe's shoup32)."""
-    vals = x.cpu().numpy()
-    if x.dtype == torch.int32:
-        return torch.from_numpy(zq32.shoup_array(vals, moduli)).to(x.device)
-    arr = zq.shoup_array(vals.astype(np.uint64), moduli)
-    return torch.from_numpy(zq.as_int64(arr)).to(x.device)
 
 
 def next_pow2_ilog2(x: int) -> int:
@@ -143,3 +131,17 @@ class KeySwitchingKey:
                 "The input polynomial does not have the correct context")
         c = key_switch(self.ctx_ksk, p, self)
         return c[0], c[1]
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_ksk
+
+        return serialize_ksk(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "KeySwitchingKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_ksk
+
+        return deserialize_ksk(data, par)

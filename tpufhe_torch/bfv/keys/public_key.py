@@ -47,3 +47,17 @@ class PublicKey:
         c0, c1 = self._encrypt_fn(ct.level)(u, e1, e2, pt.to_poly(), ct[0],
                                             ct[1])
         return Ciphertext(self.par, [c0, c1], ct.level)
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_public_key
+
+        return serialize_public_key(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "PublicKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_public_key
+
+        return deserialize_public_key(data, par)

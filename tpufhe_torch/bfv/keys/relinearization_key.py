@@ -70,3 +70,17 @@ class RelinearizationKey:
         """The key switch (c0, c1) of power-basis c2, NTT domain of the
         key's context."""
         return self.ksk.key_switch(c2)
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_relinearization_key
+
+        return serialize_relinearization_key(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "RelinearizationKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_relinearization_key
+
+        return deserialize_relinearization_key(data, par)

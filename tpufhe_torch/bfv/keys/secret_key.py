@@ -4,8 +4,8 @@ The port of tpufhe/bfv/keys/secret_key.py (fhe/src/bfv/keys/secret_key.rs):
 - encrypt_poly: b = e - a*s + m with a expanded from a fresh 32-byte seed,
   in the reference's draw order (seed, then the CBD error);
 - try_decrypt: phase c0 + c1 s (+ c2 s^2 ...) -> t/q scale -> the
-  host-side mod-t fold of the first plaintext-context row
-  (secret_key.rs:200-282);
+  host-side mod-t fold of the first plaintext-context row, or for a large
+  t of every row, CRT-lifted (secret_key.rs:200-282);
 - measure_noise: decrypt, re-encode, report the largest noise in bits.
 """
 
@@ -106,6 +106,14 @@ class SecretKey:
             cp = self.par.context_level_at(ct.level).cipher_plain_context
             d = cp.scaler.rns_scaler.scale(ntt_backward(ctx, self._phase(ct)))
         t = self.par.plaintext.value
+        if not self.par.plaintext.is_small:
+            # every plaintext-context row, CRT-lifted (secret_key.rs:131-142)
+            plain = self.par.context_level_at(ct.level
+                                              ).cipher_plain_context
+            q_plain = plain.plaintext_context.modulus()
+            value = [((v + t) % q_plain) % t for v in
+                     lift_bigints(plain.plaintext_context, d)]
+            return Plaintext(self.par, value, None, ct.level)
         q0 = self.par.moduli[0]
         row0 = d[0].cpu().numpy().astype(np.uint64)
         value = ((row0 + np.uint64(t)) % np.uint64(q0)) % np.uint64(t)
@@ -121,3 +129,17 @@ class SecretKey:
         for coeff in lift_bigints(ctx, c):
             noise = max(noise, min(coeff.bit_length(), (q - coeff).bit_length()))
         return noise
+
+    # the Serialize / DeserializeParametrized traits
+    # (fhe-traits/src/lib.rs:128-154)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_secret_key
+
+        return serialize_secret_key(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, par) -> "SecretKey":
+        """The object of `data`, its tensors on par's device."""
+        from tpufhe_torch.serialize.codecs import deserialize_secret_key
+
+        return deserialize_secret_key(data, par)

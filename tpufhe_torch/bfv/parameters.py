@@ -8,7 +8,9 @@ q mod t and the t/q decryption scaler, the extended multiplication basis
 2^30) with each level's extender and down-scaler, and the SEAL
 batch-encoder permutation. Everything here is host-side precomputation
 with exact Python ints; `device` says where the contexts keep their tables
-and where every entry point built on these parameters runs.
+and where every entry point built on these parameters runs. The plaintext
+modulus may be large (62 bits and more, parameters.rs:23-69): such sets
+have no SIMD encoding, and their plaintexts hold Python ints.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from tpufhe_torch.ops.rq import Context, Scaler
 from tpufhe_torch.ops.zq import Modulus
 from tpufhe_torch.utils.primes import generate_prime
 
-# variance of the centered-binomial error and key distributions
-# (parameters.rs default)
+# BfvParametersBuilder's default variance of the centered-binomial error
+# and key distributions (parameters.rs default); set_variance takes 1..=16
 VARIANCE = 10
 
 # the ciphertext moduli of the default sets of about 128-bit security, by
@@ -49,15 +51,13 @@ DEFAULT_128_MODULI = {
 
 
 class PlaintextModulus:
-    """The plaintext space; only small moduli (< 2^62) are ported."""
+    """Small (below 2^62, with Modulus ops) or large (any int) plaintext
+    space (parameters.rs:23-69)."""
 
     def __init__(self, t: int):
         self.value = int(t)
         self.is_small = self.value < (1 << 62)
-        if not self.is_small:
-            raise ParametersError("plaintext moduli of 62 bits and more are "
-                                  "not supported by tpufhe_torch yet")
-        self.modulus = Modulus(self.value)
+        self.modulus = Modulus(self.value) if self.is_small else None
 
     def __eq__(self, other):
         return isinstance(other, PlaintextModulus) and self.value == other.value
@@ -198,6 +198,20 @@ class BfvParameters:
             .build()
         )
 
+    # the Serialize / Deserialize traits (fhe-traits/src/lib.rs:128-146)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_parameters
+
+        return serialize_parameters(self)
+
+    @staticmethod
+    def try_deserialize(data: bytes, device=None) -> "BfvParameters":
+        """The parameters of `data`, built on `device` (the card unless
+        "cpu")."""
+        from tpufhe_torch.serialize.codecs import deserialize_parameters
+
+        return deserialize_parameters(data, device)
+
 
 class BfvParametersBuilder:
     """Builder mirroring parameters.rs:313-641."""
@@ -205,6 +219,7 @@ class BfvParametersBuilder:
     def __init__(self):
         self._degree = 0
         self._plaintext = 0
+        self._variance = VARIANCE
         self._moduli: list[int] = []
         self._moduli_sizes: list[int] = []
         self._device = None
@@ -223,6 +238,12 @@ class BfvParametersBuilder:
 
     def set_moduli_sizes(self, sizes) -> "BfvParametersBuilder":
         self._moduli_sizes = list(sizes)
+        return self
+
+    def set_variance(self, variance: int) -> "BfvParametersBuilder":
+        """The variance of the error and key distributions, 1..=16 (checked
+        by build)."""
+        self._variance = variance
         return self
 
     def set_device(self, device) -> "BfvParametersBuilder":
@@ -257,6 +278,8 @@ class BfvParametersBuilder:
         degree = self._degree
         if degree < 8 or (degree & (degree - 1)) != 0:
             raise ParametersError("invalid degree")
+        if not (1 <= self._variance <= 16):
+            raise ParametersError("invalid variance")
 
         plaintext = PlaintextModulus(self._plaintext)
         t = plaintext.value
@@ -291,10 +314,12 @@ class BfvParametersBuilder:
                                     narrow)
 
         # plaintext-space NTT for SIMD (None when t does not support it)
-        try:
-            ntt_operator = Context((t,), degree, device)
-        except ValueError:
-            ntt_operator = None
+        ntt_operator = None
+        if plaintext.is_small:
+            try:
+                ntt_operator = Context((t,), degree, device)
+            except ValueError:
+                ntt_operator = None
 
         nodes = []
         for lvl in range(len(moduli)):
@@ -369,7 +394,7 @@ class BfvParametersBuilder:
             degree=degree,
             moduli=moduli,
             moduli_sizes=moduli_sizes,
-            variance=VARIANCE,
+            variance=self._variance,
             context_chain=nodes,
             ntt_operator=ntt_operator,
             plaintext=plaintext,

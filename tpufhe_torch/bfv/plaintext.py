@@ -3,7 +3,9 @@
 SIMD encoding is the SEAL batch encoder: apply the matrix_reps permutation,
 then an inverse NTT over Z_t; decoding is the forward NTT followed by the
 permutation. Both run as single-limb NTTs over the plaintext modulus (K1 on
-the card). Only small plaintext moduli (t < 2^62) are ported.
+the card). A large plaintext modulus (62 bits and more) takes polynomial
+encoding only; its values are Python ints, lifted through the RNS
+(Poly.from_bigint_coeffs; plaintext.rs:57, 144-161).
 
 A plaintext keeps two polynomials of its level's context in the NTT
 domain: ``to_poly()``, Delta m, which encryption and ct_add_pt take, and
@@ -22,7 +24,12 @@ from tpufhe_torch.bfv.encoding import POLY, SIMD, Encoding
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import EncodingMismatch, SimdNotSupported, TooManyValues
 from tpufhe_torch.ops import zq
-from tpufhe_torch.ops.rq import from_u64_coeffs, ntt_backward, ntt_forward
+from tpufhe_torch.ops.rq import (
+    Poly,
+    from_u64_coeffs,
+    ntt_backward,
+    ntt_forward,
+)
 
 
 @dataclass
@@ -30,7 +37,7 @@ class Plaintext:
     """An encoded plaintext: its coefficients mod t, encoding and level."""
 
     par: BfvParameters
-    value: np.ndarray  # (N,) uint64 coefficients in [0, t)
+    value: np.ndarray | list  # (N,) uint64 (small t) or N ints (large t)
     encoding: Encoding | None
     level: int
     _poly_ntt: torch.Tensor | None = field(default=None, repr=False,
@@ -42,9 +49,21 @@ class Plaintext:
         enc_eq = (self.encoding == other.encoding
                   if self.encoding is not None and other.encoding is not None
                   else True)
-        return (self.par == other.par
-                and bool(np.array_equal(self.value, other.value))
+        if isinstance(self.value, np.ndarray) and isinstance(other.value,
+                                                             np.ndarray):
+            values_eq = bool(np.array_equal(self.value, other.value))
+        else:
+            values_eq = ([int(v) for v in self.value]
+                         == [int(v) for v in other.value])
+        return (self.par == other.par and values_eq
                 and self.level == other.level and enc_eq)
+
+    def _lift(self, values, ctx) -> torch.Tensor:
+        """Coefficients into ctx's power basis, (k, N): uint64 values, or
+        Python ints through the RNS for a large t."""
+        if self.par.plaintext.is_small:
+            return from_u64_coeffs(values, ctx)
+        return Poly.from_bigint_coeffs(values, ctx).coeffs
 
     @property
     def poly_ntt(self) -> torch.Tensor:
@@ -52,7 +71,7 @@ class Plaintext:
         without Delta; computed on first use and kept."""
         if self._poly_ntt is None:
             ctx = self.par.context_at_level(self.level)
-            self._poly_ntt = ntt_forward(ctx, from_u64_coeffs(self.value, ctx))
+            self._poly_ntt = ntt_forward(ctx, self._lift(self.value, ctx))
         return self._poly_ntt
 
     @staticmethod
@@ -60,18 +79,18 @@ class Plaintext:
         ctx = par.context_at_level(encoding.level)
         poly = torch.zeros((ctx.k, ctx.degree), dtype=ctx.dtype,
                            device=ctx.device)
-        return Plaintext(par, np.zeros(par.degree(), dtype=np.uint64),
-                         encoding, encoding.level, poly)
+        value = (np.zeros(par.degree(), dtype=np.uint64)
+                 if par.plaintext.is_small else [0] * par.degree())
+        return Plaintext(par, value, encoding, encoding.level, poly)
 
     def to_poly(self) -> torch.Tensor:
         """Delta * m in the NTT domain, (k, N) (plaintext.rs:71-98)."""
         ctx_lvl = self.par.context_level_at(self.level)
         cp = ctx_lvl.cipher_plain_context
         t = self.par.plaintext.value
-        m_v = np.array([(int(v) * cp.q_mod_t) % t for v in self.value],
-                       dtype=np.uint64)
+        m_v = [(int(v) * cp.q_mod_t) % t for v in self.value]
         ctx = ctx_lvl.poly_context
-        m = ntt_forward(ctx, from_u64_coeffs(m_v, ctx))
+        m = ntt_forward(ctx, self._lift(m_v, ctx))
         return ctx.mul(m, cp.delta)
 
     @staticmethod
@@ -96,7 +115,8 @@ class Plaintext:
         if encoding is not None and enc != encoding:
             raise EncodingMismatch(enc, encoding)
         if enc.encoding == POLY:
-            return self.value.copy()
+            return (self.value.copy() if isinstance(self.value, np.ndarray)
+                    else list(self.value))
         if self.par.ntt_operator is None:
             raise SimdNotSupported("no plaintext NTT for these parameters")
         x = torch.from_numpy(zq.as_int64(self.value)).to(self.par.device)
@@ -105,8 +125,12 @@ class Plaintext:
 
     def try_decode_i64(self, encoding: Encoding | None = None) -> np.ndarray:
         """The decoded values as signed integers: v - t where v >= t / 2."""
-        v = self.try_decode(encoding).astype(np.int64)
         t = self.par.plaintext.value
+        v = self.try_decode(encoding)
+        if not self.par.plaintext.is_small:
+            return np.array([int(x) - t if int(x) >= (t >> 1) else int(x)
+                             for x in v], dtype=np.int64)
+        v = v.astype(np.int64)
         return np.where(v >= (t >> 1), v - t, v)
 
 
@@ -125,6 +149,13 @@ class PlaintextVec(list):
         n = par.degree()
         out = []
         for start in range(0, len(values), n):
+            if not par.plaintext.is_small:
+                if encoding.encoding == SIMD:
+                    raise SimdNotSupported("large plaintext modulus")
+                chunk = values[start:start + n]
+                v = chunk + [0] * (n - len(chunk))
+                out.append(Plaintext(par, v, encoding, encoding.level))
+                continue
             chunk = np.asarray(values[start:start + n], dtype=np.uint64)
             v = np.zeros(n, dtype=np.uint64)
             if encoding.encoding == POLY:

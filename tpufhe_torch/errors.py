@@ -1,6 +1,6 @@
-"""Typed exceptions: the subset of tpufhe/errors.py that the port raises
-(fhe/src/errors.rs, fhe-math/src/errors.rs). Every error subclasses
-ValueError, as in tpufhe."""
+"""Typed exceptions: the port's copy of tpufhe/errors.py
+(fhe/src/errors.rs:15-130, fhe-math/src/errors.rs:11-40), the same names,
+bases and messages. Every error subclasses ValueError, as in tpufhe."""
 
 from __future__ import annotations
 
@@ -32,6 +32,21 @@ class NoMoreContext(MathError):
         super().__init__("This is the last context.")
 
 
+class IncorrectRepresentation(MathError):
+    def __init__(self, got, expected):
+        super().__init__(
+            f"Incorrect representation: got {got!r}, expected {expected!r}."
+        )
+        self.got, self.expected = got, expected
+
+
+class InvalidSeedSize(MathError):
+    def __init__(self, got: int, expected: int):
+        super().__init__(
+            f"Invalid seed: got {got} bytes, expected {expected} bytes."
+        )
+
+
 class ContextMismatch(FheError):
     def __init__(self, reason: str = "Context mismatch"):
         super().__init__(reason)
@@ -42,6 +57,16 @@ class EncodingMismatch(FheError):
         super().__init__(
             f"Encoding mismatch: found {found}, expected {expected}"
         )
+
+
+class EncodingNotSupported(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Encoding not supported: {reason}")
+
+
+class DataExceedsModulus(FheError):
+    def __init__(self, value: int, modulus: int):
+        super().__init__(f"Data value {value} exceeds modulus {modulus}")
 
 
 class TooManyValues(FheError):
@@ -87,6 +112,16 @@ class InvalidCiphertext(FheError):
         super().__init__(f"Invalid ciphertext: {reason}")
 
 
+class InvalidPlaintext(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Invalid plaintext: {reason}")
+
+
+class InvalidSecretKey(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Invalid secret key: {reason}")
+
+
 class InvalidGaloisElement(FheError):
     def __init__(self, element: int, reason: str):
         super().__init__(f"Invalid Galois element {element}: {reason}")
@@ -100,3 +135,13 @@ class InvalidRotationStep(FheError):
 class DimensionMismatch(FheError):
     def __init__(self, reason: str):
         super().__init__(f"Dimension mismatch: {reason}")
+
+
+class SerializationError(FheError):
+    def __init__(self, reason: str):
+        super().__init__(f"Serialization error: {reason}")
+
+
+class UnexpectedError(FheError):
+    def __init__(self, message: str):
+        super().__init__(f"Unexpected error: {message}")

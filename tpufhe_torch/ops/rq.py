@@ -1,8 +1,9 @@
 """Polynomials in R_q[x] = Z_q[x]/(x^N + 1) with RNS coefficients: the
-subset of tpufhe.ops.rq that the BFV operations, the multiply +
-relinearize and the Galois rotation paths need, with the modulus
-switch-down, the context-to-context scaler and switcher, and the
-deferred-reduction dot product.
+port of tpufhe.ops.rq (fhe-math/src/rq/): contexts, the functions on
+coefficient tensors that the BFV operations and programs call (the NTT,
+the modulus switch-down, the Galois substitution, the context-to-context
+scaler and switcher, the deferred-reduction dot product), and ``Poly``,
+the object API's typestate over one tensor.
 
 Coefficients are tensors shaped (..., k, N), one canonical residue per
 word (int64, or int32 for a narrow w30 context), in power basis or in
@@ -17,10 +18,13 @@ import torch
 
 from tpufhe_torch.device import resolve_device
 from tpufhe_torch.errors import (
+    ContextMismatch,
+    IncorrectRepresentation,
     InvalidContext,
     InvalidGaloisElement,
     NoMoreContext,
     TooFewValues,
+    UnsupportedOperation,
 )
 from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops import zq, zq32
@@ -28,6 +32,11 @@ from tpufhe_torch.ops.dot import ct_pt_dot
 from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
 from tpufhe_torch.ops.zq import Modulus
 from tpufhe_torch.utils.rngs import expand_seed
+from tpufhe_torch.utils.sampling import sample_vec_cbd
+
+POWER_BASIS = "power"
+NTT = "ntt"
+NTT_SHOUP = "ntt_shoup"
 
 _CONTEXT_CACHE: dict = {}
 
@@ -248,6 +257,18 @@ def random_from_seed(ctx: Context, seed: bytes) -> torch.Tensor:
     return random_rows(ctx, expand_seed(seed))
 
 
+def shoup_of(x: torch.Tensor, moduli) -> torch.Tensor:
+    """Shoup constants of canonical (..., k, N) residues, same device and
+    word type: floor(v 2^64 / p) for int64 rows (stored by bit pattern),
+    floor(v 2^32 / p) for the int32 rows of a narrow context (tpufhe's
+    shoup32). Exact Python ints on the host."""
+    vals = x.cpu().numpy()
+    if x.dtype == torch.int32:
+        return torch.from_numpy(zq32.shoup_array(vals, moduli)).to(x.device)
+    arr = zq.shoup_array(vals.astype(np.uint64), moduli)
+    return torch.from_numpy(zq.as_int64(arr)).to(x.device)
+
+
 def lift_bigints(ctx: Context, coeffs: torch.Tensor) -> list:
     """CRT-lift each coefficient of a (k, N) power-basis poly into [0, q)."""
     mat = coeffs.cpu().numpy()
@@ -386,3 +407,268 @@ def dot_product(ctx: Context, ps: list, qs: list) -> torch.Tensor:
         raise ValueError(f"dot_product: operand rows {tuple(d.shape[1:])} "
                          f"against {tuple(e.shape[1:])}")
     return out.reshape(lead + (k, n))
+
+
+# ---------------------------------------------------------------------------
+# Poly
+# ---------------------------------------------------------------------------
+
+
+def _rows(mat, ctx: Context) -> torch.Tensor:
+    """Canonical (..., k, N) residues (numpy, any integer type) as a tensor
+    of the context's word type on its device."""
+    mat = np.asarray(mat)
+    words = (mat.astype(np.int32) if ctx.narrow
+             else zq.as_int64(mat.astype(np.uint64)))
+    return torch.from_numpy(np.ascontiguousarray(words)).to(ctx.device)
+
+
+class Poly:
+    """An RNS polynomial of `ctx` in one representation (the reference's
+    typestate, rq/mod.rs:50-84; tpufhe rq.py:941-1228): a thin wrapper of
+    one (..., k, N) coefficient tensor on the context's device, with its
+    Shoup constants in NTT_SHOUP. Operations return new polys; the
+    conversions run K1 (K9 when narrow) on the card. Lazy coefficients
+    (tpufhe's `lazy` flag, words in [0, 4p)) are not ported: every word
+    is canonical."""
+
+    __slots__ = ("ctx", "representation", "coeffs", "coeffs_shoup")
+
+    def __init__(self, ctx: Context, representation: str,
+                 coeffs: torch.Tensor, coeffs_shoup: torch.Tensor | None = None):
+        if representation not in (POWER_BASIS, NTT, NTT_SHOUP):
+            raise IncorrectRepresentation(representation, "a representation")
+        if tuple(coeffs.shape[-2:]) != (ctx.k, ctx.degree):
+            raise InvalidContext(f"coefficients {tuple(coeffs.shape)} for "
+                                 f"(..., {ctx.k}, {ctx.degree})")
+        self.ctx = ctx
+        self.representation = representation
+        self.coeffs = coeffs
+        self.coeffs_shoup = coeffs_shoup
+
+    def __repr__(self):
+        return (f"Poly({self.representation}, {tuple(self.coeffs.shape)}, "
+                f"{self.ctx!r})")
+
+    @property
+    def batch_shape(self):
+        return tuple(self.coeffs.shape[:-2])
+
+    # the Serialize / DeserializeWithContext traits (rq/serialize.rs:10-27)
+    def to_bytes(self) -> bytes:
+        from tpufhe_torch.serialize.codecs import serialize_poly
+
+        return serialize_poly(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, ctx: Context,
+                   expected_representation: str | None = None) -> "Poly":
+        from tpufhe_torch.serialize.codecs import deserialize_poly
+
+        return deserialize_poly(data, ctx, expected_representation)
+
+    # -- constructors --
+
+    @staticmethod
+    def zero(ctx: Context, representation: str = POWER_BASIS, batch=()
+             ) -> "Poly":
+        coeffs = torch.zeros(tuple(batch) + (ctx.k, ctx.degree),
+                             dtype=ctx.dtype, device=ctx.device)
+        return Poly(ctx, representation, coeffs,
+                    coeffs if representation == NTT_SHOUP else None)
+
+    @staticmethod
+    def from_u64_matrix(mat, ctx: Context, representation: str = POWER_BASIS
+                        ) -> "Poly":
+        """mat: (..., k, N) canonical residues, taken as the coefficients
+        of `representation` (no transform)."""
+        p = Poly(ctx, NTT if representation == NTT_SHOUP else representation,
+                 _rows(mat, ctx))
+        return p.into_ntt_shoup() if representation == NTT_SHOUP else p
+
+    @staticmethod
+    def random(ctx: Context, rng, representation: str = POWER_BASIS) -> "Poly":
+        """Uniform polynomial, limbs sampled row by row (rq/mod.rs:226-237)."""
+        return Poly.from_u64_matrix(
+            np.stack([q.random_vec(ctx.degree, rng) for q in ctx.q]), ctx,
+            representation)
+
+    @staticmethod
+    def random_from_seed(ctx: Context, seed: bytes,
+                         representation: str = NTT) -> "Poly":
+        """Deterministic expansion: ChaCha8(SHA-256(seed)) (rq/mod.rs:241-257)."""
+        return Poly.random(ctx, expand_seed(seed), representation)
+
+    @staticmethod
+    def small(ctx: Context, variance: int, rng,
+              representation: str = POWER_BASIS) -> "Poly":
+        """Centered-binomial small polynomial (rq/mod.rs:263-285)."""
+        p = Poly.from_i64_coeffs(sample_vec_cbd(ctx.degree, variance, rng), ctx)
+        if representation == NTT:
+            return p.into_ntt()
+        if representation == NTT_SHOUP:
+            return p.into_ntt_shoup()
+        return p
+
+    @staticmethod
+    def from_i64_coeffs(coeffs, ctx: Context) -> "Poly":
+        """Up to N signed coefficients, reduced into every limb
+        (rq/convert.rs TryConvertFrom<&[i64]>)."""
+        return Poly(ctx, POWER_BASIS, from_i64_coeffs(coeffs, ctx))
+
+    @staticmethod
+    def from_u64_coeffs(coeffs, ctx: Context) -> "Poly":
+        """Up to N unsigned 64-bit coefficients, reduced into every limb."""
+        v = np.zeros(ctx.degree, dtype=np.uint64)
+        cs = np.asarray(coeffs, dtype=np.uint64)
+        v[: len(cs)] = cs
+        return Poly.from_u64_matrix(
+            np.stack([v % np.uint64(m) for m in ctx.moduli]), ctx)
+
+    @staticmethod
+    def from_bigint_coeffs(coeffs, ctx: Context) -> "Poly":
+        """Arbitrary-precision coefficients projected through the RNS."""
+        rows = np.zeros((ctx.k, ctx.degree), dtype=np.uint64)
+        cs = [int(c) for c in coeffs]
+        for i, m in enumerate(ctx.moduli):
+            rows[i, : len(cs)] = [c % m for c in cs]
+        return Poly.from_u64_matrix(rows, ctx)
+
+    # -- representation moves --
+
+    def with_representation(self, representation: str) -> "Poly":
+        return Poly(self.ctx, representation, self.coeffs, self.coeffs_shoup)
+
+    def compute_shoup(self) -> "Poly":
+        return Poly(self.ctx, self.representation, self.coeffs,
+                    shoup_of(self.coeffs, self.ctx.moduli))
+
+    def _expect(self, *representations) -> None:
+        if self.representation not in representations:
+            raise IncorrectRepresentation(self.representation,
+                                          representations[0])
+
+    def into_ntt(self, lazy: bool = False) -> "Poly":
+        """Forward NTT of a power-basis poly. Lazy outputs in [0, 4p) are
+        not ported (UnsupportedOperation)."""
+        if lazy:
+            raise UnsupportedOperation(
+                "lazy NTT coefficients are not ported; outputs are canonical")
+        self._expect(POWER_BASIS)
+        return Poly(self.ctx, NTT, ntt_forward(self.ctx, self.coeffs))
+
+    def into_ntt_shoup(self) -> "Poly":
+        if self.representation == POWER_BASIS:
+            return self.into_ntt().into_ntt_shoup()
+        self._expect(NTT)
+        return self.compute_shoup().with_representation(NTT_SHOUP)
+
+    def into_power_basis(self) -> "Poly":
+        if self.representation == POWER_BASIS:
+            return self
+        return Poly(self.ctx, POWER_BASIS, ntt_backward(self.ctx, self.coeffs))
+
+    def into_ntt_from_shoup(self) -> "Poly":
+        self._expect(NTT_SHOUP)
+        return Poly(self.ctx, NTT, self.coeffs)
+
+    # -- arithmetic --
+
+    def _check(self, other: "Poly") -> None:
+        if self.ctx is not other.ctx:
+            raise ContextMismatch("Incompatible contexts")
+        if self.representation != other.representation:
+            raise IncorrectRepresentation(other.representation,
+                                          self.representation)
+
+    def __add__(self, other: "Poly") -> "Poly":
+        self._check(other)
+        return Poly(self.ctx, self.representation,
+                    self.ctx.add(self.coeffs, other.coeffs))
+
+    def __sub__(self, other: "Poly") -> "Poly":
+        self._check(other)
+        return Poly(self.ctx, self.representation,
+                    self.ctx.sub(self.coeffs, other.coeffs))
+
+    def __neg__(self) -> "Poly":
+        return Poly(self.ctx, self.representation, self.ctx.neg(self.coeffs))
+
+    def __mul__(self, other: "Poly") -> "Poly":
+        """The NTT-domain product: by an NTT_SHOUP poly with its Shoup
+        constants, else of two NTT polys."""
+        if self.ctx is not other.ctx:
+            raise ContextMismatch("Incompatible contexts")
+        if other.representation == NTT_SHOUP:
+            out = self.ctx.mul_shoup(self.coeffs, other.coeffs,
+                                     other.coeffs_shoup)
+        else:
+            self._expect(NTT)
+            other._expect(NTT)
+            out = self.ctx.mul(self.coeffs, other.coeffs)
+        return Poly(self.ctx, NTT, out)
+
+    def scalar_mul(self, scalar: int) -> "Poly":
+        """Multiply by an integer projected through the RNS
+        (rq/ops.rs:297-352)."""
+        s = torch.tensor([int(scalar) % m for m in self.ctx.moduli],
+                         dtype=self.ctx.dtype, device=self.ctx.device)
+        return Poly(self.ctx, self.representation,
+                    self.ctx.mul(self.coeffs, s[:, None]))
+
+    # -- Galois substitution --
+
+    def substitute(self, exp: "SubstitutionExponent") -> "Poly":
+        if exp.ctx is not self.ctx:
+            raise ContextMismatch("the exponent is of another context")
+        if self.representation == POWER_BASIS:
+            return Poly(self.ctx, POWER_BASIS,
+                        substitute(self.coeffs, exp, ntt=False))
+        shoup = (None if self.coeffs_shoup is None
+                 else self.coeffs_shoup[..., exp.perm_ntt])
+        return Poly(self.ctx, self.representation,
+                    substitute(self.coeffs, exp, ntt=True), shoup)
+
+    # -- modulus switching --
+
+    def switch_down(self) -> "Poly":
+        """Divide and round by the last modulus and drop it
+        (rq/mod.rs:390-449)."""
+        self._expect(POWER_BASIS)
+        return Poly(self.ctx.next_context, POWER_BASIS,
+                    switch_down(self.ctx, self.coeffs))
+
+    def switch_down_to(self, target: Context) -> "Poly":
+        self._expect(POWER_BASIS)
+        return Poly(target, POWER_BASIS,
+                    switch_down_to(self.ctx, target, self.coeffs))
+
+    def multiply_inverse_power_of_x(self, power: int) -> "Poly":
+        """Negacyclic multiply by x^-power (rq/mod.rs:465-486)."""
+        self._expect(POWER_BASIS)
+        n = self.ctx.degree
+        shift = ((n << 1) - power) % (n << 1)
+        index = shift + np.arange(n, dtype=np.int64)
+        src = np.empty(n, dtype=np.int64)
+        src[index & (n - 1)] = np.arange(n)
+        sign = np.empty(n, dtype=bool)
+        sign[index & (n - 1)] = (index & n) != 0
+        dev = self.ctx.device
+        gathered = self.coeffs[..., torch.from_numpy(src).to(dev)]
+        return Poly(self.ctx, POWER_BASIS,
+                    torch.where(torch.from_numpy(sign).to(dev),
+                                self.ctx.neg(gathered), gathered))
+
+    # -- data access --
+
+    def to_u64_matrix(self) -> np.ndarray:
+        """(..., k, N) uint64 canonical residues (host)."""
+        return self.coeffs.cpu().numpy().astype(np.uint64)
+
+    def lift_bigints(self) -> list:
+        """CRT-lift each coefficient of an unbatched power-basis poly to an
+        integer in [0, q)."""
+        self._expect(POWER_BASIS)
+        if self.coeffs.dim() != 2:
+            raise ValueError("lift_bigints takes an unbatched poly")
+        return lift_bigints(self.ctx, self.coeffs)

@@ -30,6 +30,7 @@ import torch
 from tpufhe_torch.errors import InvalidModulus
 from tpufhe_torch.utils.primes import is_prime, supports_opt
 from tpufhe_torch.utils.rngs import uniform_u64_below
+from tpufhe_torch.utils.transcode import transcode_from_bytes, transcode_to_bytes
 
 DIGIT_BITS = 31
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
@@ -89,6 +90,24 @@ class Modulus:
     def random_vec(self, size: int, rng) -> np.ndarray:
         """Uniform values in [0, p) with rand-0.9 Uniform semantics."""
         return uniform_u64_below(rng, self.p, size)
+
+    # serialization helpers (zq/mod.rs:773-793)
+
+    @property
+    def nbits(self) -> int:
+        """Bits a serialized residue takes: the bit length of p - 1."""
+        return (self.p - 1).bit_length()
+
+    def serialization_length(self, size: int) -> int:
+        assert size % 8 == 0
+        return self.nbits * size // 8
+
+    def serialize_vec(self, a):
+        """Residues packed nbits bits each (rows of a 2-D array each)."""
+        return transcode_to_bytes(a, self.nbits)
+
+    def deserialize_vec(self, b) -> np.ndarray:
+        return transcode_from_bytes(b, self.nbits)
 
 
 def shoup_array(values: np.ndarray, moduli) -> np.ndarray:

@@ -1,6 +1,9 @@
-"""Modular inverse: the part of tpufhe/utils/misc.py that the port uses."""
+"""Small host utilities (modular inverse, sample variance): the port's
+copy of tpufhe/utils/misc.py."""
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def inverse(a: int, p: int) -> int | None:
@@ -19,3 +22,10 @@ def _egcd(a: int, b: int):
         return b, 0, 1
     g, x, y = _egcd(b % a, a)
     return g, y - (b // a) * x, x
+
+
+def variance(values) -> float:
+    """Sample variance (n-1 denominator)."""
+    v = np.asarray(values, dtype=np.float64)
+    assert v.size > 1
+    return float(v.var(ddof=1))
