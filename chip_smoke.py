@@ -64,7 +64,11 @@ Phases, in order; any failure exits nonzero before the last line:
    (the programs' route), equal and timed, tensor held to its plain
    version there; and, after phase 22, every distinct call of phases 21
    and 22 recorded the same way (a KernelRecorder around each phase, the
-   calls recorded per kernel equal to the counters' reading over it): the
+   calls recorded per kernel equal to the counters' reading over it), and
+   after phase 24 those of phases 23 and 24 (the protocols' and the
+   batched programs' ntt, the collective mul+relin's kernels, the
+   decryptions' rns_scale; the narrow expansion's and leveled programs'
+   ntt32, rns_scale and ks_accumulate): the
    decoders' ntt, the walkthroughs' ntt, rns_scale, tensor and
    rotate_tail at N = 8192, the external product's ntt and ks_accumulate
    at batch 64, make_mul_relin's tensor_intt and relin_tail, rns_scale
@@ -193,14 +197,43 @@ Phases, in order; any failure exits nonzero before the last line:
     rns_scale 2, relin_tail 1; SealPIR expand the same, dot1 ct_pt_dot 1,
     ntt 2, fold none, dot2 ntt 3, ct_pt_dot 1), the report printed; the
     CLI (models.pir.main) for each scheme at 4,096 elements; MulPIR's
-    object-API path at 4,096 retrieving what its programs retrieve.
+    object-API path at 4,096 retrieving what its programs retrieve;
+23. multiparty BFV (tpufhe_torch.mbfv; seed 2041) at BASELINE config 3's
+    ring with 11 parties (bench.py:422): the CRP and the collective public
+    key through PublicKeyShare + aggregate (ntt 22) and batched_public_key
+    (ntt 2), torch.equal; the collective relinearization key through two
+    rounds of RelinKeyGenerator (ntt 165) and batched_relin_keygen (ntt
+    4), torch.equal, the same bytes; 128 SIMD encryptions under the
+    collective key, make_mul_relin at batch 64 with it (phase 4's counts)
+    and Multiplicator.default (phase 16's), torch.equal; the collective
+    decryption of all 64 products through DecryptionShare + aggregate and
+    batched_decryption, equal, every slot against (va vb) mod t, the noise
+    under the sum of the party keys; a SecretKeySwitchShare to 11 other
+    party keys and a PublicKeySwitchShare of a level-1 ciphertext to a
+    one-party public key, each decrypted by its output key;
+    make_sharded_pk_aggregation over an NCCL group of world size 1 on the
+    11 stacked shares, equal to aggregate; bench config 6 (bench.py:422-506:
+    11 parties, batch 8, N = 4096, 2 x 62-bit): one fused keygen-plus-
+    decrypt round (ntt 3, rns_scale 1) held row by row to the object API,
+    then chained rounds timed (collective rounds/s, with the kernels' and
+    the party sums' share); run_voting at tpufhe's defaults and at N =
+    8192, 11 parties, 1,000 voters, both tallies exact;
+24. the rest of the narrow (w30) mode (seed 2042) at phase 10's ring: an
+    expansion key at level 4 and make_expand of 4 ciphertexts into 16 each
+    (ntt32 8, ks_accumulate 4), every coefficient of the 64 outputs
+    checked, equal to EvaluationKey.expands on the first; a relinearization
+    key and a column-rotation key at level 0 for level-1 ciphertexts:
+    ct_mul + relinearizes (ntt32 10, rns_scale 3, ks_accumulate 1) and
+    make_rotate (ntt32 4, ks_accumulate 1) at batch 16, every slot checked;
+    chained steps of both and repeated expansions timed.
 
 The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
 phases 19 and 20 with the launches of their counted runs there, those of
-phases 21 and 22 under wire_format and applications), the
+phases 21 to 24 under wire_format, applications, multiparty and
+narrow_rest), the
 last one {"ok": true, "device": {...}}. Exits nonzero without a CUDA card.
 """
 
@@ -386,6 +419,34 @@ MULPIR_APP_LAUNCHES = {
 SEALPIR_APP_LAUNCHES = {"expand": MULPIR_EXPAND_LAUNCHES,
                         "dot1": {"ct_pt_dot": 1, "ntt": 2}, "fold": {},
                         "dot2": {"ntt": 3, "ct_pt_dot": 1}}
+# phase 23: multiparty BFV at BASELINE config 3's ring (phase 4's
+# parameters) with bench.py's 11 parties (bench.py:422)
+MBFV_SEED = SEED + 15
+MBFV_PARTIES = 11
+MBFV_BATCH = BATCH
+# bench config 6 (bench.py:422-506): 11 parties, batch 8, N = 4096,
+# 2 x 62-bit, bench.py's t = 1153 (bench.py:81) and keys from seed 42
+# (bench.py:93), ciphertexts of numpy seed 9; four chained rounds a step
+MBFV_BENCH_DEGREE = 4096
+MBFV_BENCH_MODULI_SIZES = [62, 62]
+MBFV_BENCH_PLAINTEXT = 1153
+MBFV_BENCH_BATCH = 8
+MBFV_BENCH_INNER = 4
+MBFV_BENCH_STEPS = 16
+MBFV_BENCH_LAUNCHES = {"ntt": 3, "rns_scale": 1}  # the s, e and phase NTTs
+VOTING_DEGREE = 8192  # one 62-bit modulus, run_voting's default
+VOTING_VOTERS = 1000
+# phase 24: the rest of the narrow (w30) mode at phase 10's ring
+NARROW_REST_SEED = SEED + 16
+NARROW_LEVELED_BATCH = 16
+NARROW_REST_STEPS = 32
+# ct_mul (K9 inverse and forward of each operand's extend, of the
+# down-scale; K2 for the two extends and the down-scale) then the leveled
+# relinearization (K9 inverse of c2, forward of its digits over the key's
+# moduli, inverse there, forward after the switch-down; ks_accumulate)
+NARROW_LEVELED_MUL_LAUNCHES = {"ntt32": 10, "rns_scale": 3,
+                               "ks_accumulate": 1}
+NARROW_LEVELED_ROT_LAUNCHES = {"ntt32": 4, "ks_accumulate": 1}
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -398,7 +459,14 @@ RED128 = 3 * HI + 4 * LO  # reduce_u128
 MULMOD = LO + HI + RED128
 
 
+_STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header line also gets the script's elapsed
+    seconds."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -547,6 +615,25 @@ def k1_case(label, x, tables, sl, inverse):
             lambda: ntt_mod.ntt_cuda(x, tables, sl, inverse), pfn,
             2 * x.numel() * 8 + 2 * k_sel * n * 8,
             x.numel() // n * ntt_ops(n, inverse))
+
+
+def k9_case(label, x, tables, sl, inverse):
+    """A run_cases item for K9 on (..., k_sel, n) int32 rows of narrow
+    `tables` (limbs `sl`): each row read and written once, plus its
+    twiddle tables."""
+    from tpufhe_torch.ops import ntt as ntt_mod
+
+    k_sel, n = x.shape[-2:]
+    if inverse:
+        pfn = (lambda: ntt_mod.backward32_plain(
+            x, tables.zetas_inv[sl], tables.ninv[sl], tables.p[sl]))
+    else:
+        pfn = lambda: ntt_mod.forward32_plain(x, tables.omegas[sl], tables.p[sl])  # noqa: E731
+    direction = "inverse" if inverse else "forward"
+    return (f"{direction} {label} {tuple(x.shape)}",
+            lambda: ntt_mod.ntt32_cuda(x, tables, sl, inverse), pfn,
+            2 * x.numel() * 4 + 2 * k_sel * n * 4,
+            x.numel() // n * ntt_ops(n, inverse, SHOUP32))
 
 
 def k2_case(label, scaler, x, start, size):
@@ -1016,7 +1103,6 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
     two addends (batch 64) and the rotation's one (batch 32). Returns
     {label: record}."""
     from tpufhe_torch.bfv import BfvParametersBuilder
-    from tpufhe_torch.ops import ntt as ntt_mod
     from tpufhe_torch.ops.rq import Context
 
     ctx = par.context_at_level(0)
@@ -1025,20 +1111,7 @@ def check_narrow_kernels(par, gen, int32_rate: float) -> dict:
     k, k_mul, n = ctx.k, ctx_mul.k, ctx.degree
     t_ctx, t_mul = ctx.tables, ctx_mul.tables
 
-    def k9(label, x, tables, sl, inverse):
-        k_sel, nn = x.shape[-2:]
-        if inverse:
-            pfn = (lambda: ntt_mod.backward32_plain(
-                x, tables.zetas_inv[sl], tables.ninv[sl], tables.p[sl]))
-        else:
-            pfn = (lambda: ntt_mod.forward32_plain(
-                x, tables.omegas[sl], tables.p[sl]))
-        direction = "inverse" if inverse else "forward"
-        return (f"{direction} {label} {tuple(x.shape)}",
-                lambda: ntt_mod.ntt32_cuda(x, tables, sl, inverse), pfn,
-                2 * x.numel() * 4 + 2 * k_sel * nn * 4,
-                x.numel() // nn * ntt_ops(nn, inverse, SHOUP32))
-
+    k9 = k9_case
     full, new = slice(None), slice(k, k_mul)
     out = {}
     out["ntt32"] = run_cases("ntt32", [
@@ -2273,8 +2346,8 @@ class KernelRecorder:
     its inputs, once per distinct call (kernel, shapes, context or tables,
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
-    (check_recorded): ntt, rns_scale, ks_accumulate, ct_pt_dot, relin_tail,
-    tensor, rotate_tail and tensor_intt. The second dimension's input is kept too, to
+    (check_recorded): ntt, ntt32, rns_scale, ks_accumulate, ct_pt_dot,
+    relin_tail, tensor, rotate_tail and tensor_intt. The second dimension's input is kept too, to
     time its two routes. The launch counters are set to 0 on entry and read on
     exit (launches), so a kernel call the recorder missed shows."""
 
@@ -2299,7 +2372,8 @@ class KernelRecorder:
         from tpufhe_torch.ops import ntt as ntt_mod
         from tpufhe_torch.ops.rns import RnsScaler
 
-        targets = [(ntt_mod, "ntt_cuda"), (RnsScaler, "scale_cuda"),
+        targets = [(ntt_mod, "ntt_cuda"), (ntt_mod, "ntt32_cuda"),
+                   (RnsScaler, "scale_cuda"),
                    (pipeline, "ks_accumulate_cuda"), (dot, "ct_pt_dot_cuda"),
                    (pipeline, "relin_tail_cuda"),
                    (pipeline, "_second_dimension"),
@@ -2315,6 +2389,12 @@ class KernelRecorder:
                             inverse),
                     lambda: k1_case(label, x, tables, sl, inverse))
             return orig["ntt_cuda"](x, tables, sl, inverse)
+
+        def ntt32(x, tables, sl, inverse):
+            rec.add("ntt32", (tuple(x.shape), id(tables), sl.start, sl.stop,
+                              inverse),
+                    lambda: k9_case(label, x, tables, sl, inverse))
+            return orig["ntt32_cuda"](x, tables, sl, inverse)
 
         def scale(scaler, x, start, size):
             rec.add("rns_scale", (tuple(x.shape), start, size,
@@ -2362,7 +2442,7 @@ class KernelRecorder:
                     lambda: k3_case(label, ctx_mul, ext))
             return orig["tensor_intt_cuda"](ctx_mul, ext)
 
-        for (owner, name, _), fn in zip(self._saved, (ntt, scale, ks,
+        for (owner, name, _), fn in zip(self._saved, (ntt, ntt32, scale, ks,
                                                       dot_kernel, relin,
                                                       second, tensor,
                                                       rotate, tensor_intt)):
@@ -3396,6 +3476,447 @@ def pir_apps(card: str) -> dict:
     return out
 
 
+def same_tensors(name: str, xs, ys) -> None:
+    """Fails unless the tensors of xs and ys are torch.equal, pair by pair."""
+    xs, ys = list(xs), list(ys)
+    equal = len(xs) == len(ys) and all(torch.equal(x, y)
+                                       for x, y in zip(xs, ys))
+    log(f"  {name}: equal={equal}")
+    if not equal:
+        raise SystemExit(f"{name}: not equal")
+
+
+def mbfv_path(par, card: str) -> dict:
+    """Phase 23, multiparty BFV at BASELINE config 3's ring with 11 parties
+    (seed 2041): the collective public key and relinearization key through
+    the protocol objects and through the batched programs, equal (the keys'
+    bytes too); 64 SIMD pairs under the collective key, make_mul_relin and
+    Multiplicator.default with the collective key, equal; their collective
+    decryption both ways, equal, every slot checked; a SecretKeySwitchShare
+    to a second set of party keys and a PublicKeySwitchShare of a level-1
+    ciphertext to a one-party key, each decrypted by its output key; the
+    aggregation over an NCCL group of world size 1, equal to aggregate;
+    bench config 6 (mbfv_bench); run_voting at tpufhe's defaults and at
+    N = 8192 with 11 parties and 1,000 voters. Every program is held to its
+    exact launch counts (run_counted). Returns bench config 6's record."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        Multiplicator,
+        Plaintext,
+        PublicKey,
+        SecretKey,
+    )
+    from tpufhe_torch.mbfv import (
+        CommonRandomPoly,
+        DecryptionShare,
+        PublicKeyShare,
+        PublicKeySwitchShare,
+        RelinKeyGenerator,
+        SecretKeySwitchShare,
+        aggregate,
+    )
+    from tpufhe_torch.mbfv.batched import (
+        batched_decryption,
+        batched_public_key,
+        batched_relin_keygen,
+        make_sharded_pk_aggregation,
+    )
+    from tpufhe_torch.models import run_voting
+    from tpufhe_torch.pipeline import make_mul_relin
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    parties, k, t, n = (MBFV_PARTIES, par.context_at_level(0).k,
+                        par.plaintext.value, par.degree())
+    batch = MBFV_BATCH
+
+    def stream(i: int):
+        """The phase's i-th ChaCha8 stream: the object API and the batched
+        program of one protocol each draw a fresh copy."""
+        return ChaCha8Rng(seed_from_u64(MBFV_SEED * 100 + i))
+
+    def summed(keys) -> "SecretKey":
+        return SecretKey(np.sum([sk.coeffs for sk in keys], axis=0), par)
+
+    t0 = time.perf_counter()
+    rng = ChaCha8Rng(seed_from_u64(MBFV_SEED))
+    sks = [SecretKey.random(par, rng) for _ in range(parties)]
+    crp = CommonRandomPoly.new(par, rng)
+    crp_vec = CommonRandomPoly.new_vec(par, rng)
+    collective = summed(sks)
+    log(f"  {parties} party keys and the CRPs {time.perf_counter() - t0:.2f} s")
+
+    def object_pk(r):
+        return aggregate([PublicKeyShare.new(sk, crp, r) for sk in sks])
+
+    def object_rk(r):
+        gens = [RelinKeyGenerator(sk, crp_vec, r) for sk in sks]
+        agg1 = aggregate([g.round_1(r) for g in gens])
+        return aggregate([g.round_2(agg1, r) for g in gens])
+
+    pk, _ = run_counted(f"public key: PublicKeyShare x {parties} + aggregate",
+                        object_pk, (stream(1),), {"ntt": 2 * parties})
+    pk_b, _ = run_counted("public key: batched_public_key", batched_public_key,
+                          (sks, crp, stream(1)), {"ntt": 2})
+    same_tensors("collective public key, object API and batched", pk.c.c,
+                 pk_b.c.c)
+    rk, _ = run_counted(f"relinearization key: RelinKeyGenerator x {parties}, "
+                        "two rounds", object_rk, (stream(2),),
+                        {"ntt": parties * (3 + 4 * k)})
+    rk_b, _ = run_counted("relinearization key: batched_relin_keygen",
+                          batched_relin_keygen, (sks, crp_vec, stream(2)),
+                          {"ntt": 4})
+    tables = ("c0", "c0_shoup", "c1", "c1_shoup")
+    same_tensors("collective relinearization key, object API and batched",
+                 [getattr(rk.ksk, a) for a in tables],
+                 [getattr(rk_b.ksk, a) for a in tables])
+    wire = [key.to_bytes() for key in (rk, rk_b)]
+    log(f"  the keys serialized: {len(wire[0])} bytes each, "
+        f"equal={wire[0] == wire[1]}, seed {rk.ksk.seed}")
+    if wire[0] != wire[1] or rk.ksk.seed is not None:
+        raise SystemExit("the collective relinearization keys' bytes differ")
+
+    vals = np.random.default_rng(MBFV_SEED)
+    va, vb = (vals.integers(0, t, (batch, n), dtype=np.uint64)
+              for _ in range(2))
+    pts = [Plaintext.try_encode(v, Encoding.simd(), par)
+           for v in np.concatenate([va, vb])]
+    r3 = stream(3)
+    cts, _ = run_counted(f"{len(pts)} encryptions under the collective key",
+                         lambda: [pk.try_encrypt(x, r3) for x in pts], (),
+                         {"ntt": 2 * len(pts)})
+    a0, a1, b0, b1 = (torch.stack([c[i] for c in cs])
+                      for cs in (cts[:batch], cts[batch:]) for i in (0, 1))
+    (c0, c1), _ = run_counted(
+        f"make_mul_relin with the collective key at batch {batch}",
+        make_mul_relin(par, rk), (a0, a1, b0, b1), MUL_LAUNCHES)
+    prod, _ = run_counted("Multiplicator.default(collective key)",
+                          Multiplicator.default(rk).multiply,
+                          (Ciphertext(par, [a0, a1], 0),
+                           Ciphertext(par, [b0, b1], 0)),
+                          API_MULTIPLY_LAUNCHES)
+    same_tensors("Multiplicator.default and make_mul_relin", prod.c, (c0, c1))
+
+    rows = [Ciphertext(par, [c0[i], c1[i]], 0) for i in range(batch)]
+    obj, _ = run_counted(
+        f"collective decryption of {batch}: DecryptionShare x {parties} + "
+        "aggregate",
+        lambda r: [aggregate([DecryptionShare.new(sk, ct, r) for sk in sks])
+                   for ct in rows], (stream(4),),
+        {"ntt": batch * (3 * parties + 1), "rns_scale": batch})
+    bat, _ = run_counted(
+        f"collective decryption of {batch}: batched_decryption",
+        lambda r: [batched_decryption(sks, ct, r) for ct in rows],
+        (stream(4),), {"ntt": 3 * batch, "rns_scale": batch})
+    want = (va.astype(object) * vb % t).astype(np.uint64)
+    bad = 0
+    for x, y, w in zip(obj, bat, want):
+        if not np.array_equal(x.value, y.value):
+            raise SystemExit("collective decryption: the object API and the "
+                             "batched program differ")
+        bad += int((y.try_decode(Encoding.simd()) != w).sum())
+    noise = collective.measure_noise(rows[0])
+    log(f"  {batch} products decrypted collectively, both ways equal, wrong "
+        f"slots {bad}, noise {noise} bits (of {sum(MODULI_SIZES)})")
+    if bad:
+        raise SystemExit(f"collective decryption: {bad} slots wrong")
+
+    r5 = stream(5)
+    outs = [SecretKey.random(par, r5) for _ in range(parties)]
+    ct_sks, _ = run_counted(
+        f"SecretKeySwitchShare x {parties} + aggregate",
+        lambda: aggregate([SecretKeySwitchShare.new(si, so, rows[0], r5)
+                           for si, so in zip(sks, outs)]), (),
+        {"ntt": 3 * parties})
+    sk_o = SecretKey.random(par, r5)
+    pk_o = PublicKey.new(sk_o, r5)
+    ct1 = pk.try_encrypt(Plaintext.try_encode(va[1], Encoding.simd(1), par), r5)
+    ct_pks, _ = run_counted(
+        f"PublicKeySwitchShare x {parties} + aggregate at level 1",
+        lambda: aggregate([PublicKeySwitchShare.new(sk, pk_o, ct1, r5)
+                           for sk in sks]), (), {"ntt": 6 * parties})
+    for name, key, ct, w in (("secret key switch", summed(outs), ct_sks,
+                              want[0]),
+                             ("public key switch", sk_o, ct_pks, va[1])):
+        got = key.try_decrypt(ct).try_decode(Encoding.simd(ct.level))
+        wrong = int((got != w).sum())
+        log(f"  {name}: level {ct.level}, decrypted by its output key, wrong "
+            f"slots {wrong}, noise {key.measure_noise(ct)} bits")
+        if wrong or (name == "public key switch") != (ct.level == 1):
+            raise SystemExit(f"{name}: {wrong} slots wrong at level {ct.level}")
+
+    r6 = stream(6)
+    shares = [PublicKeyShare.new(sk, crp, r6) for sk in sks]
+    stacked = torch.stack([sh.p0_share.coeffs for sh in shares])
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=timedelta(seconds=120))
+        try:
+            t0 = time.perf_counter()
+            got = make_sharded_pk_aggregation(par)(stacked)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    log(f"  make_sharded_pk_aggregation over NCCL (world size 1), "
+        f"{parties} stacked shares, {secs * 1e3:.2f} ms")
+    same_tensors("NCCL aggregation and aggregate", [got],
+                 [aggregate(shares).c[0]])
+
+    bench = mbfv_bench(card)
+
+    for label, kwargs in (("defaults", {}),
+                          (f"N = {VOTING_DEGREE}, {parties} parties",
+                           dict(num_voters=VOTING_VOTERS, num_parties=parties,
+                                degree=VOTING_DEGREE))):
+        t0 = time.perf_counter()
+        tally, expected = run_voting(**kwargs)
+        torch.cuda.synchronize()
+        log(f"  run_voting at {label}: tally {tally}, expected {expected}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        if tally != expected:
+            raise SystemExit(f"run_voting at {label}: tally {tally}, "
+                             f"expected {expected}")
+    return bench
+
+
+def mbfv_bench(card: str) -> dict:
+    """Bench config 6 (bench.py:422-506): one multiparty round for 11 parties
+    and 8 ciphertexts at N = 4096, 2 x 62-bit, the party axis leading --
+    every share p0_i = -a s_i + e_i against the ciphertexts' c1 as the CRP
+    and their sum, every decryption share s_i c1 + e_i, their sum plus c0
+    (the phase) and its t/q scale. Inputs as bench.py makes them (t = 1153,
+    the secrets and errors drawn after a secret key of seed 42, ciphertexts
+    of numpy seed 9). One round held to its launch counts and, row by row,
+    to the object API (PublicKeyShare, DecryptionShare, aggregate) on the
+    same inputs; then rounds chained as bench.py chains them (the scaled
+    row and the key feed the next c0, the phase the next c1), four a step,
+    timed with CUDA events beside each kernel of the round and the party
+    sums. Returns {rounds_per_s, round_ms, kernels_ms, sums_ms}."""
+    from tpufhe_torch.bfv import BfvParametersBuilder, Ciphertext, SecretKey
+    from tpufhe_torch.mbfv import (
+        CommonRandomPoly,
+        DecryptionShare,
+        PublicKeyShare,
+        aggregate,
+    )
+    from tpufhe_torch.bfv.keys.secret_key import scaled_plaintext
+    from tpufhe_torch.mbfv.batched import sum_parties
+    from tpufhe_torch.ops import zq
+    from tpufhe_torch.ops.rq import NTT, Poly, ntt_backward, ntt_forward
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+    from tpufhe_torch.utils.sampling import sample_vec_cbd
+
+    par = (BfvParametersBuilder().set_degree(MBFV_BENCH_DEGREE)
+           .set_plaintext_modulus(MBFV_BENCH_PLAINTEXT)
+           .set_moduli_sizes(MBFV_BENCH_MODULI_SIZES).build())
+    ctx = par.context_at_level(0)
+    scaler = par.context_level_at(0).cipher_plain_context.scaler.rns_scaler
+    parties, batch, n = MBFV_PARTIES, MBFV_BENCH_BATCH, MBFV_BENCH_DEGREE
+
+    def stream(skip: int):
+        """bench.py's stream after its secret key and `skip` CBD rows."""
+        rng = ChaCha8Rng(seed_from_u64(42))
+        SecretKey.random(par, rng)
+        for _ in range(skip):
+            sample_vec_cbd(n, par.variance, rng)
+        return rng
+
+    rng = stream(0)
+    s_rows, e_rows = (np.stack([sample_vec_cbd(n, par.variance, rng)
+                                for _ in range(parties)]) for _ in range(2))
+
+    def residues(rows):
+        """(P, N) signed rows -> (P, 1, k, N) residues on the card."""
+        x = torch.from_numpy(rows).to(ctx.device)[:, None, None, :]
+        return torch.remainder(x, ctx.mod.p).to(ctx.dtype)
+
+    s_raw, e_raw = residues(s_rows), residues(e_rows)
+    nprng = np.random.default_rng(9)
+    c0, c1 = (torch.from_numpy(zq.as_int64(np.stack(
+        [nprng.integers(0, m, (batch, n), dtype=np.uint64)
+         for m in ctx.moduli], axis=1))).to(ctx.device) for _ in range(2))
+
+    def one_round(c0, c1):
+        s = ntt_forward(ctx, s_raw)
+        e = ntt_forward(ctx, e_raw)
+        pk0 = sum_parties(ctx.add(ctx.mul(ctx.neg(c1), s), e), ctx)
+        phase = ctx.add(c0, sum_parties(ctx.add(ctx.mul(s, c1), e), ctx))
+        return pk0, phase, scaler.scale(ntt_backward(ctx, phase))
+
+    (pk0, phase, d), _ = run_counted(
+        f"bench config 6: one round, {parties} parties x {batch} ciphertexts",
+        one_round, (c0, c1), MBFV_BENCH_LAUNCHES)
+    sks = [SecretKey(r, par) for r in s_rows]
+    for b in range(batch):
+        crp = CommonRandomPoly(Poly(ctx, NTT, c1[b]))
+        r = stream(parties)
+        key = aggregate([PublicKeyShare.new(sk, crp, r) for sk in sks])
+        r = stream(parties)
+        ct = Ciphertext(par, [c0[b], c1[b]], 0)
+        dec = [DecryptionShare.new(sk, ct, r) for sk in sks]
+        ph = aggregate([sh.sks_share for sh in dec])
+        if not (torch.equal(key.c[0], pk0[b]) and torch.equal(ph[0], phase[b])
+                and np.array_equal(aggregate(dec).value,
+                                   scaled_plaintext(par, d[b], 0).value)):
+            raise SystemExit(f"bench config 6: row {b} differs from the "
+                             "object API")
+    log(f"  bench config 6: all {batch} rows equal to the object API "
+        "(public key, phase, plaintext)")
+
+    rounds = MBFV_BENCH_INNER * MBFV_BENCH_STEPS
+
+    def chained():
+        x0, x1 = c0, c1
+        for _ in range(rounds):
+            key0, ph, dd = one_round(x0, x1)
+            x0 = torch.cat([dd[..., :1, :], key0[..., 1:, :]], dim=-2)
+            x1 = ph
+        return x0
+
+    round_ms = time_ms(chained, 1) / rounds
+    s, e = ntt_forward(ctx, s_raw), ntt_forward(ctx, e_raw)
+    p0_all = ctx.add(ctx.mul(ctx.neg(c1), s), e)
+    h_all = ctx.add(ctx.mul(s, c1), e)
+    phase_pb = ntt_backward(ctx, phase)
+    kernels_ms = (time_ms(lambda: ntt_forward(ctx, s_raw), 20)
+                  + time_ms(lambda: ntt_forward(ctx, e_raw), 20)
+                  + time_ms(lambda: ntt_backward(ctx, phase), 20)
+                  + time_ms(lambda: scaler.scale(phase_pb), 20))
+    sums_ms = time_ms(lambda: (sum_parties(p0_all, ctx),
+                               sum_parties(h_all, ctx)), 20)
+    rate = batch / round_ms * 1e3
+    log(f"  bench config 6: {rounds} chained rounds ({MBFV_BENCH_STEPS} steps "
+        f"of {MBFV_BENCH_INNER}), {round_ms:.3f} ms a round of {batch}, "
+        f"{rate:.1f} collective rounds/s; kernels {kernels_ms:.3f} ms "
+        f"({100 * kernels_ms / round_ms:.1f} %), party sums {sums_ms:.3f} ms "
+        f"({100 * sums_ms / round_ms:.1f} %), the rest of the glue "
+        f"{round_ms - kernels_ms - sums_ms:.3f} ms on {card}")
+    return {"rounds_per_s": rate, "round_ms": round_ms,
+            "kernels_ms": kernels_ms, "sums_ms": sums_ms}
+
+
+def narrow_rest_path(par, card: str) -> None:
+    """Phase 24, the rest of the narrow (w30) mode at phase 10's ring (seed
+    2042): an expansion key at level 4 and make_expand of 4 ciphertexts
+    into 16 each (ntt32 8, ks_accumulate 4), every coefficient of the 64
+    outputs checked (output j of ciphertext b holds 2^4 v_b[j + 16 i] at
+    x^(16 i), zero elsewhere), equal to
+    EvaluationKey.expands on the first; a relinearization key and a
+    column-rotation key at level 0 for level-1 ciphertexts (the Switcher's
+    scale-up, K2 on int32 rows), ct_mul + relinearizes and make_rotate at
+    batch 16, held to their exact counts, every slot checked; then chained
+    steps of both and repeated expansions, timed with CUDA events."""
+    from tpufhe_torch.bfv import (
+        Ciphertext,
+        Encoding,
+        EvaluationKeyBuilder,
+        Plaintext,
+        RelinearizationKey,
+        SecretKey,
+        ct_mul,
+    )
+    from tpufhe_torch.pipeline import make_decrypt_phase, make_expand, make_rotate
+    from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
+
+    t, n, levels = par.plaintext.value, par.degree(), EXPAND_LEVEL
+    size = 1 << levels
+    rng = ChaCha8Rng(seed_from_u64(NARROW_REST_SEED))
+    t0 = time.perf_counter()
+    sk = SecretKey.random(par, rng)
+    ek = EvaluationKeyBuilder(sk).enable_expansion(levels).build(rng)
+    rk1 = RelinearizationKey.new(sk, rng, 1, 0)
+    ek1 = EvaluationKeyBuilder(sk, 1, 0).enable_column_rotation(1).build(rng)
+    torch.cuda.synchronize()
+    log(f"  keygen (sk, expansion key at level {levels}, relinearization and "
+        f"column-rotation keys at level 0 for level 1) "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    vals = np.random.default_rng(NARROW_REST_SEED)
+    v = vals.integers(0, t, (EXPAND_BATCH, n), dtype=np.uint64)
+    cts = [sk.try_encrypt(Plaintext.try_encode(x, Encoding.poly(), par), rng)
+           for x in v]
+    c0, c1 = (torch.stack([c[i] for c in cts]) for i in (0, 1))
+    expand = make_expand(par, ek, levels)
+    (e0, e1), _ = run_counted(
+        f"narrow expansion of {EXPAND_BATCH} into {size} each", expand,
+        (c0, c1), {"ntt32": 2 * levels, "ks_accumulate": levels})
+    d = make_decrypt_phase(par, sk)(e0, e1)  # (size, B, k_plain, N)
+    got = (d[..., 0, :].cpu().numpy().astype(np.int64) + t) % par.moduli[0] % t
+    want = np.zeros((size, EXPAND_BATCH, n), dtype=np.int64)
+    want[..., ::size] = (v.reshape(EXPAND_BATCH, n // size, size).transpose(
+        2, 0, 1).astype(np.int64) << levels) % t
+    bad = int((got != want).sum())
+    first = Ciphertext(par, [e0[size - 1, 0], e1[size - 1, 0]], 0)
+    log(f"  {size * EXPAND_BATCH} expanded ciphertexts decrypted, wrong "
+        f"coefficients {bad}, noise {sk.measure_noise(first)} bits")
+    if bad:
+        raise SystemExit(f"narrow expansion: {bad} coefficients wrong")
+    outs = ek.expands(cts[0], size)
+    same_tensors("EvaluationKey.expands and make_expand",
+                 [x for ct in outs for x in ct.c],
+                 [x[j, 0] for j in range(size) for x in (e0, e1)])
+
+    batch = NARROW_LEVELED_BATCH
+    va, vb = (vals.integers(0, t, (batch, n), dtype=np.uint64)
+              for _ in range(2))
+    ca, cb = (Ciphertext(par, [torch.stack([c[i] for c in cs])
+                               for i in (0, 1)], 1)
+              for cs in ([sk.try_encrypt(Plaintext.try_encode(
+                  x, Encoding.simd(1), par), rng) for x in vs]
+                  for vs in (va, vb)))
+
+    def mul_relin(a, b):
+        c = ct_mul(a, b)
+        rk1.relinearizes(c)
+        return c
+
+    prod, _ = run_counted(f"narrow leveled mul+relin at batch {batch}",
+                          mul_relin, (ca, cb), NARROW_LEVELED_MUL_LAUNCHES)
+    check_parts("narrow leveled mul+relin", par, sk, prod,
+                (va.astype(object) * vb % t).astype(np.uint64))
+    gk = ek1.gk[ek1.rot_to_gk_exponent[1]]
+    rotate = make_rotate(par, gk, level=1)
+    (r0, r1), _ = run_counted(f"narrow leveled rotation at batch {batch}",
+                              rotate, (ca[0], ca[1]),
+                              NARROW_LEVELED_ROT_LAUNCHES)
+    h = n // 2
+    check_parts("narrow leveled rotation", par, sk,
+                Ciphertext(par, [r0, r1], 1),
+                np.concatenate([np.roll(va[:, :h], -1, axis=1),
+                                np.roll(va[:, h:], -1, axis=1)], axis=1))
+
+    steps = NARROW_REST_STEPS
+
+    def chained_mul():
+        c = ca
+        for _ in range(steps):
+            c = mul_relin(c, cb)
+        return c[0]
+
+    def chained_rot():
+        x0, x1 = ca[0], ca[1]
+        for _ in range(steps):
+            x0, x1 = rotate(x0, x1)
+        return x0
+
+    mul_ms = time_ms(chained_mul, 1) / steps
+    rot_ms = time_ms(chained_rot, 1) / steps
+    exp_ms = time_ms(lambda: expand(c0, c1), steps)
+    log(f"  {steps} chained narrow leveled mul+relin at batch {batch}: "
+        f"{mul_ms:.3f} ms/step, {batch / mul_ms * 1e3:.1f} mul+relin/s; "
+        f"rotations {rot_ms:.3f} ms/step, {batch / rot_ms * 1e3:.1f} "
+        f"rotations/s; expansion of {EXPAND_BATCH} into {size} "
+        f"{exp_ms:.3f} ms, {EXPAND_BATCH / exp_ms * 1e3:.1f} expansions/s "
+        f"on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3600,13 +4121,26 @@ def main() -> int:
         rgsw_batch(par, mp, card)
         large_t_path(card)
         pir_apps(card)
-    log("phase 3 at the calls of phases 21 and 22")
+    torch.cuda.empty_cache()
+    log(f"phase 23: multiparty BFV, N = {DEGREE}, 3 x 62-bit, "
+        f"{MBFV_PARTIES} parties")
+    with KernelRecorder("phase 23") as rec23:
+        mbfv_path(par, card)
+    torch.cuda.empty_cache()
+    log(f"phase 24: the rest of the narrow mode, N = {DEGREE}, 7 x 30-bit")
+    with KernelRecorder("phase 24") as rec24:
+        narrow_rest_path(par_w30, card)
+    log("phase 3 at the calls of phases 21 to 24")
     app_records = {
         "wire_format": check_recorded(rec21, int32_rate, "per phase-21 run",
                                       None),
         "applications": check_recorded(rec22, int32_rate, "per phase-22 run",
-                                       None)}
-    del rec21, rec22
+                                       None),
+        "multiparty": check_recorded(rec23, int32_rate, "per phase-23 run",
+                                     None),
+        "narrow_rest": check_recorded(rec24, int32_rate, "per phase-24 run",
+                                      None)}
+    del rec21, rec22, rec23, rec24
     # each PIR program's launches from its counted run in phase 19 or 20
     # (the key generation's from its recorded run, counted likewise)
     program_records = pir_records | mulpir_records

@@ -20,6 +20,8 @@ def test_import_pulls_in_no_jax_and_no_tpufhe():
         "from tpufhe_torch.utils import rngs, sampling, obs, transcode\n"
         "import tpufhe_torch.serialize, tpufhe_torch.traits\n"
         "import tpufhe_torch.bfv.rgsw, tpufhe_torch.models\n"
+        "import tpufhe_torch.mbfv, tpufhe_torch.mbfv.batched\n"
+        "import tpufhe_torch.models.voting\n"
         "assert tpufhe_torch.native.lib() is not None, tpufhe_torch.native.error\n"
         "rngs.ChaCha8Rng(rngs.seed_from_u64(1)).fill_bytes(1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -44,7 +46,9 @@ def test_sources_never_import_tpufhe_or_jax():
                 "bfv/keys/evaluation_key.py", "native/__init__.py",
                 "ops/intt_scale.py", "ops/zq32.py", "serialize/codecs.py",
                 "serialize/proto.py", "models/pir.py", "models/util.py",
-                "bfv/rgsw.py", "traits.py", "utils/transcode.py"):
+                "bfv/rgsw.py", "traits.py", "utils/transcode.py",
+                "mbfv/__init__.py", "mbfv/protocols.py", "mbfv/batched.py",
+                "models/voting.py"):
         assert ROOT / "tpufhe_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]

@@ -29,11 +29,7 @@ from tpufhe.utils.rngs import seed_from_u64 as j_seed
 
 import tpufhe_torch.bfv as T
 from tpufhe_torch import convert
-from tpufhe_torch.errors import (
-    InvalidLevel,
-    NoMoreContext,
-    UnsupportedOperation,
-)
+from tpufhe_torch.errors import InvalidLevel, NoMoreContext
 from tpufhe_torch.ops.rq import (
     Context,
     Switcher,
@@ -263,17 +259,19 @@ def test_leveled_galois_key_matches_tpufhe(pair):
 
 def test_key_levels_refused(pair, narrow_pair):
     """An evaluation key above the ciphertexts' level is refused as by
-    tpufhe; keys below it stay unported for narrow (w30) parameters."""
+    tpufhe; keys below it are made for narrow (w30) parameters too, equal
+    to tpufhe's (tests/test_torch_w30_levels.py runs them)."""
     p = pair
     with pytest.raises(JInvalidLevel):
         J.EvaluationKeyBuilder(p.jsk, 0, 1)
     with pytest.raises(InvalidLevel):
         T.EvaluationKeyBuilder(p.tsk, 0, 1)
     q = narrow_pair
-    with pytest.raises(UnsupportedOperation, match="narrow"):
-        T.GaloisKey.new(q.tsk, 3, 1, 0, ChaCha8Rng(seed_from_u64(1)))
-    with pytest.raises(UnsupportedOperation, match="narrow"):
-        T.RelinearizationKey.new(q.tsk, ChaCha8Rng(seed_from_u64(1)), 1, 0)
+    _same_ksk(J.GaloisKey.new(q.jsk, 3, 1, 0, JRng(j_seed(1))).ksk,
+              T.GaloisKey.new(q.tsk, 3, 1, 0, ChaCha8Rng(seed_from_u64(1))).ksk)
+    _same_ksk(J.RelinearizationKey.new(q.jsk, JRng(j_seed(1)), 1, 0).ksk,
+              T.RelinearizationKey.new(q.tsk, ChaCha8Rng(seed_from_u64(1)),
+                                       1, 0).ksk)
 
 
 def test_public_key_below_its_level_matches_tpufhe(pair):

@@ -3,8 +3,9 @@ walkthroughs' result dicts equal (values, noise and wire sizes), and
 MulPIR and SealPIR at degree 64 with 32 elements of 8 bytes, through both
 of the port's server paths (the programs and the object API), retrieve
 tpufhe's element with every *_bytes report entry equal to tpufhe's. Also
-the database helpers (the plaintexts equal tpufhe's encode_database) and
-the CLI. tpufhe runs its object path on the CPU."""
+the database helpers (the plaintexts equal tpufhe's encode_database), the
+CLI and the multiparty voting example. tpufhe runs its object path on the
+CPU."""
 
 import os
 
@@ -32,6 +33,18 @@ def test_walkthroughs_match_tpufhe(name):
     for key, value in got.items():
         if isinstance(value, tuple) and key != "noise_bits" and key != "bytes":
             assert value[0] == value[1], key
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, dict(num_voters=40, num_parties=5, degree=32, seed=11)],
+    ids=["defaults", "40x5"])
+def test_voting_matches_tpufhe(kwargs):
+    """run_voting's tally and expected tally equal tpufhe's (the same
+    ballots from np.random.default_rng(seed), the same ChaCha8 stream)."""
+    want = jmodels.run_voting(**kwargs)
+    got = models.run_voting(device="cpu", **kwargs)
+    assert got == want
+    assert got[0] == got[1]
 
 
 @pytest.fixture(scope="module")

@@ -17,9 +17,9 @@
    against tpufhe's jitted programs at degree 64, 4 x 30 bits (as
    tests/test_pipeline_jit.py runs them), the outputs decrypted under both
    packages' keys;
-8. the refusals: strategy 2, the fused extend and the expansion on narrow
-   parameters, wide moduli in a narrow context, the launching wrappers on
-   CPU tensors.
+8. the refusals: strategy 2 and the fused extend on narrow parameters,
+   wide moduli in a narrow context, the launching wrappers on CPU tensors;
+   and the narrow expansion, which is no longer refused, against tpufhe's.
 """
 
 import jax
@@ -430,12 +430,16 @@ def test_refusals(pair64):
         make_mul_relin(p.tp, p.trk, strategy2_primes=1)
     with pytest.raises(UnsupportedOperation):
         make_mul_relin(p.tp, p.trk, ext_fuse=True)
-    with pytest.raises(UnsupportedOperation):
-        make_expand(p.tp, p.tek, 1)
-    ek = EvaluationKeyBuilder(p.tsk).enable_expansion(1).build(
-        ChaCha8Rng(seed_from_u64(3)))
-    with pytest.raises(UnsupportedOperation):
-        ek.expands(p.tc[0], 2)
+    # the narrow expansion runs (tests/test_torch_w30_levels.py): the inner
+    # sum's keys hold x -> x^(N + 1), so both entry points expand by one
+    # level, equal to tpufhe's
+    assert p.tek.supports_expansion(1)
+    c0, c1 = make_expand(p.tp, p.tek, 1)(p.tc[0][0][None], p.tc[0][1][None])
+    for j, (jct, tct) in enumerate(zip(p.jek.expands(p.jc[0], 2),
+                                       p.tek.expands(p.tc[0], 2))):
+        for i, c in enumerate((c0, c1)):
+            np.testing.assert_array_equal(_words(jct[i].coeffs), tct[i].numpy())
+            assert torch.equal(c[j, 0], tct[i])
     with pytest.raises(InvalidContext):
         Context((P1, (1 << 62) - 57), N256, "cpu", narrow=True)
     ctx = p.tp.context_at_level(0)

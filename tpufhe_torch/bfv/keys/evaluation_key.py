@@ -6,9 +6,9 @@ The oblivious expansion is Angel et al. (eprint 2019/1483): log-depth
 doubling with Galois exponents (n >> l) + 1 and monomials x^{-2^l}
 (evaluation_key.rs:153-193). Keys may sit below the ciphertext's level
 (evaluation_key_level < ciphertext_level, see galois_key.py), as MulPIR
-builds its expansion keys; the expansion is ported for wide contexts only:
-narrow (w30) keys serve rotations and the inner sum at the ciphertext's
-level.
+builds its expansion keys. On narrow (w30) contexts the monomials carry
+shoup32 constants (floor(v 2^32 / p)) and the fold is ops/zq32.py's Shoup
+product, as tpufhe's.
 """
 
 from __future__ import annotations
@@ -27,9 +27,6 @@ from tpufhe_torch.errors import (
     UnsupportedOperation,
 )
 from tpufhe_torch.ops.rq import from_i64_coeffs, ntt_forward
-
-EXPANSION_NARROW = ("the oblivious expansion of narrow (w30) ciphertexts is "
-                    "not ported yet")
 
 
 class EvaluationKey:
@@ -105,8 +102,6 @@ class EvaluationKey:
             raise UnsupportedOperation(
                 "This key does not support expansion at this level")
         ctx = self.par.context_at_level(ct.level)
-        if ctx.narrow:
-            raise UnsupportedOperation(EXPANSION_NARROW)
         out = [ct] + [None] * ((1 << level) - 1)
         for l in range(level):
             mono, mono_shoup = self.monomials[l]
@@ -147,10 +142,8 @@ class EvaluationKey:
 
 def monomials(ctx) -> list:
     """x^{-2^l} for l < log2 N in the NTT domain of ctx, each as (values,
-    Shoup constants), both (k, N). Empty for a narrow context, where the
-    expansion is not ported."""
-    if ctx.narrow:
-        return []
+    Shoup constants), both (k, N) of ctx's word type (tpufhe
+    evaluation_key.py:198-207; shoup32 constants on a narrow context)."""
     n = ctx.degree
     out = []
     for l in range(n.bit_length() - 1):

@@ -2,18 +2,17 @@
 tpufhe's GaloisKey).
 
 A key below the ciphertext's level lives in a larger context: the
-substituted secret is switched up into it (rq.Switcher, K2), and a
-rotation key-switches there and switches back down
-(pipeline.key_switch_down). At the ciphertext's level the Switcher is a
-copy.
+substituted secret is switched up into it (rq.Switcher, K2, on int32 rows
+for narrow parameters), and a rotation key-switches there and switches
+back down (pipeline.key_switch_down). At the ciphertext's level the
+Switcher is a copy.
 """
 
 from __future__ import annotations
 
 from tpufhe_torch.bfv.ciphertext import Ciphertext
 from tpufhe_torch.bfv.keys.key_switching_key import KeySwitchingKey
-from tpufhe_torch.bfv.keys.relinearization_key import LEVELED_NARROW
-from tpufhe_torch.errors import InvalidCiphertext, UnsupportedOperation
+from tpufhe_torch.errors import InvalidCiphertext
 from tpufhe_torch.ops.rq import (
     SubstitutionExponent,
     Switcher,
@@ -32,8 +31,6 @@ class GaloisKey:
             rng) -> "GaloisKey":
         ctx_gk = sk.par.context_at_level(galois_key_level)
         ctx_ct = sk.par.context_at_level(ciphertext_level)
-        if ctx_gk is not ctx_ct and ctx_ct.narrow:
-            raise UnsupportedOperation(LEVELED_NARROW)
         element = SubstitutionExponent(ctx_ct, exponent)
         s_sub = substitute(from_i64_coeffs(sk.coeffs, ctx_ct), element,
                            ntt=False)

@@ -3,8 +3,9 @@
 
 A key may sit below the ciphertext's level, in a larger context
 (key_level < ciphertext_level): s^2 is switched up into it
-(rq.Switcher, K2 with a factor above 1), and the key switch's result is
-switched back down to the ciphertext's context."""
+(rq.Switcher, K2 with a factor above 1, on int32 rows for narrow
+parameters), and the key switch's result is switched back down to the
+ciphertext's context."""
 
 from __future__ import annotations
 
@@ -16,9 +17,6 @@ from tpufhe_torch.errors import (
     UnsupportedOperation,
 )
 from tpufhe_torch.ops.rq import Switcher, ntt_backward
-
-LEVELED_NARROW = ("keys below the ciphertext's level are not ported for "
-                  "narrow (w30) parameters")
 
 
 class RelinearizationKey:
@@ -33,8 +31,6 @@ class RelinearizationKey:
         if ctx_relin.k == 1:
             raise UnsupportedOperation(
                 "These parameters do not support key switching")
-        if ctx_relin is not ctx_ct and ctx_ct.narrow:
-            raise UnsupportedOperation(LEVELED_NARROW)
         s = sk.s_ntt(ctx_ct)
         s2 = ntt_backward(ctx_ct, ctx_ct.mul(s, s))
         s2_up = Switcher(ctx_ct, ctx_relin).switch(s2, ntt=False)

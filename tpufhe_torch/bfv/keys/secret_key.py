@@ -28,6 +28,25 @@ from tpufhe_torch.ops.rq import (
 from tpufhe_torch.utils.sampling import sample_vec_cbd
 
 
+def scaled_plaintext(par: BfvParameters, d: torch.Tensor, level: int
+                     ) -> Plaintext:
+    """The plaintext of d, the t/q-scaled power-basis rows (k_plain, N) of
+    the level's plaintext context: for a small t row 0 folded as
+    ((v + t) mod q0) mod t, else every row CRT-lifted and folded with
+    Python ints (secret_key.rs:131-142, 233-260)."""
+    t = par.plaintext.value
+    if not par.plaintext.is_small:
+        plain = par.context_level_at(level).cipher_plain_context
+        q_plain = plain.plaintext_context.modulus()
+        value = [((v + t) % q_plain) % t for v in
+                 lift_bigints(plain.plaintext_context, d)]
+        return Plaintext(par, value, None, level)
+    q0 = par.moduli[0]
+    row0 = d[0].cpu().numpy().astype(np.uint64)
+    value = ((row0 + np.uint64(t)) % np.uint64(q0)) % np.uint64(t)
+    return Plaintext(par, value, None, level)
+
+
 class SecretKey:
     """A secret key: N signed small coefficients, host-side."""
 
@@ -105,19 +124,7 @@ class SecretKey:
             ctx = self.par.context_at_level(ct.level)
             cp = self.par.context_level_at(ct.level).cipher_plain_context
             d = cp.scaler.rns_scaler.scale(ntt_backward(ctx, self._phase(ct)))
-        t = self.par.plaintext.value
-        if not self.par.plaintext.is_small:
-            # every plaintext-context row, CRT-lifted (secret_key.rs:131-142)
-            plain = self.par.context_level_at(ct.level
-                                              ).cipher_plain_context
-            q_plain = plain.plaintext_context.modulus()
-            value = [((v + t) % q_plain) % t for v in
-                     lift_bigints(plain.plaintext_context, d)]
-            return Plaintext(self.par, value, None, ct.level)
-        q0 = self.par.moduli[0]
-        row0 = d[0].cpu().numpy().astype(np.uint64)
-        value = ((row0 + np.uint64(t)) % np.uint64(q0)) % np.uint64(t)
-        return Plaintext(self.par, value, None, ct.level)
+        return scaled_plaintext(self.par, d, ct.level)
 
     def measure_noise(self, ct: Ciphertext) -> int:
         """Largest noise across coefficients, in bits (secret_key.rs:63-100)."""

@@ -51,6 +51,10 @@ class RnsContext:
         ]
         self.garner = [s * t for s, t in zip(self.q_star, self.q_tilde)]
 
+    def modulus(self) -> int:
+        """The product of the moduli, an exact Python int."""
+        return self.product
+
     def project(self, a: int) -> list[int]:
         return [int(a) % m for m in self.moduli_u64]
 
@@ -59,6 +63,11 @@ class RnsContext:
         for r, g in zip(rests, self.garner):
             acc += g * int(r)
         return acc % self.product
+
+    def get_garner(self, i: int) -> int | None:
+        """The i-th Garner coefficient (q / q_i)((q / q_i)^-1 mod q_i), an
+        exact Python int; None past the last modulus (rns/mod.rs:96-103)."""
+        return self.garner[i] if i < len(self.garner) else None
 
 
 @dataclass(frozen=True)

@@ -66,7 +66,6 @@ import torch
 
 from tpufhe_torch import kernels
 from tpufhe_torch.bfv.encoding import SIMD, Encoding
-from tpufhe_torch.bfv.keys.evaluation_key import EXPANSION_NARROW
 from tpufhe_torch.bfv.keys.key_switching_key import decomposition_digits
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import SimdNotSupported, UnsupportedOperation
@@ -799,10 +798,11 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands.
     Each rotation takes its key's route (_rotate_step): leveled keys, as
     MulPIR builds them, key-switch in their larger context and switch
-    back down (tpufhe build_expand_step, pipeline.py:843-885)."""
+    back down (tpufhe build_expand_step, pipeline.py:843-885). On narrow
+    parameters the rows are int32: a doubling runs ntt32 2 and
+    ks_accumulate 1 (ntt32 4 with a leveled key), and the fold's Shoup
+    product takes the monomials' shoup32 constants."""
     ctx = par.context_at_level(level)
-    if ctx.narrow:
-        raise UnsupportedOperation(EXPANSION_NARROW)
     if not ek.supports_expansion(level_count):
         raise UnsupportedOperation(
             "This key does not support expansion at this level")
