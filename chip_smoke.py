@@ -5,7 +5,7 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the ten CUDA kernels (one nvcc per source, in
+2. build: compile the eleven CUDA kernels (one nvcc per source, in
    parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
    does not build;
 3. kernels: each kernel against its plain torch version, compared with
@@ -32,7 +32,12 @@ Phases, in order; any failure exits nonzero before the last line:
    N = 16384, 6 x 62-bit, batch 16 (phase 12's shapes) ntt at the
    mul+relin's four transforms and the rotation's two, rns_scale at the
    extend (6 -> 7) and the down-scale (13 -> 6), tensor over the 13-limb
-   basis and ks_accumulate (two addends, and the rotation's one); rns_scale at
+   basis and ks_accumulate (two addends, and the rotation's one); at the
+   same shapes over D = 2 and 4 shards, phase 25's four distributed
+   transforms: every rank's ntt_dist and K1 on its shard tables (blocks of
+   8192 and 4096 words), the D ranks' blocks side by side (computed in this
+   process, the exchange by stacking) torch.equal to K1's whole-row
+   transform, rank 0's kernels timed; rns_scale at
    phase 13's extends and down-scales from 17 limbs (int64) and 18
    (int32), its general instance; ks_accumulate on the int32 rows of the
    narrow mul+relin (two addends) and rotation (one); ct_pt_dot at the dot
@@ -225,9 +230,24 @@ Phases, in order; any failure exits nonzero before the last line:
     key and a column-rotation key at level 0 for level-1 ciphertexts:
     ct_mul + relinearizes (ntt32 10, rns_scale 3, ks_accumulate 1) and
     make_rotate (ntt32 4, ks_accumulate 1) at batch 16, every slot checked;
-    chained steps of both and repeated expansions timed.
+    chained steps of both and repeated expansions timed;
+25. multi-GPU (tpufhe_torch.parallel): min(cards, 4) ranks (4 with four
+    cards or more, else 2) over NCCL, one card each, or on a one-card
+    machine 2 worker processes on the card over gloo (which takes CUDA
+    tensors and moves each all_gather through the host), each a
+    `chip_smoke.py --parallel-worker` process with a 60 s process-group
+    timeout, the phase limited to 300 s; each rank runs DistNtt forward
+    and inverse of phase 12's mul+relin input stack (ntt 2, ntt_dist 2),
+    make_seq_sharded_mul_relin on phase 12's keys and inputs (N = 16384,
+    6 x 62-bit, batch 16: ntt 4, ntt_dist 4, rns_scale 2, tensor 1,
+    ks_accumulate 1) and make_sharded_mul_relin on phase 4's (BASELINE
+    config 3, batch 64) over the (ranks, 1) and (1, ranks) batch x limb
+    meshes (phase 4's counts), each held to its counts on every rank; the
+    ranks' blocks side by side torch.equal to K1's whole-row transforms,
+    phase 12's make_mul_relin output (every slot decrypted) and phase 4's;
+    ms per step per rank and the all_gathers' share by CUDA events.
 
-The second-to-last line is {"kernels": [...]} (ten entries; relin_tail
+The second-to-last line is {"kernels": [...]} (eleven entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
@@ -447,6 +467,17 @@ NARROW_REST_STEPS = 32
 NARROW_LEVELED_MUL_LAUNCHES = {"ntt32": 10, "rns_scale": 3,
                                "ks_accumulate": 1}
 NARROW_LEVELED_ROT_LAUNCHES = {"ntt32": 4, "ks_accumulate": 1}
+# phase 3's distributed NTT (D shards of phase 12's ring) and phase 25, the
+# multi-GPU programs: ranks over NCCL (one card each) or, on one card, two
+# processes over gloo; each worker's process-group timeout and the phase's
+# limit, start-up included
+DIST_SHARDS = (2, 4)
+PAR_PG_TIMEOUT = 60
+PAR_TIMEOUT = 300
+PAR_RATE_STEPS = 4
+SEQ_LAUNCHES = {"ntt": 4, "ntt_dist": 4, "rns_scale": 2, "tensor": 1,
+                "ks_accumulate": 1}
+DIST_LAUNCHES = {"ntt": 2, "ntt_dist": 2}  # one forward, one inverse
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
 
@@ -1225,6 +1256,91 @@ def check_n16k_kernels(par, gen, int32_rate: float) -> dict:
     return out
 
 
+def dist_case(label, blocks, plan, sl, inverse):
+    """A run_cases item for ntt_dist on the D gathered blocks (D, ...,
+    k_sel, B) of one rank: each block read once, the rank's block written
+    once; D Shoup products a word."""
+    from tpufhe_torch.parallel import ntt_dist as nd
+
+    w, ws = ((plan.w_inv, plan.w_inv_shoup) if inverse
+             else (plan.w, plan.w_shoup))
+    start = sl.indices(w.shape[0])[0]
+    shards, words = blocks.shape[0], blocks[0].numel()
+    direction = "inverse" if inverse else "forward"
+    return (f"{direction} {label} {tuple(blocks.shape)} rank {plan.rank}",
+            lambda: nd.cross_cuda(blocks, w, ws, plan.tables.p, start),
+            lambda: nd.cross_plain(blocks, w[sl], ws[sl], plan.tables.mod[sl]),
+            (shards + 1) * words * 8 + 2 * w[sl].numel() * 8,
+            shards * words * SHOUP)
+
+
+def check_dist_kernels(par, gen, int32_rate: float) -> dict:
+    """Phase 3, the distributed NTT at phase 12's shapes (N = 16384, 6 x
+    62-bit, batch 16) over D = 2 and 4 shards, at the four transforms of
+    phase 25's sequence-sharded mul+relin (the extend's inverse, the
+    forward of the 7 new limbs, the inverse of the tensor over the 13-limb
+    basis, the tail's forward of 2 + 6 parts): every rank's ntt_dist and
+    K1 on its shard tables held torch.equal to their plain versions, the D
+    ranks' blocks side by side (computed in this process, the exchange by
+    stacking) torch.equal to K1's whole-row transform; rank 0's kernels
+    timed. Returns {"ntt_dist_d{D}": record, "ntt_d{D}": record}."""
+    from tpufhe_torch.ops import ntt as ntt_mod
+    from tpufhe_torch.parallel import ntt_dist as nd
+
+    ctx = par.context_at_level(0)
+    ctx_mul = par.context_level_at(0).mul_params().to_ctx
+    k, k_mul, n, b = ctx.k, ctx_mul.k, ctx.degree, N16K_BATCH
+    transforms = [("extend", ctx, (4, b, k), slice(None), True),
+                  (f"new limbs {k}..{k_mul}", ctx_mul, (4, b, k_mul - k),
+                   slice(k, k_mul), False),
+                  ("tensor parts", ctx_mul, (3, b, k_mul), slice(None), True),
+                  ("tail", ctx, (2 + k, b, k), slice(None), False)]
+    out = {}
+    for shards in DIST_SHARDS:
+        blk = n // shards
+        cross_items, k1_items = [], []
+        for label, c, lead, sl, inverse in transforms:
+            plans = [nd.DistNttPlan.new(c, shards, e) for e in range(shards)]
+            x = rand_residues(lead + (n,), c.tables.p[sl], gen)
+            parts = [x[..., e * blk:(e + 1) * blk].contiguous()
+                     for e in range(shards)]
+            if inverse:
+                sent = torch.stack([ntt_mod.ntt_cuda(xe, pl.tables, sl, True)
+                                    for xe, pl in zip(parts, plans)])
+            else:
+                sent = torch.stack(parts)
+            got = []
+            for e, plan in enumerate(plans):
+                item = dist_case(f"{label} D = {shards}", sent, plan, sl,
+                                 inverse)
+                y = item[1]()
+                if not torch.equal(y, item[2]()):
+                    raise SystemExit(f"ntt_dist disagrees with its plain "
+                                     f"version at {item[0]}")
+                k1 = k1_case(f"shard {e} of {shards} {label}",
+                             parts[e] if inverse else y, plan.tables, sl,
+                             inverse)
+                z = k1[1]()
+                if not torch.equal(z, k1[2]()):
+                    raise SystemExit(f"K1 on shard tables disagrees with its "
+                                     f"plain version at {k1[0]}")
+                got.append(y if inverse else z)
+                if e == 0:
+                    cross_items.append(item)
+                    k1_items.append(k1)
+            whole = ntt_mod.ntt_cuda(x, c.tables, sl, inverse)
+            if not torch.equal(torch.cat(got, dim=-1), whole):
+                raise SystemExit(f"the {shards} shards' {label} transform "
+                                 f"differs from K1's whole-row one")
+            log(f"  D = {shards} {label} {tuple(x.shape)}: {shards} ranks' "
+                f"blocks side by side equal K1's whole-row transform")
+        per = f"per rank of a D = {shards} sequence-sharded mul+relin"
+        out[f"ntt_dist_d{shards}"] = run_cases("ntt_dist", cross_items,
+                                               int32_rate, per)
+        out[f"ntt_d{shards}"] = run_cases("ntt", k1_items, int32_rate, per)
+    return out
+
+
 def check_wider_kernels(pars, gen, int32_rate: float) -> dict:
     """Phase 3, K2 on the multiplication bases above 16 limbs at N = 8192,
     batch 16 (phase 13's sets): the extend (fixed instances) and the
@@ -1638,7 +1754,8 @@ def n16k_path(par, margin: int) -> dict:
     the counters set to 0 just before it and held to its exact counts;
     every slot of every output checked, the noise printed and held to
     leave at least `margin` bits of q (the N = 8192 product's). Returns
-    {program: (step, inputs, launches)}."""
+    ({program: (step, inputs, launches)}, the keys and values: sk, rk, va,
+    vb)."""
     from tpufhe_torch import kernels, pipeline
     from tpufhe_torch.bfv import (
         Ciphertext,
@@ -1702,7 +1819,7 @@ def n16k_path(par, margin: int) -> dict:
             raise SystemExit(f"{name}: noise {noise} bits leaves "
                              f"{q_bits - noise} of q, below {margin}")
         out[key] = (step, inputs, launches)
-    return out
+    return out, SimpleNamespace(sk=sk, rk=rk, va=va, vb=vb)
 
 
 def n16k_rates(programs: dict, records: dict, card: str) -> dict:
@@ -3917,7 +4034,244 @@ def narrow_rest_path(par, card: str) -> None:
         f"on {card}")
 
 
+# phase 25: the multi-GPU programs (tpufhe_torch.parallel)
+
+
+def parallel_worker(rank: str, world: str, backend: str, work: str) -> int:
+    """One rank of phase 25 (chip_smoke.py --parallel-worker RANK WORLD
+    BACKEND DIR): joins the group through a FileStore in DIR, loads the
+    parent's inputs and keys (wire bytes), and runs on its blocks, each
+    with the launch counters set to 0 just before it: DistNtt forward and
+    inverse of phase 12's mul+relin input stack, make_seq_sharded_mul_relin
+    on phase 12's inputs, then chained steps timed (the all_gathers marked
+    with CUDA events), and make_sharded_mul_relin on phase 4's inputs over
+    the (world, 1) and (1, world) batch x limb meshes; saves its blocks,
+    launches and times to DIR/outRANK.pt."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tpufhe_torch import kernels
+    from tpufhe_torch.bfv import BfvParametersBuilder, RelinearizationKey
+    from tpufhe_torch.parallel import (
+        batch_limb_mesh,
+        make_sharded_mul_relin,
+        shard_ciphertext,
+    )
+    from tpufhe_torch.parallel import ntt_dist as nd
+    from tpufhe_torch.parallel.seq_pipeline import make_seq_sharded_mul_relin
+
+    rank, world = int(rank), int(world)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store"), world), rank=rank, world_size=world,
+        timeout=timedelta(seconds=PAR_PG_TIMEOUT))
+    data = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    out = {"launches": {}, "ms": {}}
+
+    def counted(name, fn, *args):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: v for k, v in kernels.LAUNCHES.items()
+                                 if v}
+        return res
+
+    par16 = (BfvParametersBuilder().set_degree(N16K)
+             .set_plaintext_modulus(PLAINTEXT)
+             .set_moduli_sizes(N16K_MODULI_SIZES).build())
+    blk = N16K // world
+    a16 = [t[..., rank * blk:(rank + 1) * blk].cuda().contiguous()
+           for t in data["n16k"]]
+    dist_ntt = nd.DistNtt(par16.context_at_level(0))
+    x = torch.stack(a16)
+    out["dist"] = [t.cpu() for t in counted(
+        "dist", lambda: (dist_ntt.forward(x), dist_ntt.backward(x)))]
+
+    seq = make_seq_sharded_mul_relin(
+        par16, RelinearizationKey.from_bytes(data["rk16"], par16), None)
+    out["seq"] = [t.cpu() for t in counted("seq", seq, *a16)]
+    marks = []
+    gather = nd.gather_blocks
+
+    def marked_gather(x, group):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y = gather(x, group)
+        ev[1].record()
+        marks.append(ev)
+        return y
+
+    def chained():
+        c0, c1 = a16[0], a16[1]
+        for _ in range(PAR_RATE_STEPS):
+            c0, c1 = seq(c0, c1, a16[2], a16[3])
+
+    nd.gather_blocks = marked_gather
+    chained()
+    torch.cuda.synchronize()
+    marks.clear()
+    step_ms = time_ms(chained, 1) / PAR_RATE_STEPS
+    nd.gather_blocks = gather
+    coll = sum(s.elapsed_time(e) for s, e in marks[-4 * PAR_RATE_STEPS:])
+    out["ms"]["seq"] = step_ms
+    out["ms"]["seq_collective"] = coll / PAR_RATE_STEPS
+
+    par = (BfvParametersBuilder().set_degree(DEGREE)
+           .set_plaintext_modulus(PLAINTEXT).set_moduli_sizes(MODULI_SIZES)
+           .build())
+    rk = RelinearizationKey.from_bytes(data["rk"], par)
+    main = [t.cuda() for t in data["main"]]
+    for shape in ((world, 1), (1, world)):
+        mesh = batch_limb_mesh(*shape)
+        fn = make_sharded_mul_relin(par, rk, mesh)
+        args = [shard_ciphertext(mesh, t) for t in main]
+        name = f"sharded_{shape[0]}x{shape[1]}"
+        out[name] = [t.cpu() for t in counted(name, fn, *args)]
+        out["ms"][name] = time_ms(lambda: fn(*args), 3)
+    torch.save(out, os.path.join(work, f"out{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_path(par16, keys16, n16k, par, mp, card) -> dict:
+    """Phase 25: the multi-GPU programs over min(cards, 4) ranks on NCCL
+    (4 with four cards or more, else 2), or, on a one-card machine, two
+    worker processes on the card over gloo. The workers (parallel_worker)
+    run DistNtt at phase 12's shapes, make_seq_sharded_mul_relin on phase
+    12's keys and inputs (N = 16384, 6 x 62-bit, batch 16) and
+    make_sharded_mul_relin on phase 4's (BASELINE config 3) over the
+    (ranks, 1) and (1, ranks) batch x limb meshes, each logging to a file;
+    the phase fails if a worker fails or the workers outlast PAR_TIMEOUT
+    in all. Their blocks side by side must
+    equal K1's whole-row transforms, phase 12's make_mul_relin output
+    (every slot of the product decrypted) and phase 4's, each rank's
+    launches their exact counts. Returns {"launches": rank 0's seq counts,
+    "ms": per-rank times}."""
+    import tempfile
+
+    from tpufhe_torch.bfv import Encoding
+    from tpufhe_torch.ops.rq import ntt_backward, ntt_forward
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world, backend = (4 if cards >= 4 else 2), "nccl"
+        log(f"  {world} ranks over NCCL, one card each ({cards} cards)")
+    else:
+        world, backend = 2, "gloo"
+        log("  one card: 2 ranks on it over gloo, which takes the CUDA "
+            "tensors and moves each all_gather through the host (the "
+            "collective's time is the host's, not NVLink's)")
+    step16, a16, _ = n16k["mul_relin"]
+    want16 = step16(*a16)
+    ctx16 = par16.context_at_level(0)
+    x = torch.stack(a16)
+    want_dist = (ntt_forward(ctx16, x), ntt_backward(ctx16, x))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"n16k": [t.cpu() for t in a16],
+                    "main": [t.cpu() for t in mp.inputs],
+                    "rk16": keys16.rk.to_bytes(), "rk": mp.rk.to_bytes()},
+                   os.path.join(work, "in.pt"))
+        torch.cuda.empty_cache()
+        here = os.path.dirname(os.path.abspath(__file__))
+        logs = [os.path.join(work, f"log{r}.txt") for r in range(world)]
+        procs = []
+        for r, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--parallel-worker", str(r), str(world), backend, work],
+                    cwd=here, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PAR_TIMEOUT
+        late = False
+        try:
+            for p in procs:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            late = True
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+
+        def tails():
+            out = []
+            for r, path in enumerate(logs):
+                with open(path) as f:
+                    out.append(f"rank {r}:\n{f.read()[-3000:]}")
+            return "\n".join(out)
+
+        if late:
+            raise SystemExit(f"phase 25: the workers outlasted {PAR_TIMEOUT} "
+                             f"s\n{tails()}")
+        if any(p.returncode != 0 for p in procs):
+            raise SystemExit(f"phase 25: worker exit codes "
+                             f"{[p.returncode for p in procs]}\n{tails()}")
+        outs = [torch.load(os.path.join(work, f"out{r}.pt"), weights_only=False)
+                for r in range(world)]
+    log(f"  {world} workers ran in {time.perf_counter() - t0:.1f} s "
+        f"(start-up included)")
+
+    def same(name, got, want):
+        if not all(torch.equal(g, w.cpu()) for g, w in zip(got, want)):
+            raise SystemExit(f"phase 25: {name} differs from the single-card "
+                             f"result")
+        log(f"  {name}: the {world} ranks' blocks equal the single-card "
+            f"result")
+
+    expected = {"dist": DIST_LAUNCHES, "seq": SEQ_LAUNCHES}
+    expected |= {f"sharded_{w}x{h}": MUL_LAUNCHES
+                 for w, h in ((world, 1), (1, world))}
+    for r, o in enumerate(outs):
+        for name, want in expected.items():
+            if o["launches"][name] != want:
+                raise SystemExit(f"phase 25: rank {r} {name} launches "
+                                 f"{o['launches'][name]}, expected {want}")
+    log(f"  launches per rank: DistNtt forward + inverse {DIST_LAUNCHES}, "
+        f"sequence-sharded mul+relin {SEQ_LAUNCHES}, batch x limb "
+        f"mul+relin {MUL_LAUNCHES}, on every rank")
+
+    def side_by_side(name, dim):
+        return [torch.cat([o[name][i] for o in outs], dim=dim)
+                for i in range(len(outs[0][name]))]
+
+    same(f"DistNtt forward and inverse of {tuple(x.shape)} vs K1",
+         side_by_side("dist", -1), want_dist)
+    c0, c1 = side_by_side("seq", -1)
+    same(f"N = {N16K} sequence-sharded mul+relin of {N16K_BATCH} vs phase "
+         f"12's make_mul_relin", (c0, c1), want16)
+    va, vb = keys16.va.astype(object), keys16.vb.astype(object)
+    check_outputs("sequence-sharded mul+relin", par16, keys16.sk,
+                  c0.cuda(), c1.cuda(),
+                  (va * vb % par16.plaintext.value).astype(np.uint64),
+                  Encoding.simd())
+    same(f"batch x limb mul+relin of {BATCH} on {world} x 1 vs phase 4's",
+         side_by_side(f"sharded_{world}x1", 0), mp.product)
+    same(f"batch x limb mul+relin of {BATCH} on 1 x {world} vs phase 4's",
+         side_by_side(f"sharded_1x{world}", -2), mp.product)
+    ms = {name: [o["ms"][name] for o in outs] for name in outs[0]["ms"]}
+
+    def fmt(vals):
+        return ", ".join(f"{v:.3f}" for v in vals)
+
+    log(f"  sequence-sharded mul+relin, batch {N16K_BATCH}: ms per step per "
+        f"rank [{fmt(ms['seq'])}], of which the 4 all_gathers [{fmt(ms['seq_collective'])}] "
+        f"({backend}) on {card}")
+    for w, h in ((world, 1), (1, world)):
+        name = f"sharded_{w}x{h}"
+        log(f"  batch x limb mul+relin on {w} x {h}: ms per step per rank "
+            f"[{fmt(ms[name])}] ({backend}) on {card}")
+    return {"launches": outs[0]["launches"]["seq"], "ms": ms,
+            "world": world, "backend": backend}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-worker":
+        return parallel_worker(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -3991,6 +4345,8 @@ def main() -> int:
     records["ntt32"] = narrow_records["ntt32"]
     n16k_records = check_n16k_kernels(par_16k, gen, int32_rate)
     records["ks_accumulate"] = n16k_records["ks_accumulate"]
+    dist_records = check_dist_kernels(par_16k, gen, int32_rate)
+    records["ntt_dist"] = dist_records["ntt_dist_d2"]
     wider_records = check_wider_kernels(par_wider, gen, int32_rate)
     dot_records = check_dot_kernels({"dot": par_rot, "n16k": par_16k,
                                      "main": par, "d128": par_d128}, gen,
@@ -4079,7 +4435,7 @@ def main() -> int:
     narrow_rates(narrow, narrow_records, card)
 
     log(f"phase 12: N = {N16K}, 6 x 62-bit (unfused route)")
-    n16k = n16k_path(par_16k, mp.margin)
+    n16k, keys16 = n16k_path(par_16k, mp.margin)
     n16k_rates(n16k, n16k_records, card)
 
     log(f"phase 13: multiplication bases above 16 limbs, N = {DEGREE}")
@@ -4141,6 +4497,10 @@ def main() -> int:
         "narrow_rest": check_recorded(rec24, int32_rate, "per phase-24 run",
                                       None)}
     del rec21, rec22, rec23, rec24
+    torch.cuda.empty_cache()
+    log(f"phase 25: multi-GPU, N = {N16K} sequence-sharded and BASELINE "
+        f"config 3 batch x limb")
+    par_run = parallel_path(par_16k, keys16, n16k, par, mp, card)
     # each PIR program's launches from its counted run in phase 19 or 20
     # (the key generation's from its recorded run, counted likewise)
     program_records = pir_records | mulpir_records
@@ -4155,12 +4515,18 @@ def main() -> int:
                            variants["default fused"][1]),
             "ntt32": ("narrow mul+relin", narrow["mul_relin"][2]),
             "ks_accumulate": (f"N = {N16K} mul+relin", n16k["mul_relin"][2]),
-            "ct_pt_dot": (f"dot product of {DOT_PAIRS} pairs", dot_launches)}
+            "ct_pt_dot": (f"dot product of {DOT_PAIRS} pairs", dot_launches),
+            "ntt_dist": (f"rank 0 of phase 25's N = {N16K} sequence-sharded "
+                         f"mul+relin ({par_run['world']} ranks, "
+                         f"{par_run['backend']})", par_run["launches"])}
     other_shapes = {
         "ntt": {label: side[label] for label in side
                 if label.startswith("ntt_")}
         | {"n16384": n16k_records["ntt"],
-           "n16384_rotation": n16k_records["ntt_rotation"]},
+           "n16384_rotation": n16k_records["ntt_rotation"]}
+        | {f"dist_d{d}": dist_records[f"ntt_d{d}"] for d in DIST_SHARDS},
+        "ntt_dist": {f"d{d}": dist_records[f"ntt_dist_d{d}"]
+                     for d in DIST_SHARDS[1:]},
         "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"],
                       "narrow_int32": narrow_records["rns_scale_int32"],
                       "n16384": n16k_records["rns_scale"]}

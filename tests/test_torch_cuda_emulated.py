@@ -14,7 +14,10 @@ and the general one, with more limbs than CTAs), ct_pt_dot's 128-bit
 sums across its reduction windows at each of its instances, through its
 ring of cp.async stages (tests/cuda_emu/cuda_pipeline.h carries a
 thread's copies out only when it waits for them), and ks_accumulate's
-Garner, digit and leveled rows (fewer digit rows than key limbs). The
+Garner, digit and leveled rows (fewer digit rows than key limbs), and
+ntt_dist's cross-shard step (ntt_dist.cu, <<<>>> rewritten likewise) with
+K1 on the shard tables, the D ranks' blocks side by side equal to the
+whole row's transform. The
 card remains the judge of speed and of races; this holds the kernels'
 arithmetic, indexing, barriers and cluster exchanges on every CPU run."""
 
@@ -41,12 +44,13 @@ from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops.intt_scale import intt_scale_cuda, intt_scale_plain
 from tpufhe_torch.ops.rns import ScalingFactor
 from tpufhe_torch.ops.rq import Context, Scaler
+from tpufhe_torch.parallel import ntt_dist as nd
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
-           "intt_scale", "ct_pt_dot", "ks_accumulate")
+           "intt_scale", "ct_pt_dot", "ks_accumulate", "ntt_dist")
 # the sources that launch with <<<>>>, rewritten for g++ before the build
-CHEVRON = ("ks_accumulate",)
+CHEVRON = ("ks_accumulate", "ntt_dist")
 
 
 @pytest.fixture(scope="module")
@@ -348,3 +352,54 @@ def test_ks_accumulate_kernel_matches_plain(on_host, digits, k, rows, n, bits,
     assert torch.equal(got, tpl.ks_accumulate_plain(ctx, lifted, ksk,
                                                     *addends))
     assert on_host["ks_accumulate"] == 1
+
+
+# (degree, shards, limbs of the context, limb_slice, batch rows): blocks of
+# K1's general instance (8 .. 512 words) and of its fixed n = 4096 one
+DIST_CASES = [(64, 8, 2, slice(None), 2), (256, 4, 3, slice(1, 3), 2),
+              (1024, 2, 2, slice(None), 1), (8192, 2, 1, slice(None), 1)]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,shards,k,sl,rows", DIST_CASES)
+def test_ntt_dist_kernel_matches_plain(on_host, n, shards, k, sl, rows,
+                                       inverse):
+    """ntt_dist against cross_plain on every rank's gathered blocks, and
+    each rank's transform (K1 on its shard tables around the kernel) side
+    by side equal to the whole row's; the forward also on words in
+    [0, 4p)."""
+    ctx = _context(n, k)
+    moduli = ctx.moduli[sl]
+    x = _residues((rows, len(moduli), n), moduli, n + shards)
+    if not inverse:  # lazy words below 4p, some above 2^63
+        x = x + torch.from_numpy(np.array([3 * m for m in moduli],
+                                          np.uint64).view(np.int64))[:, None]
+    b = n // shards
+    plans = [nd.DistNttPlan.new(ctx, shards, e) for e in range(shards)]
+    start = sl.indices(k)[0]
+    if inverse:
+        sent = torch.stack([ntt_mod.ntt_cuda(x[..., e * b:(e + 1) * b]
+                                             .contiguous(), plans[e].tables,
+                                             sl, True)
+                            for e in range(shards)])
+    else:
+        sent = torch.stack([x[..., e * b:(e + 1) * b] for e in range(shards)])
+    out = []
+    for plan in plans:
+        w, ws = ((plan.w_inv, plan.w_inv_shoup) if inverse
+                 else (plan.w, plan.w_shoup))
+        y = nd.cross_cuda(sent, w, ws, plan.tables.p, start)
+        assert torch.equal(y, nd.cross_plain(sent, w[sl], ws[sl],
+                                             plan.tables.mod[sl]))
+        out.append(y if inverse else
+                   ntt_mod.ntt_cuda(y, plan.tables, sl, False))
+    tb = ctx.tables
+    if inverse:
+        want = ntt_mod.backward_plain(x, tb.zetas_inv[sl], tb.ninv[sl],
+                                      tb.mod[sl])
+    else:
+        want = ntt_mod.forward_plain(nd._canonical(x, tb.mod[sl]),
+                                     tb.omegas[sl], tb.mod[sl])
+    assert torch.equal(torch.cat(out, -1), want)
+    assert on_host["ntt_dist"] == shards
+    assert on_host["ntt"] == shards

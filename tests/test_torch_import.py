@@ -22,6 +22,7 @@ def test_import_pulls_in_no_jax_and_no_tpufhe():
         "import tpufhe_torch.bfv.rgsw, tpufhe_torch.models\n"
         "import tpufhe_torch.mbfv, tpufhe_torch.mbfv.batched\n"
         "import tpufhe_torch.models.voting\n"
+        "import tpufhe_torch.parallel, tpufhe_torch.parallel.seq_pipeline\n"
         "assert tpufhe_torch.native.lib() is not None, tpufhe_torch.native.error\n"
         "rngs.ChaCha8Rng(rngs.seed_from_u64(1)).fill_bytes(1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -48,7 +49,9 @@ def test_sources_never_import_tpufhe_or_jax():
                 "serialize/proto.py", "models/pir.py", "models/util.py",
                 "bfv/rgsw.py", "traits.py", "utils/transcode.py",
                 "mbfv/__init__.py", "mbfv/protocols.py", "mbfv/batched.py",
-                "models/voting.py"):
+                "models/voting.py", "parallel/__init__.py",
+                "parallel/ntt_dist.py", "parallel/seq_pipeline.py",
+                "parallel/sharding.py"):
         assert ROOT / "tpufhe_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]

@@ -58,6 +58,11 @@ KERNELS = {
     # is XLA code (also rq.dot_product, tpufhe/ops/rq.py:1337)
     "ct_pt_dot": ("ct_pt_dot.cu",
                   "tpufhe/pipeline.py:1091 make_ct_pt_dot (XLA)"),
+    # no Pallas counterpart: the distributed NTT's cross-shard step is XLA
+    # code around tpufhe's all_to_all
+    "ntt_dist": ("ntt_dist.cu",
+                 "tpufhe/parallel/ntt_dist.py:62-96 _block_matmul_left, "
+                 "_fold_reduce and _psum_blocks_mod (XLA)"),
 }
 HEADERS = ("modarith.cuh", "ntt_pass_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")

@@ -318,16 +318,18 @@ def substitute(x: torch.Tensor, exp: SubstitutionExponent,
 
 
 def scale_into(to_ctx: Context, scaler: RnsScaler, x_pb: torch.Tensor,
-               start: int, size: int, ntt: bool) -> torch.Tensor:
+               start: int, size: int, ntt: bool,
+               ntt_fwd=ntt_forward) -> torch.Tensor:
     """Rows start .. start + size of `to_ctx` scaled from the power-basis
     rows x_pb (K2 on the card), forward-NTT'd with `to_ctx`'s tables for
     those rows only (K1's limb_slice) when `ntt`: the scaled half of
     tpufhe's Scaler.scale (rq.py:1303-1313) and the extend of the
-    multiplication programs."""
+    multiplication programs. ntt_fwd: the transform (make_mul_relin's
+    hook)."""
     rows = scaler.scale(x_pb, starting_index=start, size=size)
     if not ntt:
         return rows
-    return ntt_forward(to_ctx, rows, limb_slice=slice(start, start + size))
+    return ntt_fwd(to_ctx, rows, limb_slice=slice(start, start + size))
 
 
 class Scaler:

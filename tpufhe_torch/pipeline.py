@@ -60,6 +60,8 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import partial
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -165,9 +167,10 @@ def tensor_plain(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
 
 
 def tensor_cuda(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
-    """Launch K7."""
+    """Launch K7 on (..., k, n) rows: whole rows (n = N) or a shard's
+    coefficient block of them (parallel/seq_pipeline.py)."""
     kernels.require_cuda("tensor", torch.int64, a0, a1, b0, b1)
-    k, n = ctx.k, ctx.degree
+    k, n = ctx.k, a0.shape[-1]
     shapes = [tuple(t.shape) for t in (a0, a1, b0, b1)]
     if shapes[0][-2:] != (k, n) or len(set(shapes)) != 1:
         raise ValueError(f"tensor: shapes {shapes}, expected four of "
@@ -388,11 +391,12 @@ def ks_accumulate_plain(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
 def ks_accumulate_cuda(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
                        add1=None) -> torch.Tensor:
     """Launch ks_accumulate on the context's words (int64, or int32 for a
-    narrow context)."""
+    narrow context), on whole rows or on a shard's coefficient block of
+    them with the key's matching column block."""
     addends = [t for t in (add0, add1) if t is not None]
     kernels.require_cuda("ks_accumulate", ctx.dtype, lifted, ksk.c0,
                          ksk.c0_shoup, ksk.c1, ksk.c1_shoup, *addends)
-    k, n, digits = ctx.k, ctx.degree, ksk.c0.shape[0]
+    k, n, digits = ctx.k, lifted.shape[-1], ksk.c0.shape[0]
     if lifted.shape[0] != digits or lifted.shape[-2:] != (k, n):
         raise ValueError(f"ks_accumulate: shape {tuple(lifted.shape)}, "
                          f"expected ({digits}, ..., {k}, {n})")
@@ -429,13 +433,15 @@ def ks_accumulate(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
     return ks_accumulate_plain(ctx, lifted, ksk, add0, add1)
 
 
-def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk):
+def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk,
+                       ntt_fwd=ntt_forward):
     """What K4 computes, unfused: the decomposition rows of c2 (Garner, or
     a single-modulus key's digits), one forward NTT of the stacked (c0, c1,
     rows) and the accumulate with the two adds, as tpufhe merges them
-    (pipeline.py:559-569)."""
+    (pipeline.py:559-569). ntt_fwd: the transform (make_mul_relin's
+    hook)."""
     digits = ksk_rows(ctx, dsc[2], ksk)
-    ntts = ntt_forward(ctx, torch.cat([dsc[:2], digits]))
+    ntts = ntt_fwd(ctx, torch.cat([dsc[:2], digits]))
     c0, c1 = ks_accumulate(ctx, ntts[2:], ksk, ntts[0], ntts[1])
     return c0, c1
 
@@ -550,12 +556,32 @@ def mul_basis(par: BfvParameters, level: int = 0,
                ScalingFactor(par.plaintext.value, p_prod)).rns_scaler)
 
 
+def _key_block(ksk, const_slice) -> SimpleNamespace:
+    """The key's four tables cut by const_slice (a shard's column block,
+    contiguous), with its decomposition mode."""
+    return SimpleNamespace(log_base=ksk.log_base, **{
+        name: const_slice(getattr(ksk, name)).contiguous()
+        for name in ("c0", "c0_shoup", "c1", "c1_shoup")})
+
+
 def make_mul_relin(par: BfvParameters, rk, level: int = 0,
                    strategy2_primes: int | None = None,
-                   ext_fuse: bool = False):
+                   ext_fuse: bool = False, ntt_fwd=None, ntt_bwd=None,
+                   const_slice=None):
     """(a0, a1, b0, b1) -> (c0, c1): multiply + relinearize
     (ops/mod.rs:259-341 then key_switching_key.rs:214-241). Inputs are
     NTT-domain (..., k, N) parts of two ciphertext batches.
+
+    The hooks of tpufhe's build_mul_relin_step (pipeline.py:411-413):
+    ntt_fwd(ctx, x, limb_slice=None) and ntt_bwd(ctx, x) replace every
+    forward and inverse transform of the step, const_slice(arr) cuts each
+    per-coefficient constant (the key's (digits, k, N) tables) to the
+    columns the step's rows hold, once, when the program is built. A given
+    hook turns the fused kernels off, as in tpufhe (pipeline.py:477, 485,
+    497): the step takes the unfused route (K7, the inverse, K2, one
+    forward of the stacked (c0, c1, digits) and ks_accumulate), and
+    ext_fuse raises UnsupportedOperation. parallel/seq_pipeline.py gives
+    the distributed transforms here.
 
     strategy2_primes=kP selects the second HPS strategy of eprint 2021/204
     over q + P (see mul_basis). ext_fuse=True runs each extend as one K8
@@ -585,21 +611,31 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     if ext_fuse and not intt_scale_fits(k, ctx.degree):
         raise UnsupportedOperation(
             f"the fused extend does not take {k} limbs of degree {ctx.degree}")
-    fused = _fused_tail(ctx)
-    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
+    hooked = not (ntt_fwd is None and ntt_bwd is None and const_slice is None)
+    if hooked and ext_fuse:
+        raise UnsupportedOperation("the fused extend takes no transform hooks")
+    fwd = ntt_forward if ntt_fwd is None else ntt_fwd
+    bwd = ntt_backward if ntt_bwd is None else ntt_bwd
+    fused = _fused_tail(ctx) and not hooked
+    key = ksk if const_slice is None else _key_block(ksk, const_slice)
+    if hooked:
+        tail = partial(relin_tail_unfused, ntt_fwd=fwd)
+    else:
+        tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
     square = tensor32 if ctx.narrow else tensor
 
     def new_limbs(x, x_pb):
         """The extend's new limbs k .. k_mul of x in the NTT domain, from
         the power basis x_pb unless the extend is fused."""
         if not ext_fuse:
-            return scale_into(ctx_mul, mb.ext, x_pb, k, k_mul - k, ntt=True)
+            return scale_into(ctx_mul, mb.ext, x_pb, k, k_mul - k, ntt=True,
+                              ntt_fwd=fwd)
         rows = intt_scale(ctx, mb.ext, x, k, k_mul - k)
         return ntt_forward(ctx_mul, rows, limb_slice=slice(k, k_mul))
 
     def step(a0, a1, b0, b1):
         x = torch.stack([a0, a1, b0, b1])  # (4, ..., k, N)
-        x_pb = None if ext_fuse else ntt_backward(ctx, x)
+        x_pb = None if ext_fuse else bwd(ctx, x)
         # extend to the multiplication basis (ops/mod.rs:307-317)
         if mb.rhs is None:
             ext = torch.cat([x, new_limbs(x, x_pb)], dim=-2)
@@ -612,13 +648,13 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
                 rhs = intt_scale(ctx, mb.rhs, x[2:], 0, k_mul)
             else:
                 rhs = mb.rhs.scale(x_pb[2:], starting_index=0, size=k_mul)
-            ext = torch.cat([lhs, ntt_forward(ctx_mul, rhs)])
+            ext = torch.cat([lhs, fwd(ctx_mul, rhs)])
         # tensor product + inverse NTT, the down-scale, then the tail
         if fused:
             t_pb = tensor_intt(ctx_mul, ext)
         else:
-            t_pb = ntt_backward(ctx_mul, square(ctx_mul, *ext))
-        return tail(ctx, mb.down.scale(t_pb, starting_index=0, size=k), ksk)
+            t_pb = bwd(ctx_mul, square(ctx_mul, *ext))
+        return tail(ctx, mb.down.scale(t_pb, starting_index=0, size=k), key)
 
     return step
 
