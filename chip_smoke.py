@@ -5,9 +5,9 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the eleven CUDA kernels (one nvcc per source, in
-   parallel) and the native ChaCha8 / CBD sampler (g++); fails if either
-   does not build;
+2. build: compile the twelve CUDA kernels (one nvcc per kernel, in
+   parallel; ks_tail from relin_tail.cu, beside K4) and the native
+   ChaCha8 / CBD sampler (g++); fails if either does not build;
 3. kernels: each kernel against its plain torch version, compared with
    torch.equal, and both timed with CUDA events: ntt, rns_scale and
    tensor_intt at the shapes of the N = 8192, L = 3 x 62-bit, batch-64
@@ -61,8 +61,8 @@ Phases, in order; any failure exits nonzero before the last line:
    of phase 19's database build and response (ntt, rns_scale,
    ks_accumulate, ct_pt_dot) and of phase 20's key generation
    (rns_scale at the Switcher's scale-up, ntt), database build, leveled
-   expansion (ntt over the ciphertext's and the key's moduli,
-   ks_accumulate with 2 digit rows over 3 limbs) and response (ct_pt_dot
+   expansion (ntt over the ciphertext's and the key's moduli, ks_tail
+   with 2 digit rows over 3 limbs) and response (ct_pt_dot
    at 58 terms x 57 columns, ntt, rns_scale, relin_tail), with ct_pt_dot's
    launch plans; and the second dimension both ways on each program's own
    input, (a) tensor over all j and modular adds, (b) three ct_pt_dot
@@ -79,7 +79,19 @@ Phases, in order; any failure exits nonzero before the last line:
    at batch 64, make_mul_relin's tensor_intt and relin_tail, rns_scale
    down-scaling by t = 2^127 - 1 (a 127-bit numerator) from the
    11-limb basis, and the applications' PIR calls (SealPIR's two ct_pt_dot
-   shapes, its folds' ntt);
+   shapes, its folds' ntt); the lazy forward (tpufhe's lazy flag) of
+   ntt at (64, 3, 8192), (8, 2, 4096), N = 512 and 16 and the N = 16384
+   split at phase 12's tail (8, 16, 6, 16384), of ntt32 at phase 10's
+   (64, 7, 8192) and N = 512, and DistNtt's over D = 2 and 4 at that
+   N = 16384 shape (every rank's block, computed in this process): each
+   word below 4p and congruent to the plain version (lazy_check; never
+   torch.equal, as tpufhe's lazy words are no fixed set of integers), the
+   canonical forward timed beside it; ks_tail (the key switch alone) at
+   MulPIR's expansion shape (2 digit rows over 3 limbs, 64 rows) and at
+   BASELINE config 3's (64 rows, 3 over 3), torch.equal, timed beside
+   pipeline.key_switch's other route on the same inputs (unfused_ms: K1 +
+   ks_accumulate; lazy_unfused_ms on K1's lazy output), with its plan
+   and occupancy, and that route canonical and lazy at N = 16384;
 4. main path: keygen, SIMD encode + encrypt 64 pairs, one batched
    mul+relin (the launch counters must read ntt 2, rns_scale 2,
    tensor_intt 1, relin_tail 1), decrypt all 64 and check every slot
@@ -140,7 +152,10 @@ Phases, in order; any failure exits nonzero before the last line:
     4, rns_scale 2, tensor 1), relinearizes (ntt 1, rotate_tail 1),
     Multiplicator.default and strategy2(rk, 1) (ntt 7, rns_scale 3,
     tensor 1, rotate_tail 1), each torch.equal to make_mul_relin's output,
-    every slot checked, the noise printed beside phase 4's;
+    every slot checked, the noise printed beside phase 4's; the lazy Poly:
+    Poly.into_ntt(lazy=True) of a product part (ntt 1), below 4p and
+    congruent, times an NttShoup poly torch.equal to the canonical
+    product;
 17. the single-modulus key switch (seed 2034): N = 2048, 1 x 62-bit,
     batch 16, a relinearization key with log_base 31 and two digit rows;
     ct_mul, relinearizes (ntt 2, ks_accumulate 1) and make_mul_relin (ntt
@@ -165,7 +180,7 @@ Phases, in order; any failure exits nonzero before the last line:
     1); the query at level 1, the expansion keys for level 1 held at level
     0, the relinearization key at level 1 (keygen and upload on the host
     clock); for two queries make_expand(level=1) (7 leveled doublings:
-    ntt 28, ks_accumulate 7) and make_pir_response_db(level=1) (ct_pt_dot
+    ntt 21, ks_tail 7) and make_pir_response_db(level=1) (ct_pt_dot
     4, ntt 3, rns_scale 2, relin_tail 1), each held to its exact counts,
     the answer switched to the last level and all 8192 coefficients
     checked; the expansion and the response timed apart with CUDA events,
@@ -190,15 +205,16 @@ Phases, in order; any failure exits nonzero before the last line:
     run_bfv_ops and run_rgsw at N = 8192, 3 x 62-bit, t = 65537 (t =
     1153 has no SIMD slots at N = 8192), every result pair equal; the
     external product of phase 4's 64 ciphertexts by one RGSW ciphertext
-    (ntt 3, ks_accumulate 2), decrypted equal to make_mul_relin on the same
-    pairs, chained products timed (external products/s); t = 2^127 - 1 at
+    (ntt 2, ks_tail 1, ks_accumulate 1), decrypted equal to make_mul_relin
+    on the same pairs, chained products timed (external products/s);
+    t = 2^127 - 1 at
     N = 8192, 5 x 60-bit (seed 2040): 16 encryptions decrypted, ct_add and
     ct_mul without relinearization (ntt 6, rns_scale 3, tensor 1) of the
     batch, every coefficient against exact Python ints; run_mulpir
     (repeat=2: the seeded index and, warm, index + 1) and run_sealpir at
     65,536 x 1 KiB, N = 8192, MulPIR's t and moduli, each element byte
     for byte, each server phase of each query held to its exact counts
-    (MulPIR expand ntt 28, ks_accumulate 7, response ct_pt_dot 4, ntt 5,
+    (MulPIR expand ntt 21, ks_tail 7, response ct_pt_dot 4, ntt 5,
     rns_scale 2, relin_tail 1; SealPIR expand the same, dot1 ct_pt_dot 1,
     ntt 2, fold none, dot2 ntt 3, ct_pt_dot 1), the report printed; the
     CLI (models.pir.main) for each scheme at 4,096 elements; MulPIR's
@@ -247,7 +263,7 @@ Phases, in order; any failure exits nonzero before the last line:
     phase 12's make_mul_relin output (every slot decrypted) and phase 4's;
     ms per step per rank and the all_gathers' share by CUDA events.
 
-The second-to-last line is {"kernels": [...]} (eleven entries; relin_tail
+The second-to-last line is {"kernels": [...]} (twelve entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
@@ -393,10 +409,10 @@ MULPIR_SHAPE = (20, 3277, 58, 57, 7)
 MULPIR_SEED = SEED + 11
 MULPIR_QUERIES = 2
 MULPIR_REPS = 5
-# each of the 7 leveled doublings: K1 inverse, K1 forward of the digits over
-# the key's 3 moduli, ks_accumulate, K1 inverse there, the switch-down (no
-# kernel), K1 forward over the ciphertext's 2
-MULPIR_EXPAND_LAUNCHES = {"ntt": 28, "ks_accumulate": 7}
+# each of the 7 leveled doublings: K1 inverse, ks_tail (the key switch of
+# the 2 digit rows over the key's 3 moduli), K1 inverse there, the
+# switch-down (no kernel), K1 forward over the ciphertext's 2
+MULPIR_EXPAND_LAUNCHES = {"ntt": 21, "ks_tail": 7}
 # ct_pt_dot 4, the extend (ntt 2, rns_scale 1), the down-scale (ntt 1,
 # rns_scale 1), the relinearization on K4 (N = 8192)
 MULPIR_RESPONSE_LAUNCHES = {"ct_pt_dot": 4, "ntt": 3, "rns_scale": 2,
@@ -417,9 +433,10 @@ APP_MODULI = 3
 RGSW_SEED = SEED + 13
 RGSW_BATCH = BATCH
 RGSW_CHAIN = 8
-# K1 inverse of both parts, then per key switch K1 of its digits and
+# K1 inverse of both parts, then the first key switch on ks_tail and the
+# second, which accumulates onto the first, K1 of its digits and
 # ks_accumulate
-RGSW_LAUNCHES = {"ntt": 3, "ks_accumulate": 2}
+RGSW_LAUNCHES = {"ntt": 2, "ks_tail": 1, "ks_accumulate": 1}
 BIGT_PLAINTEXT = (1 << 127) - 1  # the reference's big t (biguint.rs)
 BIGT_MODULI_SIZES = [60] * 5
 BIGT_SEED = SEED + 14
@@ -604,9 +621,11 @@ def random_key(ctx, gen, digits: int | None = None) -> SimpleNamespace:
     return key
 
 
-def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops) -> dict:
-    """One kernel call against its plain version: torch.equal, then both
-    timed. Raises SystemExit if they disagree."""
+def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops,
+             check=None) -> dict:
+    """One kernel call against its plain version: torch.equal, or for a
+    lazy output check(got, want) -> (agrees, max_abs_err, note)
+    (lazy_check); then both timed. Raises SystemExit if they disagree."""
 
     def as_tensor(out):
         return torch.stack(out) if isinstance(out, tuple) else out
@@ -614,9 +633,13 @@ def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops) -> dict:
     got = as_tensor(kfn())
     want = as_tensor(pfn())
     torch.cuda.synchronize()
-    equal = torch.equal(got, want)
-    err = int((got - want).abs().max().item())
-    log(f"  {name} {label}: equal={equal} max_abs_err={err}")
+    if check is None:
+        equal = torch.equal(got, want)
+        err = int((got - want).abs().max().item())
+        note = ""
+    else:
+        equal, err, note = check(got, want)
+    log(f"  {name} {label}: equal={equal} max_abs_err={err}{note}")
     if not equal:
         raise SystemExit(f"kernel {name} disagrees with its plain version "
                          f"at {label}")
@@ -629,9 +652,37 @@ def run_case(name, label, kfn, pfn, int32_rate, nbytes, ops) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def k1_case(label, x, tables, sl, inverse):
+def lazy_check(tables, sl):
+    """run_case's check of a lazy forward (K1, K9) on limbs `sl` of
+    `tables`: every word, read as unsigned (a word of a 62-bit p may read
+    as a negative int64, a narrow one as a negative int32), below 4p, and
+    congruent mod p to the plain version's canonical word; the note gives
+    the share of words at or above p."""
+    from tpufhe_torch.ops import zq
+
+    p = tables.p[sl].long()[:, None]
+
+    def check(got, want):
+        if tables.narrow:
+            u = got.long() & 0xFFFFFFFF
+            below = bool((u < 4 * p).all())
+            canon = torch.remainder(u, p).to(got.dtype)
+        else:  # w < 4p exactly when floor(w / 2) < 2p, which fits an int64
+            below = bool((((got >> 1) & 0x7FFFFFFFFFFFFFFF) < 2 * p).all())
+            canon = zq.reduce_u64(got, tables.mod[sl])
+        err = int((canon - want).abs().max().item())
+        above = float((canon != got).float().mean().item())
+        return (below and torch.equal(canon, want), err,
+                f" (lazy: below 4p {below}, congruent, {above:.4f} of the "
+                f"words at or above p)")
+
+    return check
+
+
+def k1_case(label, x, tables, sl, inverse, lazy=False):
     """A run_cases item for K1 on (..., k_sel, n) rows of `tables` (limbs
-    `sl`): each row read and written once, plus its twiddle tables."""
+    `sl`): each row read and written once, plus its twiddle tables. lazy:
+    the lazy forward, held by lazy_check (a sixth element)."""
     from tpufhe_torch.ops import ntt as ntt_mod
 
     k_sel, n = x.shape[-2:]
@@ -641,17 +692,19 @@ def k1_case(label, x, tables, sl, inverse):
                                               tables.ninv[sl], mod))
     else:
         pfn = lambda: ntt_mod.forward_plain(x, tables.omegas[sl], mod)  # noqa: E731
-    direction = "inverse" if inverse else "forward"
+    direction = "lazy forward" if lazy else (
+        "inverse" if inverse else "forward")
     return (f"{direction} {label} {tuple(x.shape)}",
-            lambda: ntt_mod.ntt_cuda(x, tables, sl, inverse), pfn,
+            lambda: ntt_mod.ntt_cuda(x, tables, sl, inverse, lazy), pfn,
             2 * x.numel() * 8 + 2 * k_sel * n * 8,
-            x.numel() // n * ntt_ops(n, inverse))
+            x.numel() // n * ntt_ops(n, inverse)) + (
+                (lazy_check(tables, sl),) if lazy else ())
 
 
-def k9_case(label, x, tables, sl, inverse):
+def k9_case(label, x, tables, sl, inverse, lazy=False):
     """A run_cases item for K9 on (..., k_sel, n) int32 rows of narrow
     `tables` (limbs `sl`): each row read and written once, plus its
-    twiddle tables."""
+    twiddle tables. lazy: as k1_case."""
     from tpufhe_torch.ops import ntt as ntt_mod
 
     k_sel, n = x.shape[-2:]
@@ -660,11 +713,13 @@ def k9_case(label, x, tables, sl, inverse):
             x, tables.zetas_inv[sl], tables.ninv[sl], tables.p[sl]))
     else:
         pfn = lambda: ntt_mod.forward32_plain(x, tables.omegas[sl], tables.p[sl])  # noqa: E731
-    direction = "inverse" if inverse else "forward"
+    direction = "lazy forward" if lazy else (
+        "inverse" if inverse else "forward")
     return (f"{direction} {label} {tuple(x.shape)}",
-            lambda: ntt_mod.ntt32_cuda(x, tables, sl, inverse), pfn,
+            lambda: ntt_mod.ntt32_cuda(x, tables, sl, inverse, lazy), pfn,
             2 * x.numel() * 4 + 2 * k_sel * n * 4,
-            x.numel() // n * ntt_ops(n, inverse, SHOUP32))
+            x.numel() // n * ntt_ops(n, inverse, SHOUP32)) + (
+                (lazy_check(tables, sl),) if lazy else ())
 
 
 def k2_case(label, scaler, x, start, size):
@@ -748,6 +803,23 @@ def k5_case(label, ctx, s0, c2, key):
             lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key),
             (4 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
             b * k * k * ks_digit_ops(ctx))
+
+
+def ks_tail_case(label, ctx, c2, key):
+    """A run_cases item for ks_tail on power-basis c2 (..., d, N) with a
+    Garner key of d rows over ctx's k limbs: c2 and the key read once (the
+    key stays in L2), the two outputs written once, the forward tables;
+    per (row, limb) d digit transforms and Shoup products."""
+    from tpufhe_torch import pipeline
+
+    k, n, d = ctx.k, ctx.degree, c2.shape[-2]
+    rows = c2.numel() // (d * n)
+    return (f"{label} c2 {tuple(c2.shape)} + ksk 4 x {(d, k, n)} -> "
+            f"{(2,) + tuple(c2.shape[:-2]) + (k, n)}",
+            lambda: pipeline.ks_tail_cuda(ctx, c2, key),
+            lambda: pipeline.ks_tail_plain(ctx, c2, key),
+            (c2.numel() + 4 * d * k * n + 2 * k * n + 2 * rows * k * n) * 8,
+            rows * k * d * ks_digit_ops(ctx))
 
 
 # a tail's occupancy entry point: n, cluster, threads -> CTAs per SM, clusters
@@ -992,11 +1064,11 @@ def check_kernels(par, gen, int32_rate: float) -> dict:
 
 
 def run_cases(name, items, int32_rate, per: str) -> dict:
-    """run_case over (label, kernel_fn, plain_fn, bytes, ops) items whose
-    launches make up one step; returns the step's record (times and bound
-    summed over the items)."""
-    runs = [run_case(name, label, kfn, pfn, int32_rate, nbytes, ops)
-            for label, kfn, pfn, nbytes, ops in items]
+    """run_case over (label, kernel_fn, plain_fn, bytes, ops[, check])
+    items whose launches make up one step; returns the step's record
+    (times and bound summed over the items)."""
+    runs = [run_case(name, label, kfn, pfn, int32_rate, nbytes, ops, *check)
+            for label, kfn, pfn, nbytes, ops, *check in items]
     bound = Bound(int32_rate)
     for r in runs:
         bound.add(r["bytes"], r["int32_muls"])
@@ -1338,6 +1410,135 @@ def check_dist_kernels(par, gen, int32_rate: float) -> dict:
         out[f"ntt_dist_d{shards}"] = run_cases("ntt_dist", cross_items,
                                                int32_rate, per)
         out[f"ntt_d{shards}"] = run_cases("ntt", k1_items, int32_rate, per)
+    return out
+
+
+def check_lazy_kernels(ctxs, gen, int32_rate: float) -> dict:
+    """Phase 3, the lazy forward (tpufhe's `lazy` flag, words left below
+    4p) of K1 at BASELINE config 3's (64, 3, 8192), config 2's
+    (8, 2, 4096), at N = 512 and 16 (the general instance, k = 3, 4 rows)
+    and at N = 16384 (the split, phase 12's tail forward of 2 + 6 parts at
+    batch 16), and of K9 at phase 10's (64, 7, 8192) and at N = 512: each
+    output every word below 4p and congruent to the plain version
+    (lazy_check), both timed, the canonical forward's time on the same
+    rows beside it (canonical_ms). Then DistNtt's lazy forward at phase
+    12's tail shape over D = 2 and 4 (every rank's forward_post computed in
+    this process, the exchange by stacking): each rank's block below 4p and
+    congruent to K1's whole-row transform, rank 0's lazy K1 on its shard
+    tables timed. Returns {label: record}."""
+    from tpufhe_torch.bfv import BfvParametersBuilder
+    from tpufhe_torch.ops.ntt import ntt_transform
+    from tpufhe_torch.ops.rq import Context
+    from tpufhe_torch.parallel import ntt_dist as nd
+
+    def small(n, bits):
+        moduli = BfvParametersBuilder.generate_moduli([bits] * 3, n)
+        return Context(moduli, n, narrow=bits <= 30)
+
+    n16k = ctxs["n16k"]
+    out = {}
+    for label, ctx, lead in (("n8192", ctxs["main"], (BATCH,)),
+                             ("n4096", ctxs["n4096"], (8,)),
+                             ("n512", small(512, 62), (4,)),
+                             ("n16", small(16, 62), (4,)),
+                             ("n16384", n16k, (2 + n16k.k, N16K_BATCH)),
+                             ("narrow_n8192", ctxs["narrow"], (BATCH,)),
+                             ("narrow_n512", small(512, 30), (4,))):
+        tb = ctx.tables
+        x = rand_residues(lead + (ctx.k, ctx.degree), tb.p, gen)
+        kernel, case = (("ntt32", k9_case) if ctx.narrow else ("ntt", k1_case))
+        rec = run_cases(kernel, [case(label, x, tb, slice(None), False, True)],
+                        int32_rate, "per call")
+        rec["canonical_ms"] = time_ms(lambda: ntt_transform(x, tb), 20)
+        out[f"{kernel}_lazy_{label}"] = rec
+        log(f"  {kernel} lazy {label}: {rec['ms']:.4f} ms, the canonical "
+            f"forward {rec['canonical_ms']:.4f} ms")
+    n, tb = n16k.degree, n16k.tables
+    x = rand_residues((2 + n16k.k, N16K_BATCH, n16k.k, n), tb.p, gen)
+    whole = ntt_transform(x, tb)
+    for shards in DIST_SHARDS:
+        blk = n // shards
+        plans = [nd.DistNttPlan.new(n16k, shards, e) for e in range(shards)]
+        blocks = torch.stack([x[..., e * blk:(e + 1) * blk]
+                              for e in range(shards)])
+        check = lazy_check(tb, slice(None))
+        for e, plan in enumerate(plans):
+            agrees, err, note = check(nd.forward_post(blocks, plan, lazy=True),
+                                      whole[..., e * blk:(e + 1) * blk])
+            if not agrees:
+                raise SystemExit(f"DistNtt lazy forward, rank {e} of {shards}: "
+                                 f"max_abs_err {err}{note}")
+        log(f"  DistNtt lazy forward D = {shards} {tuple(x.shape)}: every "
+            f"rank's block below 4p and congruent to K1's whole-row transform")
+        y = nd.cross_cuda(blocks, plans[0].w, plans[0].w_shoup,
+                          plans[0].tables.p, 0)
+        out[f"ntt_lazy_dist_d{shards}"] = run_cases("ntt", [k1_case(
+            f"shard 0 of {shards}", y, plans[0].tables, slice(None), False,
+            True)], int32_rate, f"per rank of a D = {shards} forward")
+    return out
+
+
+def check_ks_tail(ctxs, gen, int32_rate: float) -> dict:
+    """Phase 3, ks_tail (the key switch alone, tpufhe's mode ks_only) with
+    random Garner keys: at MulPIR's expansion shape (2 digit rows over the
+    key's 3 limbs of 50, 55, 55 bits; 64 rows, its last doubling) and at
+    BASELINE config 3's (64 rows, 3 over 3), torch.equal to ks_tail_plain,
+    timed beside the route it replaces on the same inputs (unfused_ms:
+    pipeline.key_switch's other branch, the digits, K1 and ks_accumulate)
+    and beside that route on K1's lazy output (lazy_unfused_ms, its output
+    torch.equal), with its launch plan and occupancy. Then that route
+    canonical and lazy at phase 12's rotation shape (N = 16384, 6 digit
+    rows, batch 16, one addend), where ks_tail does not run. Returns
+    {label: record}."""
+    from tpufhe_torch import kernels, pipeline
+    from tpufhe_torch.ops.ntt import ntt_transform
+    from tpufhe_torch.ops.rq import Context
+
+    def unfused(ctx, c2, key, lazy, add0=None):
+        lifted = ntt_transform(pipeline.ksk_rows(ctx, c2, key), ctx.tables,
+                               lazy=lazy)
+        return pipeline.ks_accumulate_cuda(ctx, lifted, key, add0)
+
+    out = {}
+    for label, ctx, d, rows in (("mulpir", ctxs["mulpir"], 2, 64),
+                                ("n8192", ctxs["main"], 3, BATCH)):
+        k, n = ctx.k, ctx.degree
+        key = random_key(ctx, gen)
+        for name in ("c0", "c0_shoup", "c1", "c1_shoup"):
+            setattr(key, name, getattr(key, name)[:d])
+        key.ctx_ciphertext = Context(ctx.moduli[:d], n)
+        c2 = rand_residues((rows, d, n), ctx.tables.p[:d], gen)
+        rec = run_cases("ks_tail", [ks_tail_case(label, ctx, c2, key)],
+                        int32_rate, "per call")
+        want = pipeline.ks_tail_cuda(ctx, c2, key)
+        if not torch.equal(unfused(ctx, c2, key, True), want):
+            raise SystemExit(f"ks_tail {label}: K1 lazy + ks_accumulate "
+                             f"differs")
+        rec["unfused_ms"] = time_ms(lambda: unfused(ctx, c2, key, False), 20)
+        rec["lazy_unfused_ms"] = time_ms(lambda: unfused(ctx, c2, key, True),
+                                         20)
+        out[f"ks_tail_{label}"] = rec | occupancy(kernels.function(
+            "ks_tail", "tpufhe_ks_tail_occupancy", OCC_ARGS), d, n)
+        r = out[f"ks_tail_{label}"]
+        log(f"  ks_tail {label}: {r['ms']:.4f} ms, unfused {r['unfused_ms']:.4f}"
+            f" ms, lazy unfused {r['lazy_unfused_ms']:.4f} ms; cluster "
+            f"{r['cluster']} x {r['threads']} threads, {r['smem_bytes']} "
+            f"shared bytes, {r['blocks_per_sm']} CTAs per SM, "
+            f"{r['clusters']} clusters at once")
+    ctx = ctxs["n16k"]
+    key = random_key(ctx, gen)
+    c2 = rand_residues((N16K_BATCH, ctx.k, ctx.degree), ctx.tables.p, gen)
+    s0 = rand_residues((N16K_BATCH, ctx.k, ctx.degree), ctx.tables.p, gen)
+    if not torch.equal(unfused(ctx, c2, key, True, s0),
+                       unfused(ctx, c2, key, False, s0)):
+        raise SystemExit("K1 lazy + ks_accumulate differs at N = 16384")
+    rec = {"canonical_ms": time_ms(lambda: unfused(ctx, c2, key, False, s0),
+                                   20),
+           "lazy_ms": time_ms(lambda: unfused(ctx, c2, key, True, s0), 20)}
+    log(f"  K1 + ks_accumulate at N = 16384 (c2 {tuple(c2.shape)}, one "
+        f"addend): canonical {rec['canonical_ms']:.4f} ms, on K1's lazy "
+        f"output {rec['lazy_ms']:.4f} ms, equal")
+    out["unfused_lazy_n16384"] = rec
     return out
 
 
@@ -2351,8 +2552,33 @@ def object_api_path(par, mp: SimpleNamespace, variants: dict):
             raise SystemExit(
                 f"Multiplicator {name} differs from make_mul_relin")
         check_parts(f"Multiplicator {name}", par, mp.sk, ct, want)
+    lazy_poly(par, mp)
     log(f"  phase 4's product noise: {sum(MODULI_SIZES) - mp.margin} bits")
     return pk
+
+
+def lazy_poly(par, mp: SimpleNamespace) -> None:
+    """Phase 16, the lazy Poly at BASELINE config 3: the power basis of
+    make_mul_relin's first output part (64, 3, 8192) into the NTT domain
+    with lazy=True (ntt 1, K1's lazy instance), its words below 4p and
+    congruent to the canonical forward's, times an NttShoup poly (phase 4's
+    first b0 row; no kernel) torch.equal to the canonical product."""
+    from tpufhe_torch.ops.rq import NTT, Poly
+
+    ctx = par.context_at_level(0)
+    pb = Poly(ctx, NTT, mp.product[0]).into_power_basis()
+    shoup = Poly(ctx, NTT, mp.inputs[2][0]).into_ntt_shoup()
+    lazy, _ = run_program("Poly.into_ntt(lazy=True)", pb.into_ntt, (True,),
+                          {"ntt": 1})
+    canonical = pb.into_ntt()
+    agrees, err, note = lazy_check(ctx.tables, slice(None))(lazy.coeffs,
+                                                            canonical.coeffs)
+    prod, _ = run_program("lazy Poly x NttShoup", lazy.__mul__, (shoup,), {})
+    equal = torch.equal(prod.coeffs, (canonical * shoup).coeffs)
+    log(f"  lazy Poly {tuple(lazy.coeffs.shape)}: max_abs_err {err}{note}; "
+        f"x NttShoup equal to the canonical product: {equal}")
+    if not (agrees and equal and lazy.lazy and not prod.lazy):
+        raise SystemExit("the lazy Poly disagrees with the canonical one")
 
 
 def single_modulus_path(par) -> None:
@@ -2464,7 +2690,7 @@ class KernelRecorder:
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
     (check_recorded): ntt, ntt32, rns_scale, ks_accumulate, ct_pt_dot,
-    relin_tail, tensor, rotate_tail and tensor_intt. The second dimension's input is kept too, to
+    relin_tail, tensor, rotate_tail, tensor_intt and ks_tail. The second dimension's input is kept too, to
     time its two routes. The launch counters are set to 0 on entry and read on
     exit (launches), so a kernel call the recorder missed shows."""
 
@@ -2495,23 +2721,23 @@ class KernelRecorder:
                    (pipeline, "relin_tail_cuda"),
                    (pipeline, "_second_dimension"),
                    (pipeline, "tensor_cuda"), (pipeline, "rotate_tail_cuda"),
-                   (pipeline, "tensor_intt_cuda")]
+                   (pipeline, "tensor_intt_cuda"), (pipeline, "ks_tail_cuda")]
         self._saved = [(owner, name, getattr(owner, name))
                        for owner, name in targets]
         orig = {name: fn for _, name, fn in self._saved}
         label, rec = self.label, self
 
-        def ntt(x, tables, sl, inverse):
+        def ntt(x, tables, sl, inverse, lazy=False):
             rec.add("ntt", (tuple(x.shape), id(tables), sl.start, sl.stop,
-                            inverse),
-                    lambda: k1_case(label, x, tables, sl, inverse))
-            return orig["ntt_cuda"](x, tables, sl, inverse)
+                            inverse, lazy),
+                    lambda: k1_case(label, x, tables, sl, inverse, lazy))
+            return orig["ntt_cuda"](x, tables, sl, inverse, lazy)
 
-        def ntt32(x, tables, sl, inverse):
+        def ntt32(x, tables, sl, inverse, lazy=False):
             rec.add("ntt32", (tuple(x.shape), id(tables), sl.start, sl.stop,
-                              inverse),
-                    lambda: k9_case(label, x, tables, sl, inverse))
-            return orig["ntt32_cuda"](x, tables, sl, inverse)
+                              inverse, lazy),
+                    lambda: k9_case(label, x, tables, sl, inverse, lazy))
+            return orig["ntt32_cuda"](x, tables, sl, inverse, lazy)
 
         def scale(scaler, x, start, size):
             rec.add("rns_scale", (tuple(x.shape), start, size,
@@ -2559,10 +2785,16 @@ class KernelRecorder:
                     lambda: k3_case(label, ctx_mul, ext))
             return orig["tensor_intt_cuda"](ctx_mul, ext)
 
+        def ks_tail(ctx, c2, key):
+            rec.add("ks_tail", (tuple(c2.shape), id(ctx)),
+                    lambda: ks_tail_case(label, ctx, c2, key))
+            return orig["ks_tail_cuda"](ctx, c2, key)
+
         for (owner, name, _), fn in zip(self._saved, (ntt, ntt32, scale, ks,
                                                       dot_kernel, relin,
                                                       second, tensor,
-                                                      rotate, tensor_intt)):
+                                                      rotate, tensor_intt,
+                                                      ks_tail)):
             setattr(owner, name, fn)
         kernels.reset_launches()
         return self
@@ -2600,9 +2832,9 @@ def check_recorded(rec: KernelRecorder, int32_rate: float, per: str,
     for name, entries in by_kernel.items():
         bound = Bound(int32_rate)
         runs = []
-        for count, (label, kfn, pfn, nbytes, ops), plan in entries:
+        for count, (label, kfn, pfn, nbytes, ops, *check), plan in entries:
             r = run_case(name, label if count == 1 else f"{label} x {count}",
-                         kfn, pfn, int32_rate, nbytes, ops)
+                         kfn, pfn, int32_rate, nbytes, ops, *check)
             bound.add(count * nbytes, count * ops)
             if plan is not None:
                 r["plan"] = dot_plan(*plan)
@@ -4326,6 +4558,9 @@ def main() -> int:
               .set_moduli_sizes(K1_MODULI_SIZES).build())
     par_d128 = next(p for p in BfvParameters.default_parameters_128(D128_BITS)
                     if p.degree() == DEGREE)
+    par_mulpir = (BfvParametersBuilder().set_degree(MULPIR_DEGREE)
+                  .set_plaintext_modulus(MULPIR_PLAINTEXT)
+                  .set_moduli_sizes(MULPIR_MODULI_SIZES).build())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     log("phase 3: kernels against their plain versions")
@@ -4355,9 +4590,15 @@ def main() -> int:
     api_records = check_api_kernels(par, gen, int32_rate)
     k1_records = check_single_modulus_kernels(par_k1, gen, int32_rate)
     d128_records = check_default128_kernels(par_d128, gen, int32_rate)
-    par_mulpir = (BfvParametersBuilder().set_degree(MULPIR_DEGREE)
-                  .set_plaintext_modulus(MULPIR_PLAINTEXT)
-                  .set_moduli_sizes(MULPIR_MODULI_SIZES).build())
+    lazy_records = check_lazy_kernels({"main": par.context_at_level(0),
+                                       "n4096": par_4096.context_at_level(0),
+                                       "n16k": par_16k.context_at_level(0),
+                                       "narrow": par_w30.context_at_level(0)},
+                                      gen, int32_rate)
+    ks_tail_records = check_ks_tail({"mulpir": par_mulpir.context_at_level(0),
+                                     "main": par.context_at_level(0),
+                                     "n16k": par_16k.context_at_level(0)},
+                                    gen, int32_rate)
     pir = pir_setup(par_16k)
     pir_records, pir_routes = pir_kernels(pir, int32_rate, card)
     mulpir = mulpir_setup(par_mulpir)
@@ -4507,6 +4748,10 @@ def main() -> int:
     for tag, launches in path_launches.items():
         for name, count in launches.items():
             program_records[tag][name]["launches"] = count
+    # ks_tail: its calls in MulPIR's expansion as recorded in phase 3, or
+    # where no program takes it, the phase-3 case at that shape
+    records["ks_tail"] = mulpir_records["mulpir_expansion"].get(
+        "ks_tail", ks_tail_records["ks_tail_mulpir"])
 
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
@@ -4518,13 +4763,17 @@ def main() -> int:
             "ct_pt_dot": (f"dot product of {DOT_PAIRS} pairs", dot_launches),
             "ntt_dist": (f"rank 0 of phase 25's N = {N16K} sequence-sharded "
                          f"mul+relin ({par_run['world']} ranks, "
-                         f"{par_run['backend']})", par_run["launches"])}
+                         f"{par_run['backend']})", par_run["launches"]),
+            "ks_tail": ("MulPIR expansion (phase 20)",
+                        path_launches["mulpir_expansion"])}
     other_shapes = {
         "ntt": {label: side[label] for label in side
                 if label.startswith("ntt_")}
         | {"n16384": n16k_records["ntt"],
            "n16384_rotation": n16k_records["ntt_rotation"]}
-        | {f"dist_d{d}": dist_records[f"ntt_d{d}"] for d in DIST_SHARDS},
+        | {f"dist_d{d}": dist_records[f"ntt_d{d}"] for d in DIST_SHARDS}
+        | {label: rec for label, rec in lazy_records.items()
+           if label.startswith("ntt_")},
         "ntt_dist": {f"d{d}": dist_records[f"ntt_dist_d{d}"]
                      for d in DIST_SHARDS[1:]},
         "rns_scale": {"strategy2_kp2": variant_records["rns_scale_s2"],
@@ -4533,16 +4782,22 @@ def main() -> int:
         | {label: rec for label, rec in wider_records.items()},
         "tensor": {"n16384": n16k_records["tensor"]},
         "ct_pt_dot": dot_records,
-        "ks_accumulate": {"rotation": n16k_records["ks_accumulate_rotation"]}
+        "ks_accumulate": {"rotation": n16k_records["ks_accumulate_rotation"],
+                          "lazy_route_n16384":
+                          ks_tail_records["unfused_lazy_n16384"]}
         | {label: narrow_records[label] for label in
            ("ks_accumulate_int32", "ks_accumulate_int32_rotation")},
+        "ks_tail": {label: rec for label, rec in ks_tail_records.items()
+                    if label.startswith("ks_tail_")},
         "tensor_intt": {f"strategy2_kp{kp}":
                         variant_records[f"tensor_intt_s2_kp{kp}"]
                         for kp in (1, 2)},
         "intt_scale": {"strategy2_kp2": variant_records["intt_scale_s2"],
                        "general": variant_records["intt_scale_general"]},
         "ntt32": {label: narrow_records[label] for label in
-                  ("ntt32_rotation", "ntt32_512_forward", "ntt32_512_inverse")},
+                  ("ntt32_rotation", "ntt32_512_forward", "ntt32_512_inverse")}
+        | {label: rec for label, rec in lazy_records.items()
+           if label.startswith("ntt32_")},
         "relin_tail": {label: tails[label] for label in
                        ("relin_tail_8x62", "relin_tail_n4096")},
         "rotate_tail": {"rotate_tail_n4096": tails["rotate_tail_n4096"]},
@@ -4557,7 +4812,8 @@ def main() -> int:
             other_shapes[name][tag] = rec
     for tag, routes in (("pir", pir_routes), ("mulpir", mulpir_routes)):
         other_shapes["tensor"][f"{tag}_second_dimension_a"] = routes["tensor"]
-    tail_keys = ("unfused_ms", "cluster", "blocks_per_sm", "clusters", "plan")
+    tail_keys = ("unfused_ms", "lazy_unfused_ms", "canonical_ms", "lazy_ms",
+                 "cluster", "blocks_per_sm", "clusters", "plan")
     out = []
     for name, (src, replaces) in kernels.KERNELS.items():
         r = records[name]
@@ -4565,7 +4821,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda",
             "source": f"tpufhe_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[name], "program": program,
+            "launches": launches.get(name, 0), "program": program,
             "shape": r["shapes"], "equal": True,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -7,9 +7,11 @@ thread a fiber switched at barriers, distributed shared memory mapped
 between the cluster's threads) and run through the port's own wrappers on
 CPU tensors, word for word against their plain versions: every K1 instance
 (the general one, the fixed n = 4096 and 8192 rows, the N = 16384 two-CTA
-split) in both directions, K3's cluster of three, both tails, K9's narrow
-passes (the general instance, a row of one pass at n = 8, the fixed
-n = 8192) in both directions, K8's cluster (the fixed k_in = 3 instances
+split) in both directions and as a lazy forward (words below 4p,
+congruent to the plain output), K3's cluster of three, both tails and the
+key switch alone (ks_tail, in relin_tail.cu: d digit rows over k >= d
+limbs), K9's narrow passes (the general instance, a row of one pass at
+n = 8, the fixed n = 8192) in both directions and lazy, K8's cluster (the fixed k_in = 3 instances
 and the general one, with more limbs than CTAs), ct_pt_dot's 128-bit
 sums across its reduction windows at each of its instances, through its
 ring of cp.async stages (tests/cuda_emu/cuda_pipeline.h carries a
@@ -39,7 +41,7 @@ import tpufhe_torch.bfv as T
 from tpufhe_torch import kernels
 from tpufhe_torch import pipeline as tpl
 from tpufhe_torch.bfv.keys.key_switching_key import shoup_of
-from tpufhe_torch.ops import dot
+from tpufhe_torch.ops import dot, zq
 from tpufhe_torch.ops import ntt as ntt_mod
 from tpufhe_torch.ops.intt_scale import intt_scale_cuda, intt_scale_plain
 from tpufhe_torch.ops.rns import ScalingFactor
@@ -88,7 +90,7 @@ def on_host(emulated, monkeypatch):
     """The wrappers launch the emulated kernels on CPU tensors."""
 
     def function(name, symbol, argtypes):
-        fn = getattr(emulated[name], symbol)
+        fn = getattr(emulated[kernels.KERNELS[name][0][:-3]], symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return fn
 
@@ -145,6 +147,32 @@ def test_ntt_kernel_matches_plain(on_host, n, k, sl, rows, inverse):
     assert on_host["ntt"] == 1
 
 
+def _lazy_matches(got, want, moduli, bits):
+    """Every word of a lazy forward (read as unsigned) below 4p and
+    congruent to the plain version's canonical word; where there are
+    enough words, some at or above p (the last reduction was left out)."""
+    p = np.array(moduli, np.uint64)[:, None]
+    u = got.numpy().view(np.uint64 if bits == 64 else np.uint32)
+    u = u.astype(np.uint64)
+    assert (u < 4 * p).all()
+    assert np.array_equal(u % p, want.numpy().astype(np.uint64))
+    if u.size >= 512:
+        assert (u >= p).any()
+
+
+@pytest.mark.parametrize("n,k,sl,rows", K1_CASES)
+def test_ntt_kernel_lazy_forward(on_host, n, k, sl, rows):
+    tables = _context(n, k).tables
+    moduli = tables.mod.moduli[sl]
+    x = _residues((rows, len(moduli), n), moduli, n + rows)
+    got = ntt_mod.ntt_cuda(x, tables, sl, False, lazy=True)
+    _lazy_matches(got, ntt_mod.forward_plain(x, tables.omegas[sl],
+                                             tables.mod[sl]), moduli, 64)
+    assert on_host["ntt"] == 1
+    with pytest.raises(ValueError):
+        ntt_mod.ntt_cuda(x, tables, sl, True, lazy=True)
+
+
 @pytest.mark.parametrize("n,k,rows", [(16, 2, 2), (1024, 3, 1), (8192, 2, 1)])
 def test_tensor_intt_kernel_matches_plain(on_host, n, k, rows):
     ctx = _context(n, k)
@@ -175,6 +203,28 @@ def test_tail_kernels_match_plain(on_host, tail, n, k, rows):
     assert on_host[f"{tail}_tail"] == 1
 
 
+# (degree, digit rows, key limbs, batch rows): a leveled key's 2 rows over
+# 3 limbs (MulPIR's expansion), the Garner rows (d = k), and 17 rows over
+# 17 limbs, which the cluster of 16 takes in two rounds
+KS_TAIL_CASES = [(64, 2, 3, 2), (4096, 2, 3, 1), (64, 3, 3, 2),
+                 (256, 3, 3, 1), (64, 17, 17, 1)]
+
+
+@pytest.mark.parametrize("n,d,k,rows", KS_TAIL_CASES)
+def test_ks_tail_kernel_matches_plain(on_host, n, d, k, rows):
+    ctx = _context(n, k)
+    key = SimpleNamespace(c0=_residues((d, k, n), ctx.moduli, 1),
+                          c1=_residues((d, k, n), ctx.moduli, 2), log_base=0,
+                          ctx_ciphertext=Context(ctx.moduli[:d], n, "cpu"))
+    key.c0_shoup = shoup_of(key.c0, ctx.moduli)
+    key.c1_shoup = shoup_of(key.c1, ctx.moduli)
+    c2 = _residues((rows, d, n), ctx.moduli[:d], 3)
+    got = tpl.ks_tail_cuda(ctx, c2, key)
+    assert got.shape == (2, rows, k, n)
+    assert torch.equal(got, tpl.ks_tail_plain(ctx, c2, key))
+    assert on_host["ks_tail"] == 1
+
+
 # (n, limbs of the narrow context, limb_slice, batch rows): K9's general
 # instance (a row of one three-stage pass at n = 8, a two-stage lead pass at
 # n = 32, n = 16 and 512) and its fixed n = 8192 one, with limb slices that
@@ -197,6 +247,18 @@ def test_ntt32_kernel_matches_plain(on_host, n, k, sl, rows, inverse):
     else:
         want = ntt_mod.forward32_plain(x, tables.omegas[sl], tables.p[sl])
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert on_host["ntt32"] == 1
+
+
+@pytest.mark.parametrize("n,k,sl,rows", K9_CASES)
+def test_ntt32_kernel_lazy_forward(on_host, n, k, sl, rows):
+    tables = _context(n, k, 30).tables
+    moduli = tables.mod.moduli[sl]
+    x = _residues((rows, len(moduli), n), moduli, n + rows).int()
+    got = ntt_mod.ntt32_cuda(x, tables, sl, False, lazy=True)
+    assert got.dtype == torch.int32
+    _lazy_matches(got, ntt_mod.forward32_plain(x, tables.omegas[sl],
+                                               tables.p[sl]), moduli, 32)
     assert on_host["ntt32"] == 1
 
 
@@ -398,7 +460,7 @@ def test_ntt_dist_kernel_matches_plain(on_host, n, shards, k, sl, rows,
         want = ntt_mod.backward_plain(x, tb.zetas_inv[sl], tb.ninv[sl],
                                       tb.mod[sl])
     else:
-        want = ntt_mod.forward_plain(nd._canonical(x, tb.mod[sl]),
+        want = ntt_mod.forward_plain(zq.reduce_u64(x, tb.mod[sl]),
                                      tb.omegas[sl], tb.mod[sl])
     assert torch.equal(torch.cat(out, -1), want)
     assert on_host["ntt_dist"] == shards

@@ -23,7 +23,9 @@ def test_import_pulls_in_no_jax_and_no_tpufhe():
         "import tpufhe_torch.mbfv, tpufhe_torch.mbfv.batched\n"
         "import tpufhe_torch.models.voting\n"
         "import tpufhe_torch.parallel, tpufhe_torch.parallel.seq_pipeline\n"
+        "import tpufhe_torch.parallel.ntt_dist, tpufhe_torch.parallel.sharding\n"
         "assert tpufhe_torch.native.lib() is not None, tpufhe_torch.native.error\n"
+        "assert tpufhe_torch.native.available()\n"
         "rngs.ChaCha8Rng(rngs.seed_from_u64(1)).fill_bytes(1000)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tpufhe' or m.startswith('tpufhe.')]\n"

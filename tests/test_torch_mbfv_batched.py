@@ -13,14 +13,9 @@ residues, equal bytes), on one ChaCha8 stream each:
 
 The workers are subprocesses that import only tpufhe_torch, rendezvous
 through a FileStore under the test's tmp_path (no port is opened) and
-have a process-group timeout; the test waits for them with its own limit.
+have a process-group timeout (test_torch_ntt_dist.run_gloo: each worker
+logs to its own file, and all share one deadline).
 """
-
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -42,10 +37,10 @@ from tpufhe_torch.mbfv import batched as TBatch
 from tpufhe_torch.utils.rngs import ChaCha8Rng as TRng
 from tpufhe_torch.utils.rngs import seed_from_u64 as t_seed
 
-ROOT = Path(__file__).resolve().parents[1]
+from test_torch_ntt_dist import run_gloo
+
 DEGREE = 16
 PARTIES = 5
-WORKER_TIMEOUT = 120  # seconds a gloo run may take, start-up included
 
 
 def words(x) -> np.ndarray:
@@ -170,56 +165,30 @@ def test_batched_relin_key_multiplies_collectively(sides):
 # ---------------------------------------------------------------------------
 
 WORKER = r"""
-import json, sys
-from datetime import timedelta
-import numpy as np
-import torch
-import torch.distributed as dist
 from tpufhe_torch.bfv import BfvParametersBuilder
 from tpufhe_torch.mbfv.batched import make_sharded_pk_aggregation, psum_mod
 
-rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-spec = json.load(open(work + "/spec.json"))
-dist.init_process_group("gloo", store=dist.FileStore(work + "/store", world),
-                        rank=rank, world_size=world,
-                        timeout=timedelta(seconds=60))
 par = (BfvParametersBuilder().set_degree(spec["degree"])
        .set_plaintext_modulus(spec["t"]).set_moduli(spec["moduli"])
        .set_device("cpu").build())
-shares = torch.from_numpy(np.load(work + "/shares.npy"))
+shares = torch.from_numpy(data["shares"])
 if spec["mode"] == "pk":
-    out = make_sharded_pk_aggregation(par)(shares[rank::world])
+    out["sum"] = make_sharded_pk_aggregation(par)(shares[rank::world]).numpy()
 else:  # this rank's slice of the parties, folded by psum_mod itself
-    out = psum_mod(shares[rank::world], par.context_at_level(0), dim=0)
-np.save(f"{work}/out{rank}.npy", out.numpy())
-dist.destroy_process_group()
+    out["sum"] = psum_mod(shares[rank::world], par.context_at_level(0),
+                          dim=0).numpy()
 """
 
 
 def gloo_sum(tmp_path, world: int, shares: np.ndarray, par, mode="pk"):
-    """Every rank's output of a gloo run over `world` worker processes,
-    rank r holding the parties r, r + world, ... of `shares`."""
-    work = tmp_path / f"gloo{world}{mode}"
-    work.mkdir()
-    np.save(work / "shares.npy", shares)
-    (work / "spec.json").write_text(json.dumps({
-        "degree": par.degree(), "t": par.plaintext.value,
-        "moduli": [int(m) for m in par.moduli], "mode": mode}))
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
-    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r),
-                               str(world), str(work)], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True)
-             for r in range(world)]
-    try:
-        results = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, err) in zip(procs, results):
-        assert p.returncode == 0, err
-    return [np.load(work / f"out{r}.npy") for r in range(world)]
+    """Every rank's output of a gloo run over `world` worker processes
+    (test_torch_ntt_dist.run_gloo: a log file each, one deadline), rank r
+    holding the parties r, r + world, ... of `shares`."""
+    spec = {"degree": par.degree(), "t": par.plaintext.value,
+            "moduli": [int(m) for m in par.moduli], "mode": mode}
+    outs = run_gloo(tmp_path / f"gloo{world}{mode}", world, WORKER, spec,
+                    {"shares": shares})
+    return [o["sum"] for o in outs]
 
 
 @pytest.fixture(scope="module")

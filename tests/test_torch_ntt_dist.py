@@ -217,6 +217,8 @@ def tpufhe_dist():
     for name in ("x", "lazy", "batch"):
         arr = jax.device_put(ins[name], dist_ntt.sharding(ins[name].ndim - 4))
         outs[name] = np.asarray(dist_ntt.forward(arr))
+    arr = jax.device_put(ins["x"], dist_ntt.sharding(0))
+    outs["x_lazy"] = np.asarray(dist_ntt.forward(arr, lazy=True))
     arr = jax.device_put(ins["y"], dist_ntt.sharding(0))
     outs["back"] = np.asarray(dist_ntt.backward(arr))
     words = {k: convert.lanes_to_words(v) for k, v in ins.items()}
@@ -230,6 +232,35 @@ def test_gloo_dist_ntt_matches_tpufhe_mesh(tpufhe_dist, tmp_path):
     for name in ("x", "lazy", "batch", "back"):
         got = np.concatenate([o[name] for o in outs], axis=-1)
         np.testing.assert_array_equal(got, want[name], err_msg=name)
+
+
+LAZY_BODY = r"""
+from tpufhe_torch.ops.rq import Context
+from tpufhe_torch.parallel.ntt_dist import DistNtt
+ntt = DistNtt(Context(tuple(spec["moduli"]), spec["n"], "cpu"))
+b = spec["n"] // world
+x = torch.from_numpy(data["x"][..., rank * b:(rank + 1) * b].copy())
+out["lazy"] = ntt.forward(x, lazy=True).numpy()
+out["canonical"] = ntt.forward(x).numpy()
+"""
+
+
+def test_gloo_dist_ntt_lazy_forward_matches_tpufhe_mesh(tpufhe_dist,
+                                                       tmp_path):
+    """DistNtt.forward(lazy=True) over two gloo workers: tpufhe's lazy
+    words (its 8-device mesh) below 4p and congruent to the port's, which
+    the plain K1 on the CPU leaves canonical."""
+    ins, want = tpufhe_dist
+    outs = run_gloo(tmp_path / "lazy", 2, LAZY_BODY,
+                    {"n": 2048, "moduli": MODULI_3}, {"x": ins["x"]})
+    got = np.concatenate([o["lazy"] for o in outs], axis=-1)
+    np.testing.assert_array_equal(
+        got, np.concatenate([o["canonical"] for o in outs], axis=-1))
+    np.testing.assert_array_equal(got, want["x"])
+    p = np.array(MODULI_3, np.uint64)[:, None]
+    lazy = want["x_lazy"].view(np.uint64)
+    assert (lazy < 4 * p).all()
+    np.testing.assert_array_equal(lazy % p, got.astype(np.uint64))
 
 
 # ---------------------------------------------------------------------------

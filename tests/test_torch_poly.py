@@ -179,8 +179,12 @@ def test_wire_format_matches_tpufhe(kind, rep):
 
 def test_lazy_ntt_and_mismatches_raise():
     _, tp = _pair("wide", POWER_BASIS, 20)
+    lazy = tp.into_ntt(lazy=True)
+    assert lazy.lazy and lazy.representation == NTT
     with pytest.raises(UnsupportedOperation):
-        tp.into_ntt(lazy=True)
+        lazy + lazy
+    with pytest.raises(UnsupportedOperation):
+        lazy.into_power_basis()
     with pytest.raises(IncorrectRepresentation):
         tp.into_ntt().into_ntt()
     with pytest.raises(IncorrectRepresentation):

@@ -1,6 +1,7 @@
 """The plain HPS scaler of tpufhe_torch (the CPU side of kernel K2) against
-tpufhe: the exact Python-int scale_host at N = 1024 on random and
-adversarial residues, and the jitted RnsScaler.scale at N = 8192, in the
+the exact Python-int scale_host at N = 1024 on random and adversarial
+residues (the port's own, which tests/test_torch_names.py holds to
+tpufhe's), and against tpufhe's jitted RnsScaler.scale at N = 8192, in the
 three shapes of the main path (extend, t/q down-scale, decryption)."""
 
 import jax
@@ -65,9 +66,8 @@ def _inputs(scaler, rows, n, seed, adversarial):
 
 @pytest.mark.parametrize("shape", ["extend", "down", "decrypt"])
 def test_plain_scaler_matches_scale_host(params_1024, shape):
-    jp, tp = params_1024
-    jsc, start, size = _scalers(jp)[shape]
-    tsc, _, _ = _scalers(tp)[shape]
+    _, tp = params_1024
+    tsc, start, size = _scalers(tp)[shape]
     n = 1024
     x = _inputs(tsc, 3, n, 7, adversarial=True)
     got = tsc.scale(torch.from_numpy(x), start, size).numpy()
@@ -76,7 +76,7 @@ def test_plain_scaler_matches_scale_host(params_1024, shape):
         # every coefficient of the adversarial rows, a sample of the other
         cols = range(n) if r < 2 else range(0, n, 7)
         for c in cols:
-            want = jsc.scale_host([int(v) for v in x[r, :, c]], size=size,
+            want = tsc.scale_host([int(v) for v in x[r, :, c]], size=size,
                                   starting_index=start)
             assert [int(v) for v in got[r, :, c]] == want, (shape, r, c)
 
@@ -101,7 +101,7 @@ def test_plain_down_scale_above_16_limbs_matches_scale_host(sizes, k_in):
     got = got.numpy()
     for r in range(3):
         for c in (range(n) if r < 2 else range(0, n, 7)):
-            want = jsc.scale_host([int(v) for v in x[r, :, c]], size=size,
+            want = tsc.scale_host([int(v) for v in x[r, :, c]], size=size,
                                   starting_index=start)
             assert [int(v) for v in got[r, :, c]] == want, (r, c)
 

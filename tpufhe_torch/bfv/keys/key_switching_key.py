@@ -121,8 +121,9 @@ class KeySwitchingKey:
         """(c0, c1) = sum_i d_i (c0_i, c1_i) in the NTT domain of the key's
         context, d_i the decomposition rows of power-basis p (..., k, N) of
         the ciphertext's context, reduced modulo every key modulus and
-        forward-NTT'd (key_switching_key.rs:214-289): K1 (K9 when narrow)
-        and ks_accumulate on the card."""
+        forward-NTT'd (key_switching_key.rs:214-289): ks_tail on the card
+        for a Garner key where the fused tails run, else K1 (K9 when
+        narrow) and ks_accumulate (pipeline.key_switch)."""
         from tpufhe_torch.pipeline import key_switch
 
         ctx = self.ctx_ciphertext

@@ -61,6 +61,25 @@ class SecretKey:
     def random(par: BfvParameters, rng) -> "SecretKey":
         return SecretKey(sample_vec_cbd(par.degree(), par.variance, rng), par)
 
+    def zeroize(self) -> None:
+        """Overwrite the key material in place (secret_key.rs:29-40, tpufhe
+        secret_key.py:44-55): the host coefficients and every cached s in
+        the NTT domain, and drop the cached programs, which hold s too."""
+        coeffs = getattr(self, "coeffs", None)
+        if coeffs is not None and coeffs.flags.writeable:
+            coeffs.fill(0)
+        for s in getattr(self, "_s_ntt", {}).values():
+            s.zero_()
+        for attr in ("_enc_fns", "_dec_fns"):
+            if hasattr(self, attr):
+                delattr(self, attr)
+
+    def __del__(self):
+        try:
+            self.zeroize()
+        except Exception:
+            pass
+
     def s_ntt(self, ctx) -> torch.Tensor:
         """s in the NTT domain of `ctx`, (k, N), cached per context."""
         key = id(ctx)

@@ -49,8 +49,9 @@ class RGSWCiphertext:
     def external_product(self, ct: Ciphertext) -> Ciphertext:
         """ct (x) RGSW (rgsw_ciphertext.rs:123-157) for a two-part ct of any
         batch at the keys' level: K1 inverse of both parts in one launch,
-        then a key switch of each (K1 forward of its digits, ks_accumulate),
-        the second accumulating onto the first."""
+        then a key switch of each, the second accumulating onto the first
+        (pipeline.key_switch: the first by ks_tail where the fused tails
+        run, the second K1 forward of its digits and ks_accumulate)."""
         from tpufhe_torch.pipeline import key_switch
 
         if ct.par != self.par:

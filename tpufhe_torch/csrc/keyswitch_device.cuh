@@ -1,19 +1,24 @@
 // The Garner-decomposition key switch of the relinearization tail (K4,
-// relin_tail.cu) and the Galois tail (K5, rotate_tail.cu): per (batch row,
-// limb j), in the NTT domain,
+// relin_tail.cu), the Galois tail (K5, rotate_tail.cu) and the key switch
+// alone (ks_tail, relin_tail.cu): per (batch row, limb j), in the NTT
+// domain,
 //   acc0 = sum_i NTT(d_i) ksk0_i[j],  acc1 = sum_i NTT(d_i) ksk1_i[j]
 // where d_i is limb i of the power-basis row c2 reduced modulo p_j (fhe.rs
 // key_switching_key.rs:214-241); K4 adds NTT(c0), NTT(c1) of limb j, K5
-// adds the NTT-domain s0.
+// adds the NTT-domain s0, ks_tail adds nothing (tpufhe's mode "ks_only").
+// K4 and K5 have as many digit rows as limbs (d = k); ks_tail also takes
+// the d < k rows of a leveled key, one per ciphertext modulus over the
+// key's k moduli, whose first d moduli are the ciphertext's (the wrapper
+// checks it), so limb i of c2 is a residue modulo key limb i.
 //
-// What bounds it: per (row, limb) the k (K5) or k + 2 (K4) forward
+// What bounds it: per (row, limb) the d (K5, ks_tail) or d + 2 (K4) forward
 // transforms and 2k Shoup products a coefficient are integer multiplies
 // (about twice the memory bound at n = 8192); the design that held three
 // 64 KB rows in one 1024-thread block ran one block per SM, 13 barriers a
 // transform, and lost most of its time to both.
 //
 // Design: one thread-block cluster per (batch row, limb j). The (row, limb)
-// has R rows to transform: the digits d_0 .. d_{k-1}, then for K4 c0 and c1.
+// has R rows to transform: the digits d_0 .. d_{d-1}, then for K4 c0 and c1.
 // CTA r of the cluster's C = min(R, 16) CTAs (kernels.tail_plan) holds row
 // r alone in shared memory (n words: 64 KB at n = 8192, a K1 block's
 // footprint, so three 512-thread CTAs share an SM), reduces it and
@@ -55,22 +60,29 @@
 #endif
 
 struct TailArgs {
-  const u64* c2;    // (rows, k, n) power basis; limb i of a row gives d_i
-  const u64* add;   // K4: (2, rows, k, n) power-basis c0, c1; K5: s0
+  const u64* c2;    // (rows, d, n) power basis; limb i of a row gives d_i
+  const u64* add;   // K4: (2, rows, k, n) power-basis c0, c1; K5: s0;
+                    // ks_tail: null
   u64* out;         // (2, rows, k, n)
   long long plane;  // rows * k * n words
-  const u64 *k0, *k0s, *k1, *k1s;  // (k, k, n): [i][j] = digit i, limb j
+  const u64 *k0, *k0s, *k1, *k1s;  // (d, k, n): [i][j] = digit i, limb j
   const ulonglong2* tw;  // (k, n) pass-ordered (omega, Shoup) pairs
   const u64 *limb_p, *b_lo, *b_hi;  // (k,) moduli and Barrett constants
   int k, n, logn;
+  int d;  // digit rows; last, so K4's and K5's parameters keep their places
 };
 
 typedef void (*TailKernel)(TailArgs);
 
-// The body of a tail kernel; RELIN selects K4's rows and adds, else K5's.
-// LOGN: log2(n) of a fixed instance (TAIL_THREADS threads), 0 for any n.
-template <bool RELIN, int LOGN>
+// The modes of the tail body: K4's rows and adds, K5's add of s0, or the
+// key switch alone.
+enum TailMode { TAIL_RELIN, TAIL_ROTATE, TAIL_KS };
+
+// The body of a tail kernel in mode MODE. LOGN: log2(n) of a fixed instance
+// (TAIL_THREADS threads), 0 for any n.
+template <TailMode MODE, int LOGN>
 __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
+  constexpr bool RELIN = MODE == TAIL_RELIN;
   namespace cg = cooperative_groups;
   extern __shared__ u64 row[];
   constexpr int THREADS = LOGN ? TAIL_THREADS : 0;
@@ -78,7 +90,9 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int k = a.k;
+  // K4 and K5 have a digit row per limb: with digits = k known to the
+  // compiler their code stays that of a k-row body
+  const int k = a.k, digits = MODE == TAIL_KS ? a.d : k;
   const int n = LOGN ? 1 << LOGN : a.n;
   const int stride = THREADS ? THREADS : (int)blockDim.x;
   const long long blk = blockIdx.x / C;  // (batch row, limb j)
@@ -87,9 +101,9 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
   const Barrett br = {a.limb_p[j], a.b_lo[j], a.b_hi[j]};
   const u64 p = br.p, np = 0 - p;
   const ulonglong2* tw = a.tw + (long long)j * n;
-  const u64* c2 = a.c2 + brow * k * n;
+  const u64* c2 = a.c2 + brow * digits * n;
   const long long at = blk * n;  // this (row, limb) within a plane
-  const int rows = RELIN ? k + 2 : k;
+  const int rows = RELIN ? digits + 2 : digits;
   // the slice this CTA finishes, in whole 32-word pieces
   const int span = ((n + C - 1) / C + 31) & ~31;
   const int lo = rank * span;
@@ -98,7 +112,7 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
   for (int base = 0; base < rows; base += C) {
     const int mine = base + rank;
     if (mine < rows) {
-      if (mine < k) {
+      if (mine < digits) {
         // the transform takes inputs below 4p, so a limb of c2 whose
         // modulus is at most 4 p_j (every limb when the moduli differ by
         // less than a factor 4) needs no reduction
@@ -114,7 +128,7 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
             row[pass_slot(e)] = src[e];
         }
       } else {
-        const u64* src = a.add + (mine - k) * a.plane + at;
+        const u64* src = a.add + (mine - digits) * a.plane + at;
 #pragma unroll 4
         for (int e = threadIdx.x; e < n; e += stride)
           row[pass_slot(e)] = src[e];
@@ -127,7 +141,7 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
     cluster.sync();
     // this round's rows base .. base + cnt - 1: nd digits, then (K4) c0, c1
     const int cnt = min(C, rows - base);
-    const int nd = max(0, min(cnt, k - base));
+    const int nd = max(0, min(cnt, digits - base));
     const bool last = base + C >= rows;
     const int kstep = k * n;
     // sums stay below 2p: each term is below 2p (a lazy Shoup product, or
@@ -153,7 +167,7 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
         for (int q = nd; q < cnt; ++q) {
           u64 d = cluster.map_shared_rank(row, q)[se];
           d = d >= p2 ? d - p2 : d;
-          if (base + q == k) {
+          if (base + q == digits) {
             acc0 += d;
             acc0 = acc0 >= p2 ? acc0 - p2 : acc0;
           } else {
@@ -161,7 +175,7 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
             acc1 = acc1 >= p2 ? acc1 - p2 : acc1;
           }
         }
-      } else if (last) {
+      } else if (MODE == TAIL_ROTATE && last) {
         acc0 += a.add[at + e];
         acc0 = acc0 >= p2 ? acc0 - p2 : acc0;
       }
@@ -173,18 +187,20 @@ __device__ __forceinline__ void keyswitch_tail(const TailArgs& a) {
   TAIL_STAMP(3);
 }
 
+// rows_k: batch rows * k output limbs; d: digit rows (limbs of c2).
 inline TailArgs tail_args(const void* c2, const void* add, void* out,
-                          long long rows_k, int k, int n, const void* k0,
-                          const void* k0s, const void* k1, const void* k1s,
-                          const void* tw, const void* limb_p,
-                          const void* b_lo, const void* b_hi) {
+                          long long rows_k, int d, int k, int n,
+                          const void* k0, const void* k0s, const void* k1,
+                          const void* k1s, const void* tw,
+                          const void* limb_p, const void* b_lo,
+                          const void* b_hi) {
   int logn = 0;
   while ((1 << logn) < n) ++logn;
   return TailArgs{(const u64*)c2, (const u64*)add, (u64*)out, rows_k * n,
                   (const u64*)k0, (const u64*)k0s, (const u64*)k1,
                   (const u64*)k1s, (const ulonglong2*)tw,
                   (const u64*)limb_p, (const u64*)b_lo, (const u64*)b_hi,
-                  k, n, logn};
+                  k, n, logn, d};
 }
 
 // The instance that runs degree n at `threads` threads a CTA: the fixed

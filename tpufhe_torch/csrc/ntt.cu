@@ -7,10 +7,12 @@
 // kernel runs Harvey butterflies directly.
 //
 // Data: x (rows, k_sel, n) int64 words read as u64, canonical residues;
-// y the same shape, canonical. Row b belongs to limb limb0 + b mod k_sel,
-// whose modulus and pass-ordered table (NttTables.pass_twiddles, the
-// counterpart of limb_slice) serve it; the tables are shared by every row
-// of a limb and stay in L2.
+// y the same shape, canonical, or for a lazy forward (tpufhe's `lazy`
+// flag, mxu_ntt_kernel.py:319 and ntt_kernel.py:156) the last pass's
+// words unreduced, below 4p (up to 2^64 for a 62-bit p). Row b belongs
+// to limb limb0 + b mod k_sel, whose modulus and pass-ordered table
+// (NttTables.pass_twiddles, the counterpart of limb_slice) serve it; the
+// tables are shared by every row of a limb and stay in L2.
 //
 // Bound on this card: each word moves 16 bytes through device memory and
 // needs log2(n) / 2 Shoup products (about ten int32 multiplies each), so
@@ -57,8 +59,8 @@ struct NttArgs {
 typedef void (*NttKernel)(NttArgs);
 
 // One CTA per row. LOGN: log2(n) of a fixed instance (NTT_THREADS
-// threads), 0 for any n.
-template <int LOGN, bool INVERSE>
+// threads), 0 for any n. LAZY: a forward whose output stays below 4p.
+template <int LOGN, bool INVERSE, bool LAZY = false>
 __global__ void __launch_bounds__(NTT_THREADS, NTT_MIN_BLOCKS)
     ntt_row_kernel(const NttArgs a) {
   extern __shared__ u64 row[];
@@ -74,11 +76,12 @@ __global__ void __launch_bounds__(NTT_THREADS, NTT_MIN_BLOCKS)
     inverse_row<LOGN, THREADS>(row, src, dst, a.logn, tw, p, a.ninv[limb],
                                a.ninv_s[limb]);
   else
-    forward_row<LOGN, THREADS>(row, src, dst, a.logn, tw, p);
+    forward_row<LOGN, THREADS, PASS_STAGES, LAZY>(row, src, dst, a.logn, tw,
+                                                  p);
 }
 
 // One cluster of two CTAs per row, CTA r holding half r.
-template <int LOGN, bool INVERSE>
+template <int LOGN, bool INVERSE, bool LAZY = false>
 __global__ void __launch_bounds__(NTT_THREADS, NTT_MIN_BLOCKS)
     ntt_split_kernel(const NttArgs a) {
   extern __shared__ u64 row[];
@@ -94,34 +97,46 @@ __global__ void __launch_bounds__(NTT_THREADS, NTT_MIN_BLOCKS)
     split_inverse_row<LOGN, NTT_THREADS>(row, src, dst, LOGN, rank, tw, p,
                                          a.ninv[limb], a.ninv_s[limb]);
   else
-    split_forward_row<LOGN, NTT_THREADS>(row, src, dst, LOGN, rank, tw, p);
+    split_forward_row<LOGN, NTT_THREADS, LAZY>(row, src, dst, LOGN, rank, tw,
+                                               p);
 }
 
-// The instance that runs degree n at `threads` threads a CTA, or null.
-static NttKernel ntt_instance(int n, int inverse, int threads) {
+// The instance that runs degree n at `threads` threads a CTA, or null; a
+// lazy inverse does not exist.
+static NttKernel ntt_instance(int n, int inverse, int lazy, int threads) {
+  if (inverse && lazy) return nullptr;
   if (n > NTT_ROW_MAX) {
     if (n != 2 * NTT_ROW_MAX || threads != NTT_THREADS) return nullptr;
-    return inverse ? ntt_split_kernel<14, true> : ntt_split_kernel<14, false>;
+    return inverse ? ntt_split_kernel<14, true>
+           : lazy  ? ntt_split_kernel<14, false, true>
+                   : ntt_split_kernel<14, false>;
   }
   if (n < 8) return nullptr;
   if (threads == NTT_THREADS && n == 8192)
-    return inverse ? ntt_row_kernel<13, true> : ntt_row_kernel<13, false>;
+    return inverse ? ntt_row_kernel<13, true>
+           : lazy  ? ntt_row_kernel<13, false, true>
+                   : ntt_row_kernel<13, false>;
   if (threads == NTT_THREADS && n == 4096)
-    return inverse ? ntt_row_kernel<12, true> : ntt_row_kernel<12, false>;
-  return inverse ? ntt_row_kernel<0, true> : ntt_row_kernel<0, false>;
+    return inverse ? ntt_row_kernel<12, true>
+           : lazy  ? ntt_row_kernel<12, false, true>
+                   : ntt_row_kernel<12, false>;
+  return inverse ? ntt_row_kernel<0, true>
+         : lazy  ? ntt_row_kernel<0, false, true>
+                 : ntt_row_kernel<0, false>;
 }
 
 static int ntt_cluster(int n) { return n > NTT_ROW_MAX ? 2 : 1; }
 
 // rows: (row, limb) rows = batch rows * k_sel. tw: the (k_ctx, n)
 // pass-ordered table of the direction (NttTables.pass_twiddles); limb_p,
-// ninv, ninv_s: (k_ctx,) per limb. cluster, threads: kernels.ntt_plan(n).
+// ninv, ninv_s: (k_ctx,) per limb. lazy: a forward whose output words stay
+// below 4p (refused with inverse). cluster, threads: kernels.ntt_plan(n).
 extern "C" int tpufhe_ntt(const void* x, void* y, long long rows, int k_sel,
                           int n, const void* tw, const void* limb_p,
                           const void* ninv, const void* ninv_s, int limb0,
-                          int inverse, int cluster, int threads,
+                          int inverse, int lazy, int cluster, int threads,
                           void* stream) {
-  NttKernel kernel = ntt_instance(n, inverse, threads);
+  NttKernel kernel = ntt_instance(n, inverse, lazy, threads);
   if (!kernel || cluster != ntt_cluster(n)) return (int)cudaErrorInvalidValue;
   int logn = 0;
   while ((1 << logn) < n) ++logn;
@@ -137,7 +152,7 @@ extern "C" int tpufhe_ntt(const void* x, void* y, long long rows, int k_sel,
 // CTAs of the instance one SM holds, and clusters the card holds at once.
 extern "C" int tpufhe_ntt_occupancy(int n, int inverse, int threads,
                                     int* blocks_per_sm, int* clusters) {
-  NttKernel kernel = ntt_instance(n, inverse, threads);
+  NttKernel kernel = ntt_instance(n, inverse, 0, threads);
   if (!kernel) return (int)cudaErrorInvalidValue;
   const int cluster = ntt_cluster(n);
   return pass_occupancy(kernel, cluster, threads,

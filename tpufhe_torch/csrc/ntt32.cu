@@ -13,9 +13,11 @@
 // __umulhi for the Shoup quotient.
 //
 // Data: x (rows, k_sel, n) int32 words read as u32, canonical residues;
-// y the same shape, canonical. Row b belongs to limb limb0 + b mod k_sel,
-// whose modulus and pass-ordered table (NttTables.pass_twiddles of the
-// narrow tables, the counterpart of limb_slice) serve it.
+// y the same shape, canonical, or for a lazy forward (tpufhe's `lazy`
+// flag, ntt32_kernel.py:108) the last pass's words unreduced, below 4p
+// (up to 2^32). Row b belongs to limb limb0 + b mod k_sel, whose modulus
+// and pass-ordered table (NttTables.pass_twiddles of the narrow tables,
+// the counterpart of limb_slice) serve it.
 //
 // Bound on this card: each word moves 8 bytes through device memory (read
 // once, written once) and takes part in log2(n) / 2 butterflies of three
@@ -58,8 +60,8 @@ struct Ntt32Args {
 typedef void (*Ntt32Kernel)(Ntt32Args);
 
 // One CTA per row. LOGN: log2(n) of a fixed instance (NTT32_THREADS
-// threads), 0 for any n.
-template <int LOGN, bool INVERSE>
+// threads), 0 for any n. LAZY: a forward whose output stays below 4p.
+template <int LOGN, bool INVERSE, bool LAZY = false>
 __global__ void __launch_bounds__(NTT32_THREADS, NTT32_MIN_BLOCKS)
     ntt32_kernel(const Ntt32Args a) {
   extern __shared__ u32 row[];
@@ -75,26 +77,34 @@ __global__ void __launch_bounds__(NTT32_THREADS, NTT32_MIN_BLOCKS)
     inverse_row<LOGN, THREADS, NTT32_STAGES>(row, src, dst, a.logn, tw, p,
                                              a.ninv[limb], a.ninv_s[limb]);
   else
-    forward_row<LOGN, THREADS, NTT32_STAGES>(row, src, dst, a.logn, tw, p);
+    forward_row<LOGN, THREADS, NTT32_STAGES, LAZY>(row, src, dst, a.logn, tw,
+                                                   p);
 }
 
-// The instance that runs degree n at `threads` threads a CTA, or null.
-static Ntt32Kernel ntt32_instance(int n, int inverse, int threads) {
-  if (n < 8) return nullptr;
+// The instance that runs degree n at `threads` threads a CTA, or null; a
+// lazy inverse does not exist.
+static Ntt32Kernel ntt32_instance(int n, int inverse, int lazy, int threads) {
+  if (n < 8 || (inverse && lazy)) return nullptr;
   if (threads == NTT32_THREADS && n == 8192)
-    return inverse ? ntt32_kernel<13, true> : ntt32_kernel<13, false>;
-  return inverse ? ntt32_kernel<0, true> : ntt32_kernel<0, false>;
+    return inverse ? ntt32_kernel<13, true>
+           : lazy  ? ntt32_kernel<13, false, true>
+                   : ntt32_kernel<13, false>;
+  return inverse ? ntt32_kernel<0, true>
+         : lazy  ? ntt32_kernel<0, false, true>
+                 : ntt32_kernel<0, false>;
 }
 
 // rows: (row, limb) rows = batch rows * k_sel. tw: the (k_ctx, n)
 // pass-ordered table of the direction (NttTables.pass_twiddles of the
-// narrow tables); limb_p, ninv, ninv_s: (k_ctx,) per limb. threads:
+// narrow tables); limb_p, ninv, ninv_s: (k_ctx,) per limb. lazy: a forward
+// whose output words stay below 4p (refused with inverse). threads:
 // kernels.ntt32_plan(n).
 extern "C" int tpufhe_ntt32(const void* x, void* y, long long rows, int k_sel,
                             int n, const void* tw, const void* limb_p,
                             const void* ninv, const void* ninv_s, int limb0,
-                            int inverse, int threads, void* stream) {
-  Ntt32Kernel kernel = ntt32_instance(n, inverse, threads);
+                            int inverse, int lazy, int threads,
+                            void* stream) {
+  Ntt32Kernel kernel = ntt32_instance(n, inverse, lazy, threads);
   if (!kernel) return (int)cudaErrorInvalidValue;
   int logn = 0;
   while ((1 << logn) < n) ++logn;
@@ -110,7 +120,7 @@ extern "C" int tpufhe_ntt32(const void* x, void* y, long long rows, int k_sel,
 // CTAs of the instance one SM holds (clusters: the same, of one CTA).
 extern "C" int tpufhe_ntt32_occupancy(int n, int inverse, int threads,
                                       int* blocks_per_sm, int* clusters) {
-  Ntt32Kernel kernel = ntt32_instance(n, inverse, threads);
+  Ntt32Kernel kernel = ntt32_instance(n, inverse, 0, threads);
   if (!kernel) return (int)cudaErrorInvalidValue;
   return pass_occupancy(kernel, 1, threads, n * (int)sizeof(u32),
                         blocks_per_sm, clusters);

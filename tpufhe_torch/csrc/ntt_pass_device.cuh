@@ -11,7 +11,9 @@
 // and stores the unit back, so a row costs ceil(log2(n) / 2) barriers (7 at
 // n = 8192, where the radix-2 loop has 13) and half the shared-memory
 // traffic. Values stay lazy inside (forward [0, 4p), inverse [0, 2p)) and
-// every output is canonical, so the regrouping gives the same integers.
+// every output is canonical, so the regrouping gives the same integers;
+// only the lazy forward (LAZY, K1's and K9's lazy instances) writes the
+// last pass's words as they are, below 4p and congruent to those.
 //
 // The forward passes follow kernels.ntt_passes: one pass of log2(n) mod S
 // stages first, so that the last passes have the unit strides pass_slot
@@ -179,9 +181,12 @@ __device__ __forceinline__ void inverse_unit(
 // device memory, canonical (the row's last pass; the inverse multiplies by
 // f = n^{-1}, Shoup constant fs), and the pass ends without a barrier.
 // KEEP: with TO null, the same last pass leaves the unit canonical in a at
-// its slots, also without a barrier (the caller synchronises).
+// its slots, also without a barrier (the caller synchronises). LAZY: the
+// forward's last pass writes TO its words as the butterflies leave them,
+// below 4p (the lazy output of tpufhe's forward transforms).
 // THREADS: the CTA's threads if known at compile time, else 0.
-template <int S, int THREADS, bool INVERSE, bool KEEP = false, typename W>
+template <int S, int THREADS, bool INVERSE, bool KEEP = false,
+          bool LAZY = false, typename W>
 __device__ __forceinline__ void ntt_pass(
     W* a, int logn, int s0, int off, const typename PassWord<W>::Pair* tw,
     W p, W np, const typename PassWord<W>::Word* from = nullptr,
@@ -237,7 +242,7 @@ __device__ __forceinline__ void ntt_pass(
       for (int i = 0; i < U; ++i) {
         if (INVERSE) {
           v[i] = mul_shoup(v[i], f, fs, p);
-        } else {
+        } else if (!LAZY) {
           const W x = v[i] >= p2 ? v[i] - p2 : v[i];
           v[i] = x >= p ? x - p : x;
         }
@@ -294,11 +299,12 @@ __device__ __forceinline__ void forward_passes(u64* a, int logn_rt,
 }
 
 // The forward NTT of the row src (2^logn canonical words in device memory)
-// into dst, canonical, through the CTA's shared memory a: the first pass
-// reads src and the last writes dst. S stages a pass (2, or 3 for narrow
-// words); logn > S, or for S = 3 logn = 3, a row of one pass from src to
-// dst.
-template <int LOGN, int THREADS, int S = PASS_STAGES, typename W>
+// into dst, canonical (LAZY: below 4p), through the CTA's shared memory a:
+// the first pass reads src and the last writes dst. S stages a pass (2, or
+// 3 for narrow words); logn > S, or for S = 3 logn = 3, a row of one pass
+// from src to dst.
+template <int LOGN, int THREADS, int S = PASS_STAGES, bool LAZY = false,
+          typename W>
 __device__ __forceinline__ void forward_row(
     W* a, const typename PassWord<W>::Word* src,
     typename PassWord<W>::Word* dst, int logn_rt,
@@ -307,7 +313,8 @@ __device__ __forceinline__ void forward_row(
   const int logn = LOGN ? LOGN : logn_rt;
   const W np = 0 - p;
   if (S > 2 && logn == S) {
-    ntt_pass<S, THREADS, false>(a, logn, 0, 0, tw, p, np, src, dst);
+    ntt_pass<S, THREADS, false, false, LAZY>(a, logn, 0, 0, tw, p, np, src,
+                                             dst);
     return;
   }
   int s0, off;
@@ -330,7 +337,8 @@ __device__ __forceinline__ void forward_row(
     ntt_pass<S, THREADS, false>(a, logn, s0, off, tw, p, np);
     off += ((1 << S) - 1) << s0;
   }
-  ntt_pass<S, THREADS, false>(a, logn, s0, off, tw, p, np, nullptr, dst);
+  ntt_pass<S, THREADS, false, false, LAZY>(a, logn, s0, off, tw, p, np,
+                                           nullptr, dst);
 }
 
 // The inverse passes of a row of 2^logn words up to its last: the forward
@@ -403,8 +411,9 @@ __device__ __forceinline__ void inverse_row(
 // i + n/4 out. Stages 2 .. logn - 1 are the half's own, a forward of
 // logn - 1 stages whose twiddles carry the rank in their group's top bit:
 // the passes kernels.ntt_passes(logn - 2, 1) over local stages 1 ..
-// logn - 2, the last of which writes the half to dst. logn >= 4.
-template <int LOGN, int THREADS>
+// logn - 2, the last of which writes the half to dst (LAZY: below 4p).
+// logn >= 4.
+template <int LOGN, int THREADS, bool LAZY = false>
 __device__ __forceinline__ void split_forward_row(u64* a, const u64* src,
                                                   u64* dst, int logn_rt,
                                                   int rank,
@@ -448,7 +457,8 @@ __device__ __forceinline__ void split_forward_row(u64* a, const u64* src,
     ntt_pass<S, THREADS, false>(a, logh, s0, off, rt, p, np);
     off += ((1 << S) - 1) << s0;
   }
-  ntt_pass<S, THREADS, false>(a, logh, s0, off, rt, p, np, nullptr, out);
+  ntt_pass<S, THREADS, false, false, LAZY>(a, logh, s0, off, rt, p, np,
+                                           nullptr, out);
 }
 
 // The inverse passes of one half of a split row (2^logh words at pass_slot

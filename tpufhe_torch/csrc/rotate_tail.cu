@@ -28,7 +28,7 @@
 template <int LOGN>
 __global__ void __launch_bounds__(TAIL_THREADS, TAIL_MIN_BLOCKS)
     rotate_tail_kernel(const TailArgs a) {
-  keyswitch_tail<false, LOGN>(a);
+  keyswitch_tail<TAIL_ROTATE, LOGN>(a);
 }
 
 static TailKernel rotate_instance(int n, int threads) {
@@ -45,8 +45,8 @@ extern "C" int tpufhe_rotate_tail(const void* s0, const void* c2, void* out,
                                   const void* limb_p, const void* b_lo,
                                   const void* b_hi, void* stream) {
   return launch_tail(rotate_instance(n, threads),
-                     tail_args(c2, s0, out, rows_k, k, n, k0, k0s, k1, k1s,
-                               tw, limb_p, b_lo, b_hi),
+                     tail_args(c2, s0, out, rows_k, k, k, n, k0, k0s, k1,
+                               k1s, tw, limb_p, b_lo, b_hi),
                      rows_k, cluster, threads, stream);
 }
 

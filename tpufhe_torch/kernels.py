@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel is one source in ``tpufhe_torch/csrc/`` with a plain C entry
-point. It is compiled at first use with nvcc for ``sm_90a`` into
-``tpufhe_torch/_build/`` (named by a hash of its sources, so an edited
-source is rebuilt) and loaded with ctypes. ``build()`` compiles every kernel
-at once, one nvcc process per source, all started together.
+Each kernel is a source in ``tpufhe_torch/csrc/`` with a plain C entry
+point (ks_tail's is in relin_tail.cu, beside K4's, whose body it shares).
+It is compiled at first use with nvcc for ``sm_90a`` into
+``tpufhe_torch/_build/`` (named by the kernel and a hash of its sources, so
+an edited source is rebuilt) and loaded with ctypes. ``build()`` compiles
+every kernel at once, one nvcc process per kernel, all started together.
 
 Every wrapper calls ``count(name)`` right where it launches its kernel, and
 only there, so a run can show which kernels a path went through.
@@ -63,6 +64,11 @@ KERNELS = {
     "ntt_dist": ("ntt_dist.cu",
                  "tpufhe/parallel/ntt_dist.py:62-96 _block_matmul_left, "
                  "_fold_reduce and _psum_blocks_mod (XLA)"),
+    # the key switch alone: d digit rows over k >= d limbs, no adds; its
+    # own entry so that the launch counts tell it from K4
+    "ks_tail": ("relin_tail.cu",
+                "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"
+                " (mode ks_only)"),
 }
 HEADERS = ("modarith.cuh", "ntt_pass_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")
@@ -271,9 +277,10 @@ def intt_scale_plan(k_in: int, n: int) -> tuple[int, int, int]:
 
 def tail_plan(rows: int, n: int) -> tuple[int, int, int]:
     """Launch plan of the key-switch tails K4 (rows = k + 2 transformed
-    rows per batch row and limb) and K5 (rows = k): (CTAs per cluster,
-    threads per CTA, shared bytes per CTA). One CTA per row; above
-    TAIL_CLUSTER_MAX rows the cluster takes them in rounds."""
+    rows per batch row and limb), K5 (rows = k) and ks_tail (rows = d, its
+    digit rows): (CTAs per cluster, threads per CTA, shared bytes per CTA).
+    One CTA per row; above TAIL_CLUSTER_MAX rows the cluster takes them in
+    rounds."""
     return (min(rows, TAIL_CLUSTER_MAX), max(1, min(n // 2, NTT_THREADS)),
             8 * n)
 

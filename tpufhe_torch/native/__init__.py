@@ -47,6 +47,13 @@ def _build(gxx: str, so: str) -> str | None:
     return None
 
 
+def available() -> bool:
+    """Whether the native sampler is built and loaded (tpufhe's
+    native.available). It reports only: the callers that need the library
+    take it from ``lib()``."""
+    return lib() is not None
+
+
 def lib():
     """The loaded CDLL, or None when it cannot be built (see ``error``)."""
     global _lib, _tried, error

@@ -11,7 +11,10 @@
   (w30) int32 rows, tpufhe's forward32 / backward32.
 - ``ntt_transform`` is the wrapper of kernels K1 (csrc/ntt.cu) and K9
   (csrc/ntt32.cu): it launches the kernel of the tables' mode for CUDA
-  tensors and takes the plain version for CPU tensors.
+  tensors and takes the plain version for CPU tensors. A lazy forward
+  (tpufhe's ``lazy`` flag) leaves the kernel's words below 4p, congruent
+  to the canonical output; the plain versions return canonical words,
+  which are valid lazy words.
 - ``NttTables.pass_twiddles`` is the (twiddle, Shoup) table in the order
   the transform passes of K1, K3, K4, K5, K8 and K9 read it.
 """
@@ -84,6 +87,41 @@ class NttOperator:
     @staticmethod
     def new(q: Modulus, size: int) -> "NttOperator | None":
         return _new_operator(q.p, size)
+
+    # exact host transforms on Python ints, the tests' oracle (tpufhe
+    # ntt.py:127-158)
+
+    def forward_host(self, a) -> np.ndarray:
+        """Forward negacyclic NTT of n residues, bit-reversed output."""
+        a = [int(x) for x in a]
+        p, n = self.q.p, self.size
+        l, k = n >> 1, 1
+        while l > 0:
+            for start in range(0, n, 2 * l):
+                w = int(self.omegas[k])
+                k += 1
+                for j in range(start, start + l):
+                    x, y = a[j], a[j + l]
+                    a[j] = (x + w * y) % p
+                    a[j + l] = (x - w * y) % p
+            l >>= 1
+        return np.array(a, dtype=np.uint64)
+
+    def backward_host(self, a) -> np.ndarray:
+        """Inverse negacyclic NTT with the n^{-1} fold."""
+        a = [int(x) for x in a]
+        p, n = self.q.p, self.size
+        l, k = 1, 0
+        while l < n:
+            for start in range(0, n, 2 * l):
+                z = int(self.zetas_inv[k])
+                k += 1
+                for j in range(start, start + l):
+                    x, y = a[j], a[j + l]
+                    a[j] = (x + y) % p
+                    a[j + l] = ((x - y) * z) % p
+            l <<= 1
+        return np.array([(x * self.size_inv) % p for x in a], dtype=np.uint64)
 
 
 @lru_cache(maxsize=None)
@@ -318,15 +356,17 @@ def backward32_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _NTT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _NTT32_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+               + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _rows(name: str, x: torch.Tensor, tables: NttTables,
-          limb_slice: slice) -> tuple[int, int]:
+          limb_slice: slice, inverse: bool, lazy: bool) -> tuple[int, int]:
     """The checks K1 and K9 make on (..., k_sel, n) rows: (first limb,
     k_sel)."""
+    if inverse and lazy:
+        raise ValueError(f"{name}: the inverse transform has no lazy output")
     kernels.require_cuda(name, tables.dtype, x)
     k_ctx, n = tables.omegas.shape
     start, stop, _ = limb_slice.indices(k_ctx)
@@ -338,11 +378,13 @@ def _rows(name: str, x: torch.Tensor, tables: NttTables,
 
 
 def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
-             inverse: bool) -> torch.Tensor:
+             inverse: bool, lazy: bool = False) -> torch.Tensor:
     """Launch K1 on (..., k_sel, n) canonical int64 residues of a CUDA
     tensor: one CTA a row, or at n = 16384 a cluster of two CTAs holding
-    half a row each (kernels.ntt_plan)."""
-    start, k_sel = _rows("ntt", x, tables, limb_slice)
+    half a row each (kernels.ntt_plan). lazy: a forward whose words are
+    left below 4p (read as unsigned: for a 62-bit p an int64 word may be
+    negative)."""
+    start, k_sel = _rows("ntt", x, tables, limb_slice, inverse, lazy)
     n = x.shape[-1]
     cluster, threads, _ = kernels.ntt_plan(n)  # raises above two CTAs
     if x.data_ptr() % 16:
@@ -356,18 +398,19 @@ def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
     kernels.count("ntt")
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
              kernels.ptr(tables.p), kernels.ptr(tables.ninv),
-             kernels.ptr(tables.ninv_shoup), start, int(inverse), cluster,
-             threads, kernels.stream())
+             kernels.ptr(tables.ninv_shoup), start, int(inverse), int(lazy),
+             cluster, threads, kernels.stream())
     kernels.check(err, "ntt")
     return y
 
 
 def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
-               inverse: bool) -> torch.Tensor:
+               inverse: bool, lazy: bool = False) -> torch.Tensor:
     """Launch K9 on (..., k_sel, n) canonical int32 residues (p < 2^30) of
     a CUDA tensor, with a narrow context's tables: one CTA a row
-    (kernels.ntt32_plan)."""
-    start, k_sel = _rows("ntt32", x, tables, limb_slice)
+    (kernels.ntt32_plan). lazy: a forward whose words are left below 4p
+    (read as unsigned: an int32 word may be negative)."""
+    start, k_sel = _rows("ntt32", x, tables, limb_slice, inverse, lazy)
     n = x.shape[-1]
     if n * x.element_size() > kernels.SMEM_BYTES:
         raise ValueError(f"ntt32: degree {n} does not fit in shared memory")
@@ -383,24 +426,29 @@ def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
     kernels.count("ntt32")
     err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
              kernels.ptr(tables.p), kernels.ptr(tables.ninv),
-             kernels.ptr(tables.ninv_shoup), start, int(inverse), threads,
-             kernels.stream())
+             kernels.ptr(tables.ninv_shoup), start, int(inverse), int(lazy),
+             threads, kernels.stream())
     kernels.check(err, "ntt32")
     return y
 
 
 def ntt_transform(x: torch.Tensor, tables: NttTables,
                   limb_slice: slice | None = None,
-                  inverse: bool = False) -> torch.Tensor:
+                  inverse: bool = False, lazy: bool = False) -> torch.Tensor:
     """Forward (or inverse) NTT of canonical (..., k_sel, n) rows; canonical
     output. limb_slice selects the context limbs the rows belong to. Narrow
-    tables take int32 rows (K9 on the card), wide ones int64 rows (K1)."""
+    tables take int32 rows (K9 on the card), wide ones int64 rows (K1).
+    lazy (forward only): the output words are below 4p and congruent to
+    the canonical ones, as tpufhe's lazy forward leaves them; the plain
+    version returns the canonical words, one valid lazy output."""
     sl = slice(None) if limb_slice is None else limb_slice
     if x.device.type == "cuda":
         launch = ntt32_cuda if tables.narrow else ntt_cuda
-        return launch(x, tables, sl, inverse)
+        return launch(x, tables, sl, inverse, lazy)
     if x.device.type != "cpu":
         raise ValueError(f"ntt: unsupported device {x.device}")
+    if inverse and lazy:
+        raise ValueError("ntt: the inverse transform has no lazy output")
     if x.dtype != tables.dtype:
         raise ValueError(f"ntt: dtype {x.dtype}, expected {tables.dtype}")
     if tables.narrow:

@@ -26,6 +26,21 @@ from tpufhe_torch.ops.zq import DIGIT_BITS, DIGIT_MASK, ModTable, Modulus
 from tpufhe_torch.utils.misc import inverse
 
 _M64 = (1 << 64) - 1
+_M128 = (1 << 128) - 1
+
+
+def _lazy_shoup_host(a: int, b: int, b_shoup: int, p: int) -> int:
+    """The exact word of lazy_mul_shoup (zq/mod.rs:217-222), in [0, 2p)."""
+    return (a * b - ((a * b_shoup) >> 64) * p) & _M64
+
+
+def _lazy_barrett_host(a: int, p: int) -> int:
+    """The exact word of lazy_reduce_u128 (zq/mod.rs:693-707), a < 2^128."""
+    barrett = (1 << 128) // p
+    b_lo, b_hi = barrett & _M64, barrett >> 64
+    a_lo, a_hi = a & _M64, a >> 64
+    q = ((a_lo * b_hi + a_hi * b_lo + ((a_lo * b_lo) >> 64)) >> 64) + a_hi * b_hi
+    return (a - q * p) & _M64
 
 
 class RnsContext:
@@ -186,6 +201,57 @@ class RnsScaler:
         self._k_in = k_in
         self._k_out = k_out
         self._tables: dict = {}
+
+    def scale_host(self, rests, size: int | None = None,
+                   starting_index: int = 0) -> list:
+        """The scale of one coefficient's k_in residues `rests` into rows
+        starting_index .. starting_index + size of the `to` basis, exact on
+        Python ints (scaler.rs:249-352; tpufhe rns.py:260): the oracle that
+        scale_plain and K2 equal."""
+        if len(rests) != self._k_in:
+            raise ValueError(f"scale_host: {len(rests)} residues, expected "
+                             f"{self._k_in}")
+        size = self._k_out - starting_index if size is None else size
+        sum_tg = 0
+        for tg, r in zip(self.theta_garner, rests):
+            sum_tg = (sum_tg + int(r) * tg) % (1 << 256)
+        sum_tg >>= self.theta_garner_shift - 1
+        # div_ceil(2) of the truncated u128
+        s = sum_tg & _M128
+        v = (s + 1) // 2 if s % 2 else s // 2
+        w_sign, w = False, 0
+        if not self.factor.is_one:
+            sum_to = 0
+            for to, sign, r in zip(self.theta_omega, self.theta_omega_sign,
+                                   rests):
+                prod = int(r) * to
+                sum_to = (sum_to - prod if sign else sum_to + prod) % (1 << 256)
+            v_tg = (v * self.theta_gamma) % (1 << 256)
+            if self.theta_gamma_sign:
+                sum_to = (sum_to + v_tg) % (1 << 256)
+            else:
+                sum_to = (sum_to - v_tg) % (1 << 256)
+            w_sign = (sum_to >> 191) > 0
+            if w_sign:
+                w = ((((1 << 256) - 1 - sum_to) >> 126) & _M128) + 1
+                w //= 2
+            else:
+                w = (sum_to >> 126) & _M128
+                w = (w + 1) // 2 if w % 2 else w // 2
+        out = []
+        for j in range(starting_index, starting_index + size):
+            p = self.to_ctx.moduli[j].p
+            # lazy_mul_shoup(v mod p, gamma_j): its exact value in [0, 2p)
+            y = 2 * p - _lazy_shoup_host(v % p, self.gamma[j],
+                                         self.gamma_shoup[j], p)
+            if not self.factor.is_one:
+                w_lazy = _lazy_barrett_host(w, p)
+                y += (2 * p - w_lazy) if w_sign else w_lazy
+            for i in range(self._k_in):
+                y += _lazy_shoup_host(int(rests[i]), self.omega[j][i],
+                                      self.omega_shoup[j][i], p)
+            out.append(y % p)
+        return out
 
     def table_host(self, starting_index: int, size: int) -> np.ndarray:
         """The constant table of K2 and K8 for the output rows

@@ -100,6 +100,16 @@ class Context:
         return Context(self.moduli[:-1], self.degree, self.device,
                        self.narrow)
 
+    def context_at_level(self, i: int) -> "Context":
+        """The context i switch-downs below this one (tpufhe
+        rq.py:163-169); NoMoreContext past the last."""
+        cur = self
+        for _ in range(i):
+            cur = cur.next_context
+            if cur is None:
+                raise NoMoreContext()
+        return cur
+
     def niterations_to(self, other: "Context") -> int:
         """Switch-downs from this context to `other` (rq/context.rs:120-137)."""
         n, cur = 0, self
@@ -161,11 +171,15 @@ class Context:
 
 
 def ntt_forward(ctx: Context, x: torch.Tensor,
-                limb_slice: slice | None = None) -> torch.Tensor:
+                limb_slice: slice | None = None,
+                lazy: bool = False) -> torch.Tensor:
     """Forward NTT of canonical (..., k_sel, N) rows (K1 on the card, K9
-    for a narrow context). Counterpart of tpufhe.ops.rq.ntt_forward_any
-    (non-lazy)."""
-    return ntt_mod.ntt_transform(x, ctx.tables, limb_slice, inverse=False)
+    for a narrow context). Counterpart of tpufhe.ops.rq.ntt_forward_any.
+    lazy: the words are left below 4p, congruent to the canonical output
+    (on the card; the plain version returns the canonical words), as
+    tpufhe's lazy forward leaves them."""
+    return ntt_mod.ntt_transform(x, ctx.tables, limb_slice, inverse=False,
+                                 lazy=lazy)
 
 
 def ntt_backward(ctx: Context, x: torch.Tensor) -> torch.Tensor:
@@ -356,12 +370,21 @@ class Scaler:
         self.rns_scaler = RnsScaler(from_ctx.rns, to_ctx.rns, factor,
                                     from_ctx.dtype)
 
-    def scale(self, x: torch.Tensor, ntt: bool) -> torch.Tensor:
+    def scale(self, x, ntt: bool | None = None):
         """(..., k_from, N) canonical rows of from_ctx, power basis or (ntt)
         NTT domain -> (..., k_to, N) rows of to_ctx in the same form
         (tpufhe rq.py:1293-1316): rows below number_common_moduli copied,
         the rest from the power basis (K1 inverse first when ntt) by
-        scale_into."""
+        scale_into. x may also be a Poly of from_ctx in power basis or NTT
+        form (tpufhe's Scaler.scale(p); not lazy), scaled into a Poly of
+        to_ctx in the same representation."""
+        if isinstance(x, Poly):
+            if x.ctx is not self.from_ctx:
+                raise ContextMismatch("wrong context for scaler")
+            x._not_lazy("Scaler.scale")
+            x._expect(POWER_BASIS, NTT)
+            return Poly(self.to_ctx, x.representation,
+                        self.scale(x.coeffs, x.representation == NTT))
         ncm, k_out = self.number_common_moduli, self.to_ctx.k
         parts = [x[..., :ncm, :]] if ncm else []
         if ncm < k_out:
@@ -430,14 +453,20 @@ class Poly:
     typestate, rq/mod.rs:50-84; tpufhe rq.py:941-1228): a thin wrapper of
     one (..., k, N) coefficient tensor on the context's device, with its
     Shoup constants in NTT_SHOUP. Operations return new polys; the
-    conversions run K1 (K9 when narrow) on the card. Lazy coefficients
-    (tpufhe's `lazy` flag, words in [0, 4p)) are not ported: every word
-    is canonical."""
+    conversions run K1 (K9 when narrow) on the card.
 
-    __slots__ = ("ctx", "representation", "coeffs", "coeffs_shoup")
+    ``lazy`` (tpufhe's flag, set by ``into_ntt(lazy=True)``): NTT-domain
+    words in [0, 4p) as K1's or K9's lazy forward leaves them, read as
+    unsigned. A lazy poly takes a product by an NTT_SHOUP poly, a scalar
+    product and a substitution; the product's words are canonical. The
+    operations that tpufhe asserts against on a lazy poly raise
+    UnsupportedOperation here."""
+
+    __slots__ = ("ctx", "representation", "coeffs", "coeffs_shoup", "lazy")
 
     def __init__(self, ctx: Context, representation: str,
-                 coeffs: torch.Tensor, coeffs_shoup: torch.Tensor | None = None):
+                 coeffs: torch.Tensor, coeffs_shoup: torch.Tensor | None = None,
+                 lazy: bool = False):
         if representation not in (POWER_BASIS, NTT, NTT_SHOUP):
             raise IncorrectRepresentation(representation, "a representation")
         if tuple(coeffs.shape[-2:]) != (ctx.k, ctx.degree):
@@ -447,10 +476,17 @@ class Poly:
         self.representation = representation
         self.coeffs = coeffs
         self.coeffs_shoup = coeffs_shoup
+        self.lazy = lazy
 
     def __repr__(self):
-        return (f"Poly({self.representation}, {tuple(self.coeffs.shape)}, "
-                f"{self.ctx!r})")
+        lazy = ", lazy" if self.lazy else ""
+        return (f"Poly({self.representation}{lazy}, "
+                f"{tuple(self.coeffs.shape)}, {self.ctx!r})")
+
+    def _not_lazy(self, operation: str) -> None:
+        if self.lazy:
+            raise UnsupportedOperation(
+                f"{operation} of a lazy poly (words in [0, 4p))")
 
     @property
     def batch_shape(self):
@@ -539,9 +575,11 @@ class Poly:
     # -- representation moves --
 
     def with_representation(self, representation: str) -> "Poly":
-        return Poly(self.ctx, representation, self.coeffs, self.coeffs_shoup)
+        return Poly(self.ctx, representation, self.coeffs, self.coeffs_shoup,
+                    self.lazy)
 
     def compute_shoup(self) -> "Poly":
+        self._not_lazy("compute_shoup")
         return Poly(self.ctx, self.representation, self.coeffs,
                     shoup_of(self.coeffs, self.ctx.moduli))
 
@@ -551,23 +589,23 @@ class Poly:
                                           representations[0])
 
     def into_ntt(self, lazy: bool = False) -> "Poly":
-        """Forward NTT of a power-basis poly. Lazy outputs in [0, 4p) are
-        not ported (UnsupportedOperation)."""
-        if lazy:
-            raise UnsupportedOperation(
-                "lazy NTT coefficients are not ported; outputs are canonical")
+        """Forward NTT of a power-basis poly; lazy: words left in [0, 4p)
+        (K1's or K9's lazy forward on the card), a lazy poly."""
         self._expect(POWER_BASIS)
-        return Poly(self.ctx, NTT, ntt_forward(self.ctx, self.coeffs))
+        return Poly(self.ctx, NTT, ntt_forward(self.ctx, self.coeffs,
+                                               lazy=lazy), lazy=lazy)
 
     def into_ntt_shoup(self) -> "Poly":
         if self.representation == POWER_BASIS:
             return self.into_ntt().into_ntt_shoup()
         self._expect(NTT)
+        self._not_lazy("into_ntt_shoup")
         return self.compute_shoup().with_representation(NTT_SHOUP)
 
     def into_power_basis(self) -> "Poly":
         if self.representation == POWER_BASIS:
             return self
+        self._not_lazy("into_power_basis")
         return Poly(self.ctx, POWER_BASIS, ntt_backward(self.ctx, self.coeffs))
 
     def into_ntt_from_shoup(self) -> "Poly":
@@ -585,38 +623,58 @@ class Poly:
 
     def __add__(self, other: "Poly") -> "Poly":
         self._check(other)
+        self._not_lazy("addition")
+        other._not_lazy("addition")
         return Poly(self.ctx, self.representation,
                     self.ctx.add(self.coeffs, other.coeffs))
 
     def __sub__(self, other: "Poly") -> "Poly":
         self._check(other)
+        self._not_lazy("subtraction")
+        other._not_lazy("subtraction")
         return Poly(self.ctx, self.representation,
                     self.ctx.sub(self.coeffs, other.coeffs))
 
     def __neg__(self) -> "Poly":
+        self._not_lazy("negation")
         return Poly(self.ctx, self.representation, self.ctx.neg(self.coeffs))
 
     def __mul__(self, other: "Poly") -> "Poly":
         """The NTT-domain product: by an NTT_SHOUP poly with its Shoup
-        constants, else of two NTT polys."""
+        constants (self may be lazy: its words are reduced first, and the
+        product is canonical, as tpufhe's Shoup product leaves it), else of
+        two NTT polys."""
         if self.ctx is not other.ctx:
             raise ContextMismatch("Incompatible contexts")
+        other._not_lazy("a product by a lazy poly")
         if other.representation == NTT_SHOUP:
-            out = self.ctx.mul_shoup(self.coeffs, other.coeffs,
+            out = self.ctx.mul_shoup(self._canonical(), other.coeffs,
                                      other.coeffs_shoup)
         else:
             self._expect(NTT)
             other._expect(NTT)
+            self._not_lazy("the product of two NTT polys")
             out = self.ctx.mul(self.coeffs, other.coeffs)
         return Poly(self.ctx, NTT, out)
 
+    def _canonical(self) -> torch.Tensor:
+        """The coefficients as canonical residues: lazy words, in [0, 4p)
+        read as unsigned (a 62-bit p's int64 word, or a narrow one's int32
+        word, may read as negative), reduced."""
+        if not self.lazy:
+            return self.coeffs
+        if self.ctx.narrow:
+            return torch.remainder(self.coeffs.long() & 0xFFFFFFFF,
+                                   self.ctx.p_col.long()).int()
+        return zq.reduce_u64(self.coeffs, self.ctx.mod)
+
     def scalar_mul(self, scalar: int) -> "Poly":
         """Multiply by an integer projected through the RNS
-        (rq/ops.rs:297-352)."""
+        (rq/ops.rs:297-352); canonical words, also of a lazy poly."""
         s = torch.tensor([int(scalar) % m for m in self.ctx.moduli],
                          dtype=self.ctx.dtype, device=self.ctx.device)
         return Poly(self.ctx, self.representation,
-                    self.ctx.mul(self.coeffs, s[:, None]))
+                    self.ctx.mul(self._canonical(), s[:, None]))
 
     # -- Galois substitution --
 
@@ -629,7 +687,7 @@ class Poly:
         shoup = (None if self.coeffs_shoup is None
                  else self.coeffs_shoup[..., exp.perm_ntt])
         return Poly(self.ctx, self.representation,
-                    substitute(self.coeffs, exp, ntt=True), shoup)
+                    substitute(self.coeffs, exp, ntt=True), shoup, self.lazy)
 
     # -- modulus switching --
 

@@ -61,8 +61,27 @@ class Modulus:
         object.__setattr__(self, "leading_zeros", 64 - p.bit_length())
         object.__setattr__(self, "supports_opt", supports_opt(p))
 
+    # exact host scalar arithmetic on Python ints (tpufhe zq.py:82-122)
+
+    def add(self, a: int, b: int) -> int:
+        return (a + b) % self.p
+
+    def sub(self, a: int, b: int) -> int:
+        return (a - b) % self.p
+
+    def mul(self, a: int, b: int) -> int:
+        return (a * b) % self.p
+
     def neg(self, a: int) -> int:
         return (-a) % self.p
+
+    def pow(self, a: int, n: int) -> int:
+        return pow(a, n, self.p)
+
+    def center(self, a: int) -> int:
+        """a mod p in the centered range [-(p - 1) / 2, p / 2]."""
+        a = int(a) % self.p
+        return a - self.p if a >= (self.p + 1) // 2 else a
 
     def shoup(self, a: int) -> int:
         """floor(a * 2^64 / p), the Shoup precomputation (zq/mod.rs:195-199)."""
@@ -277,6 +296,16 @@ def mul(a, b, m: ModTable):
     """(a * b) mod p for canonical a, b < p < 2^62."""
     prod = normalize(mul_columns(to_digits(a, 2), to_digits(b, 2)), 4)
     return _barrett_digits(prod, m)
+
+
+def reduce_u64(x, m: ModTable):
+    """int64 words read as unsigned 64-bit values (a lazy word of a 62-bit
+    p may read as negative), reduced mod p."""
+    r = torch.remainder(x, m.p)
+    two64 = torch.tensor([(1 << 64) % p for p in m.moduli],
+                         dtype=torch.int64, device=m.p.device
+                         ).reshape(m.p.shape)
+    return torch.where(x < 0, torch.remainder(r + two64, m.p), r)
 
 
 def mul_shoup(a, b, b_shoup, m: ModTable):

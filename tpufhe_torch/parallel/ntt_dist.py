@@ -198,22 +198,13 @@ _NTT_DIST_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                   + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _canonical(x: torch.Tensor, mod: ModTable) -> torch.Tensor:
-    """int64 words read as unsigned 64-bit values, reduced mod p."""
-    r = torch.remainder(x, mod.p)
-    two64 = torch.tensor([(1 << 64) % p for p in mod.moduli],
-                         dtype=torch.int64, device=mod.p.device
-                         ).reshape(mod.p.shape)
-    return torch.where(x < 0, torch.remainder(r + two64, mod.p), r)
-
-
 def cross_plain(blocks: torch.Tensor, w: torch.Tensor, w_shoup: torch.Tensor,
                 mod: ModTable) -> torch.Tensor:
     """sum_d w[:, d] blocks[d] mod p of (D, ..., k, B) words (any value
     below 2^64) with (k, D) weights: the plain version of ntt_dist."""
     acc = None
     for d in range(blocks.shape[0]):
-        t = zq.mul_shoup(_canonical(blocks[d], mod), w[:, d, None],
+        t = zq.mul_shoup(zq.reduce_u64(blocks[d], mod), w[:, d, None],
                          w_shoup[:, d, None], mod)
         acc = t if acc is None else zq.add(acc, t, mod)
     return acc
@@ -286,13 +277,15 @@ def forward_pre(x_local: torch.Tensor, plan: DistNttPlan,
 
 
 def forward_post(blocks: torch.Tensor, plan: DistNttPlan,
-                 limb_slice: slice | None = None) -> torch.Tensor:
+                 limb_slice: slice | None = None,
+                 lazy: bool = False) -> torch.Tensor:
     """The forward after the exchange, on the D gathered blocks (D, ...,
     k_sel, B): the cross step (ntt_dist), then K1 at n = B on the shard's
-    tables. Returns the rank's canonical block of the transform."""
+    tables. Returns the rank's canonical block of the transform, or with
+    lazy K1's lazy words, below 4p."""
     sl = _limbs(limb_slice)
     return ntt_transform(cross(blocks, plan, sl, inverse=False), plan.tables,
-                         sl)
+                         sl, lazy=lazy)
 
 
 def backward_pre(x_local: torch.Tensor, plan: DistNttPlan,
@@ -342,11 +335,13 @@ def gather_blocks(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def dist_forward_shard(x_local: torch.Tensor, plan: DistNttPlan, group,
-                       limb_slice: slice | None = None) -> torch.Tensor:
+                       limb_slice: slice | None = None,
+                       lazy: bool = False) -> torch.Tensor:
     """Forward NTT of the rank's (..., k_sel, B) block of rows whose
-    coefficients are sharded over `group` (tpufhe ntt_dist.py:99-116)."""
+    coefficients are sharded over `group` (tpufhe ntt_dist.py:99-116);
+    lazy: output words below 4p, as tpufhe's lazy flag leaves them."""
     send = forward_pre(x_local, plan, limb_slice)
-    return forward_post(gather_blocks(send, group), plan, limb_slice)
+    return forward_post(gather_blocks(send, group), plan, limb_slice, lazy)
 
 
 def dist_backward_shard(x_local: torch.Tensor, plan: DistNttPlan, group,
@@ -363,8 +358,9 @@ class DistNtt:
     (..., k, N / D) blocks, one word per residue, rank e of the group
     holding coefficients [e B, (e + 1) B). The forward takes words in
     [0, 4p) and returns canonical ones, as tpufhe's does for its lazy
-    inputs (tests/test_ntt_dist.py, bound 4); the inverse takes canonical
-    words. Raises ValueError where D does not divide N or B is below K1's
+    inputs (tests/test_ntt_dist.py, bound 4), or with lazy=True words
+    below 4p (tpufhe's lazy flag, ntt_dist.py:208); the inverse takes
+    canonical words. Raises ValueError where D does not divide N or B is below K1's
     shortest row, and RuntimeError without a process group."""
 
     def __init__(self, ctx, mesh_or_group=None, seq_axis: str = "seq"):
@@ -378,8 +374,10 @@ class DistNtt:
         self.plan = DistNttPlan.new(ctx, self.n_shards, self.rank)
 
     def forward(self, x_local: torch.Tensor,
-                limb_slice: slice | None = None) -> torch.Tensor:
-        return dist_forward_shard(x_local, self.plan, self.group, limb_slice)
+                limb_slice: slice | None = None,
+                lazy: bool = False) -> torch.Tensor:
+        return dist_forward_shard(x_local, self.plan, self.group, limb_slice,
+                                  lazy)
 
     def backward(self, x_local: torch.Tensor,
                  limb_slice: slice | None = None) -> torch.Tensor:

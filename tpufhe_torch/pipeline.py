@@ -5,8 +5,9 @@ symmetric and public-key encryption cores, the decryption core, the
 ciphertext add and the ct x pt dot products (kernel ct_pt_dot, ops/dot.py),
 the MulPIR server response (expansion, two dot-product dimensions, one
 relinearization), and the key switch behind RelinearizationKey.relinearizes,
-also for keys below the ciphertext's level. The port of the matching parts
-of tpufhe/pipeline.py.
+also for keys below the ciphertext's level (kernel ks_tail, the key switch
+alone, where the fused tails run). The port of the matching parts of
+tpufhe/pipeline.py.
 
 A default mul+relin step runs six kernel launches, in tpufhe's structure
 (pipeline.py:509-569):
@@ -365,6 +366,70 @@ def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
 
 
 # ---------------------------------------------------------------------------
+# ks_tail: the key switch alone (csrc/relin_tail.cu, tpufhe's mode ks_only)
+# ---------------------------------------------------------------------------
+
+_KS_TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9)
+
+
+def ks_tail_plain(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    """Power-basis c2 (..., d, N) -> stacked NTT-domain (ks0, ks1), each
+    (..., k, N) over the key's context ctx: the Garner rows of c2 reduced
+    modulo every key modulus, their canonical forward NTT and the
+    accumulate (key_switching_key.rs:214-241), the plain version of
+    ks_tail."""
+    lifted = forward_plain(ksk_rows(ctx, c2_pb, ksk), ctx.tables.omegas,
+                           ctx.mod)
+    return ks_accumulate_plain(ctx, lifted, ksk)
+
+
+def ks_tail_cuda(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    """Launch ks_tail: a Garner key's d = ksk.c0.shape[0] digit rows (the
+    limbs of c2, of the key's ciphertext context) over the k >= d limbs of
+    the key's context ctx, one cluster of d CTAs per (row, limb). The
+    ciphertext's moduli must be the first d of ctx's: the kernel reads
+    digit i's modulus from ctx's limb i."""
+    kernels.require_cuda("ks_tail", torch.int64, c2_pb, ksk.c0, ksk.c0_shoup,
+                         ksk.c1, ksk.c1_shoup)
+    k, n, d = ctx.k, ctx.degree, c2_pb.shape[-2]
+    if c2_pb.shape[-1] != n or not 1 <= d <= k:
+        raise ValueError(f"ks_tail: c2 {tuple(c2_pb.shape)} for a key over "
+                         f"({k}, {n})")
+    if ksk.log_base or tuple(ksk.ctx_ciphertext.moduli) != ctx.moduli[:d]:
+        raise ValueError("ks_tail: the key is not a Garner key whose "
+                         "ciphertext moduli lead its own")
+    _check_key("ks_tail", ksk, k, n, d)
+    if not kernels.tail_fits(n):
+        raise ValueError(f"ks_tail: degree {n} does not fit in shared memory")
+    out = torch.empty((2,) + c2_pb.shape[:-2] + (k, n), dtype=torch.int64,
+                      device=c2_pb.device)
+    rows_k = c2_pb.numel() // (d * n) * k
+    if rows_k == 0:
+        return out
+    tb = ctx.tables
+    tw = tb.pass_twiddles(False)
+    cluster, threads, _ = kernels.tail_plan(d, n)
+    fn = kernels.function("ks_tail", "tpufhe_ks_tail", _KS_TAIL_ARGS)
+    kernels.count("ks_tail")
+    err = fn(kernels.ptr(c2_pb), kernels.ptr(out), rows_k, d, k, n, cluster,
+             threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup), kernels.ptr(tw),
+             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+             kernels.ptr(tb.barrett_hi), kernels.stream())
+    kernels.check(err, "ks_tail")
+    return out
+
+
+def ks_tail(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    if c2_pb.device.type == "cuda":
+        return ks_tail_cuda(ctx, c2_pb, ksk)
+    if c2_pb.device.type != "cpu":
+        raise ValueError(f"ks_tail: unsupported device {c2_pb.device}")
+    return ks_tail_plain(ctx, c2_pb, ksk)
+
+
+# ---------------------------------------------------------------------------
 # The unfused tails: ks_accumulate (csrc/ks_accumulate.cu)
 # ---------------------------------------------------------------------------
 
@@ -449,10 +514,16 @@ def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk,
 def key_switch(ctx: Context, c2_pb: torch.Tensor, ksk, add0=None,
                add1=None) -> torch.Tensor:
     """(add0 + ks0, add1 + ks1) stacked, (ks0, ks1) the key switch of
-    power-basis c2 (..., k, N): the forward NTT of its decomposition rows
-    (K1, or K9 when narrow) and ks_accumulate (key_switching_key.rs:214-289
-    with the adds of relinearization_key.rs:71-98 and galois_key.rs:62-87).
-    Either key mode."""
+    power-basis c2 (..., d, N) by a key over ctx (key_switching_key.rs:
+    214-289 with the adds of relinearization_key.rs:71-98 and
+    galois_key.rs:62-87). Either key mode. With no addends, a Garner key
+    where the fused tails run (_fused_tail) and whose ciphertext moduli
+    lead ctx's (d <= k: a key at or below the ciphertext's level) takes
+    ks_tail, one launch; otherwise the forward NTT of the decomposition
+    rows (K1, or K9 when narrow) and ks_accumulate."""
+    if (add0 is None and add1 is None and c2_pb.shape[-2] <= ctx.k
+            and _fused_tail(ctx, ksk)):
+        return ks_tail(ctx, c2_pb.contiguous(), ksk)
     lifted = ntt_forward(ctx, ksk_rows(ctx, c2_pb, ksk))
     return ks_accumulate(ctx, lifted, ksk, add0, add1)
 
@@ -464,8 +535,9 @@ def key_switch_down(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
     _rotate_step_leveled, pipeline.py:784-812, and the switch-down of
     relinearization_key.rs:71-98 and galois_key.rs:62-87): key_switch in
     the key's context (c2's Garner digits reduced modulo every key
-    modulus, K1, ks_accumulate), K1 inverse, the switch-down (plain torch)
-    and K1 forward. The key's extra moduli divide the key-switch noise."""
+    modulus: ks_tail, or K1 and ks_accumulate where the fused tails do not
+    run), K1 inverse, the switch-down (plain torch) and K1 forward. The
+    key's extra moduli divide the key-switch noise."""
     ctx_ksk = ksk.ctx_ksk
     ks_pb = ntt_backward(ctx_ksk, key_switch(ctx_ksk, c2_pb, ksk))
     return ntt_forward(ctx, switch_down_to(ctx_ksk, ctx, ks_pb))
@@ -696,7 +768,7 @@ def make_decrypt_phase(par: BfvParameters, sk, level: int = 0):
     small mod-t fold stays with the caller (secret_key.rs:233-260)."""
     ctx = par.context_at_level(level)
     scaler = par.context_level_at(level).cipher_plain_context.scaler
-    s = sk.s_ntt(ctx)
+    s = sk.s_ntt(ctx).clone()  # SecretKey.zeroize scrubs the key's own copy
 
     def step(c0, c1):
         phase = ctx.add(c0, ctx.mul(c1, s))
@@ -710,7 +782,7 @@ def make_encrypt_with_seed_expansion(par: BfvParameters, sk, level: int = 0):
     part (NTT domain), e the power-basis error and m the NTT-domain message
     (secret_key.rs:102-137)."""
     ctx = par.context_at_level(level)
-    s = sk.s_ntt(ctx)
+    s = sk.s_ntt(ctx).clone()  # SecretKey.zeroize scrubs the key's own copy
 
     def step(a, e_pb, m):
         e = ntt_forward(ctx, e_pb)

@@ -134,6 +134,7 @@ def decode_polys(datas: list, ctx: Context, expected: str) -> torch.Tensor:
 
 
 def serialize_poly(p: Poly) -> bytes:
+    p._not_lazy("serialization")  # tpufhe codecs.py:48 asserts it
     return encode_polys(p.ctx, p.coeffs[None] if p.coeffs.dim() == 2
                         else p.coeffs, p.representation)[0]
 
