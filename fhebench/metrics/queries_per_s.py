@@ -1,0 +1,3 @@
+"""PIR queries answered over the whole window, divided by the window."""
+
+from fhebench.metrics._stats import rate as read  # noqa: F401
