@@ -3235,80 +3235,54 @@ def mulpir_path(m: SimpleNamespace, records: dict, card: str) -> dict:
 
 def expansion_switch_downs(m: SimpleNamespace, query, card: str) -> float:
     """The switch-down inside MulPIR's expansion: MULPIR_REPS expansions of
-    `query` after a warm-up, with CUDA events recorded on the stream as the
-    step runs (no synchronization in between) at the step's ends, at each
-    doubling's first substitution, and around each key_switch_down and
-    the switch_down_to in it. Prints per doubling its span, its key switch
-    and its switch-down, and the switch-downs' share of the expansion.
-    Returns that share."""
-    from tpufhe_torch import pipeline
+    `query` after a warm-up, recorded by the program's tracer
+    (tpufhe_torch.utils.obs), whose device-timed spans tile each doubling
+    into its key switch, switch-down and fold. Prints per doubling its
+    span and the three stages' device times, and the switch-downs' share
+    of the expansion. Returns that share."""
+    from tpufhe_torch.ops.rq import switch_down_to
+    from tpufhe_torch.utils import obs
 
-    ctx1 = m.par.context_at_level(1)
-    names = ("substitute", "key_switch_down", "switch_down_to")
-    orig = {name: getattr(pipeline, name) for name in names}
-    marks: dict = {name: [] for name in names}
-    last = {}
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def marked(name):
-        def call(*args, **kwargs):
-            start = event()
-            out = orig[name](*args, **kwargs)
-            marks[name].append((start, event()))
-            last[name] = args
-            return out
-        return call
-
+    ctx0, ctx1 = m.par.context_at_level(0), m.par.context_at_level(1)
     m.expand(*query)
     torch.cuda.synchronize()
-    for name in names:
-        setattr(pipeline, name, marked(name))
-    try:
-        spans = []
+    with obs.recording() as rec:
         for _ in range(MULPIR_REPS):
-            start = event()
             m.expand(*query)
-            spans.append((start, event()))
-    finally:
-        for name in names:
-            setattr(pipeline, name, orig[name])
-    torch.cuda.synchronize()
+    rec.resolve()
     lv = m.levels
-    if any(len(marks[name]) != k * lv * MULPIR_REPS
-           for name, k in zip(names, (2, 1, 1))):
-        raise SystemExit(f"expansion marks: "
-                         f"{ {k: len(v) for k, v in marks.items()} }")
+    spans = [s for s in rec.spans if s.parent is None and s.name == "expand"]
+    stages: dict = {name: [] for name in ("keyswitch", "switch_down", "fold")}
+    for s in rec.spans:
+        if s.name in stages:
+            stages[s.name].append(s.device[1] - s.device[0])
+    if len(spans) != MULPIR_REPS or any(
+            len(v) != lv * MULPIR_REPS for v in stages.values()):
+        raise SystemExit(f"expansion spans: {len(spans)} expansions, "
+                         f"{ {k: len(v) for k, v in stages.items()} }")
 
-    def ms(a, b):
-        return a.elapsed_time(b) / MULPIR_REPS
+    def ms(name, level):
+        return sum(stages[name][rep * lv + level]
+                   for rep in range(MULPIR_REPS)) / MULPIR_REPS / 1e6
 
-    total = sum(a.elapsed_time(b) for a, b in spans) / MULPIR_REPS
+    total = sum(s.device[1] - s.device[0] for s in spans) / MULPIR_REPS / 1e6
     switch_total = 0.0
     for level in range(lv):
-        span = ks = sw = 0.0
-        for rep in range(MULPIR_REPS):
-            first = marks["substitute"][2 * (rep * lv + level)][0]
-            nxt = (spans[rep][1] if level == lv - 1 else
-                   marks["substitute"][2 * (rep * lv + level + 1)][0])
-            span += ms(first, nxt)
-            ks += ms(*marks["key_switch_down"][rep * lv + level])
-            sw += ms(*marks["switch_down_to"][rep * lv + level])
+        ks, sw, fold = (ms(name, level) for name in stages)
+        span = ks + sw + fold
         switch_total += sw
         log(f"  doubling {level} ({1 << level} ciphertexts): {span:.4f} ms, "
-            f"its key switch {ks:.4f} ms (K1 x 3, ks_accumulate and the "
-            f"switch-down), the switch-down {sw:.4f} ms "
-            f"({100 * sw / span:.1f} % of the doubling)")
+            f"its key switch {ks:.4f} ms (substitutions, K1 x 2, ks_tail), "
+            f"the switch-down {sw:.4f} ms ({100 * sw / span:.1f} % of the "
+            f"doubling), the fold {fold:.4f} ms (K1, adds, Shoup products)")
     share = switch_total / total
     log(f"  switch-downs {switch_total:.4f} ms of the {total:.3f} ms "
         f"expansion ({100 * share:.1f} %), timed inside it, on {card}")
     mono, mono_shoup = m.ek.monomials[0]
-    switch = last["switch_down_to"]
+    ks_pb = torch.zeros((2, 1, ctx0.k, ctx0.degree), dtype=torch.int64,
+                        device=query[0].device)
     log(f"  torch operations: a switch-down "
-        f"{torch_ops(lambda: orig['switch_down_to'](*switch))}, a "
+        f"{torch_ops(lambda: switch_down_to(ctx0, ctx1, ks_pb))}, a "
         f"Shoup product by a monomial "
         f"{torch_ops(lambda: ctx1.mul_shoup(query[0], mono, mono_shoup))}")
     return share

@@ -20,6 +20,7 @@ import torch
 from tpufhe_torch.bfv.parameters import BfvParameters
 from tpufhe_torch.errors import InvalidCiphertext, InvalidLevel, TooFewValues
 from tpufhe_torch.ops.rq import ntt_backward, ntt_forward, switch_down
+from tpufhe_torch.utils import obs
 
 
 @dataclass
@@ -83,8 +84,9 @@ class Ciphertext:
     def switch_to_level(self, target: int):
         if target < self.level or target > self.max_switchable_level():
             raise InvalidLevel(target, self.level, self.max_switchable_level())
-        while self.level < target:
-            self.switch_down()
+        with obs.span("switch_to_level"):
+            while self.level < target:
+                self.switch_down()
 
     # the operators of ops/mod.rs (impl Add/Sub/Neg/Mul for Ciphertext);
     # imported here to avoid the ciphertext <-> ops cycle
@@ -119,11 +121,13 @@ class Ciphertext:
     def to_bytes(self) -> bytes:
         from tpufhe_torch.serialize.codecs import serialize_ciphertext
 
-        return serialize_ciphertext(self)
+        with obs.span("wire.to_bytes"):
+            return serialize_ciphertext(self)
 
     @classmethod
     def from_bytes(cls, data: bytes, par) -> "Ciphertext":
         """The object of `data`, its tensors on par's device."""
         from tpufhe_torch.serialize.codecs import deserialize_ciphertext
 
-        return deserialize_ciphertext(data, par)
+        with obs.span("wire.from_bytes"):
+            return deserialize_ciphertext(data, par)

@@ -35,6 +35,7 @@ from tpufhe_torch.errors import (
 from tpufhe_torch.ops.dot import MAX_PARTS, ct_pt_dot
 from tpufhe_torch.ops.rns import ScalingFactor
 from tpufhe_torch.ops.rq import Context, Scaler
+from tpufhe_torch.utils import obs
 from tpufhe_torch.utils.primes import generate_prime
 
 
@@ -104,7 +105,8 @@ def ct_mul_pt(a: Ciphertext, pt: Plaintext) -> Ciphertext:
         return a.clone()
     ctx = _context(a, pt.level)
     m = pt.poly_ntt
-    return Ciphertext(a.par, [ctx.mul(x, m) for x in a.c], a.level)
+    with obs.span("ct_mul_pt"):
+        return Ciphertext(a.par, [ctx.mul(x, m) for x in a.c], a.level)
 
 
 def _ct_value_equal(a: Ciphertext, b: Ciphertext) -> bool:

@@ -23,6 +23,7 @@ import torch
 from tpufhe_torch import kernels
 from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
+from tpufhe_torch.utils.obs import uncounted
 
 # the kernel's limit on parts (csrc/ct_pt_dot.cu DOT_MAX_PARTS)
 MAX_PARTS = 8
@@ -75,6 +76,7 @@ def _check(name: str, ctx, parts: list, db: torch.Tensor) -> tuple:
     return n, m, b, r
 
 
+@uncounted
 def ct_pt_dot_plain(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     """The plain version of ct_pt_dot: one zq.mul and zq.add per term, the
     rows folded as (..., R / k, k, N) against the context's (k, 1)

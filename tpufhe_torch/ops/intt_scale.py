@@ -21,6 +21,7 @@ import torch
 from tpufhe_torch import kernels
 from tpufhe_torch.ops.ntt import backward_plain
 from tpufhe_torch.ops.rns import RnsScaler
+from tpufhe_torch.utils.obs import uncounted
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
           ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -35,6 +36,7 @@ def intt_scale_fits(k_in: int, n: int) -> bool:
     return 1 <= k_in and k_in * n * 8 <= kernels.SMEM_BYTES
 
 
+@uncounted
 def intt_scale_plain(ctx, scaler: RnsScaler, x: torch.Tensor,
                      starting_index: int, size: int) -> torch.Tensor:
     """The plain version of K8: the plain inverse NTT, then the plain scaler."""

@@ -31,6 +31,7 @@ import torch
 from tpufhe_torch import kernels
 from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.zq import ModTable, Modulus
+from tpufhe_torch.utils.obs import uncounted
 from tpufhe_torch.utils.primes import is_prime
 from tpufhe_torch.utils.rngs import ChaChaRng, random_range_u64, seed_from_u64
 
@@ -266,6 +267,7 @@ class NttTables:
 # ---------------------------------------------------------------------------
 
 
+@uncounted
 def forward_plain(x: torch.Tensor, omegas: torch.Tensor, mod: ModTable):
     """Forward negacyclic NTT of canonical (..., k, n) rows; omegas (k, n)."""
     n = x.shape[-1]
@@ -283,6 +285,7 @@ def forward_plain(x: torch.Tensor, omegas: torch.Tensor, mod: ModTable):
     return x
 
 
+@uncounted
 def backward_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
                    ninv: torch.Tensor, mod: ModTable):
     """Inverse negacyclic NTT with the n^{-1} fold; ninv (k,)."""
@@ -307,6 +310,7 @@ def backward_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@uncounted
 def forward32_plain(x: torch.Tensor, omegas: torch.Tensor, p: torch.Tensor):
     """Forward negacyclic NTT of canonical int32 (..., k, n) rows, p < 2^30;
     omegas (k, n), p (k,). The stages of tpufhe.ops.ntt.forward32 with
@@ -329,6 +333,7 @@ def forward32_plain(x: torch.Tensor, omegas: torch.Tensor, p: torch.Tensor):
     return x.int()
 
 
+@uncounted
 def backward32_plain(x: torch.Tensor, zetas_inv: torch.Tensor,
                      ninv: torch.Tensor, p: torch.Tensor):
     """Inverse narrow NTT with the n^{-1} fold (tpufhe.ops.ntt.backward32),

@@ -24,6 +24,7 @@ from tpufhe_torch.errors import InvalidContext, TooFewValues
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.zq import DIGIT_BITS, DIGIT_MASK, ModTable, Modulus
 from tpufhe_torch.utils.misc import inverse
+from tpufhe_torch.utils.obs import uncounted
 
 _M64 = (1 << 64) - 1
 _M128 = (1 << 128) - 1
@@ -326,6 +327,7 @@ class RnsScaler:
         kernels.check(err, "rns_scale")
         return y
 
+    @uncounted
     def scale_plain(self, x: torch.Tensor, starting_index: int,
                     size: int) -> torch.Tensor:
         """The plain version of K2: the integers of scale_host, computed with

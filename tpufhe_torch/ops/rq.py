@@ -31,6 +31,7 @@ from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.dot import ct_pt_dot
 from tpufhe_torch.ops.rns import RnsContext, RnsScaler, ScalingFactor
 from tpufhe_torch.ops.zq import Modulus
+from tpufhe_torch.utils.obs import count
 from tpufhe_torch.utils.rngs import expand_seed
 from tpufhe_torch.utils.sampling import sample_vec_cbd
 
@@ -214,7 +215,9 @@ def switch_down(ctx: Context, x: torch.Tensor) -> torch.Tensor:
     Poly.switch_down and _switch_down_fn, rq/mod.rs:390-449, eprint
     2018/931 Alg. 2): out_i = (x_i + floor(q_last / 2) - x') q_last^-1 mod
     q_i with x' = (x_last + floor(q_last / 2)) mod q_last. Canonical in and
-    out, wide or narrow; plain torch on every device, as tpufhe's is XLA."""
+    out, wide or narrow; plain torch on every device, as tpufhe's is XLA.
+    Counted as ``rq.switch_down``, beside the glue calls it makes."""
+    count("rq.switch_down")
     nxt = ctx.next_context
     if nxt is None:
         raise NoMoreContext()
@@ -325,6 +328,7 @@ def substitute(x: torch.Tensor, exp: SubstitutionExponent,
     """x(X) -> x(X^e) on (..., k, N) rows of exp's context, NTT domain or
     power basis (tpufhe.ops.rq.Poly.substitute): a gather along the last
     axis, and for power-basis rows a negation where ``sign_power`` is set."""
+    count("glue.rq.substitute")
     if ntt:
         return x[..., exp.perm_ntt]
     gathered = x[..., exp.perm_power]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch.errors import InvalidModulus
+from tpufhe_torch.utils.obs import count
 from tpufhe_torch.utils.primes import is_prime, supports_opt
 from tpufhe_torch.utils.rngs import uniform_u64_below
 from tpufhe_torch.utils.transcode import transcode_from_bytes, transcode_to_bytes
@@ -262,18 +263,21 @@ class ModTable:
 
 def add(a, b, m: ModTable):
     """(a + b) mod p for a, b < p."""
+    count("glue.zq.add")
     s = a + b
     return torch.where(s >= m.p, s - m.p, s)
 
 
 def sub(a, b, m: ModTable):
     """(a - b) mod p for a, b < p."""
+    count("glue.zq.sub")
     d = a - b
     return torch.where(d < 0, d + m.p, d)
 
 
 def neg(a, m: ModTable):
     """(-a) mod p for a < p."""
+    count("glue.zq.neg")
     return torch.where(a == 0, a, m.p - a)
 
 
@@ -294,6 +298,7 @@ def _barrett_digits(prod: list, m: ModTable):
 
 def mul(a, b, m: ModTable):
     """(a * b) mod p for canonical a, b < p < 2^62."""
+    count("glue.zq.mul")
     prod = normalize(mul_columns(to_digits(a, 2), to_digits(b, 2)), 4)
     return _barrett_digits(prod, m)
 
@@ -301,6 +306,7 @@ def mul(a, b, m: ModTable):
 def reduce_u64(x, m: ModTable):
     """int64 words read as unsigned 64-bit values (a lazy word of a 62-bit
     p may read as negative), reduced mod p."""
+    count("glue.zq.reduce_u64")
     r = torch.remainder(x, m.p)
     two64 = torch.tensor([(1 << 64) % p for p in m.moduli],
                          dtype=torch.int64, device=m.p.device
@@ -316,6 +322,7 @@ def mul_shoup(a, b, b_shoup, m: ModTable):
     exactly from digits, then r = a b - q p (in [0, 2p)) from the low
     three digits.
     """
+    count("glue.zq.mul_shoup")
     ad = to_digits(a, 3)
     q = bits_of(normalize(mul_columns(ad, to_digits(b_shoup, 3)), 6), 64, 63)
     ab = normalize(mul_columns(ad, to_digits(b, 2)), 3)
@@ -327,6 +334,7 @@ def mul_shoup(a, b, b_shoup, m: ModTable):
 
 def mod_of_digits(digits: list, m: ModTable):
     """(sum_i digits[i] 2^(31 i)) mod p, by Horner's rule from the top."""
+    count("glue.zq.mod_of_digits")
     two31 = torch.remainder(
         torch.full_like(m.p, 1 << DIGIT_BITS), m.p)
     r = torch.remainder(digits[-1], m.p)

@@ -21,28 +21,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpufhe_torch.utils.obs import count
+
 _M32 = 0xFFFFFFFF
 
 
 def add(a, b, p):
     """(a + b) mod p for a, b < p."""
+    count("glue.zq32.add")
     s = a + b
     return torch.where(s >= p, s - p, s)
 
 
 def sub(a, b, p):
     """(a - b) mod p for a, b < p."""
+    count("glue.zq32.sub")
     d = a - b
     return torch.where(d < 0, d + p, d)
 
 
 def neg(a, p):
     """(-a) mod p for a < p."""
+    count("glue.zq32.neg")
     return torch.where(a == 0, a, p - a)
 
 
 def mul(a, b, p):
     """(a * b) mod p for a, b < p, exact in int64."""
+    count("glue.zq32.mul")
     return torch.remainder(a.long() * b.long(), p.long()).int()
 
 
@@ -51,6 +57,7 @@ def mul_shoup(a, b, b_shoup, p):
     reduced: b < p, b_shoup = floor(b 2^32 / p) by bit pattern, a < 2^30.
     q = floor(a b_shoup / 2^32) is the quotient or one less, so
     a b - q p lies in [0, 2p)."""
+    count("glue.zq32.mul_shoup")
     a64 = a.long()
     q = (a64 * (b_shoup.long() & _M32)) >> 32
     r = a64 * b.long() - q * p.long()

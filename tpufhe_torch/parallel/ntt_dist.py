@@ -45,6 +45,7 @@ from tpufhe_torch import kernels
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.ntt import NttOperator, NttTables, ntt_transform
 from tpufhe_torch.ops.zq import ModTable, Modulus
+from tpufhe_torch.utils.obs import uncounted
 
 # K1's shortest row (csrc/ntt.cu): the smallest block a shard may hold
 MIN_BLOCK = 8
@@ -198,6 +199,7 @@ _NTT_DIST_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                   + [ctypes.c_int, ctypes.c_void_p])
 
 
+@uncounted
 def cross_plain(blocks: torch.Tensor, w: torch.Tensor, w_shoup: torch.Tensor,
                 mod: ModTable) -> torch.Tensor:
     """sum_d w[:, d] blocks[d] mod p of (D, ..., k, B) words (any value

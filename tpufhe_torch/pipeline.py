@@ -87,6 +87,8 @@ from tpufhe_torch.ops.rq import (
     substitute,
     switch_down_to,
 )
+from tpufhe_torch.utils import obs
+from tpufhe_torch.utils.obs import uncounted
 from tpufhe_torch.utils.primes import generate_prime
 
 # ---------------------------------------------------------------------------
@@ -157,6 +159,7 @@ _TENSOR_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
+@uncounted
 def tensor_plain(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
     """NTT-domain (..., k, N) parts -> stacked (3, ..., k, N)
     (a0 b0, a0 b1 + a1 b0, a1 b1), the plain version of K7."""
@@ -208,6 +211,7 @@ _TENSOR_INTT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
+@uncounted
 def tensor_intt_plain(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     """(4, ..., k, N) NTT-domain (a0, a1, b0, b1) -> (3, ..., k, N) power
     basis (a0 b0, a0 b1 + a1 b0, a1 b1), the plain version of K3."""
@@ -259,6 +263,7 @@ _RELIN_TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
 
 
+@uncounted
 def relin_tail_plain(ctx: Context, dsc: torch.Tensor, ksk):
     """(3, ..., k, N) power-basis (c0, c1, c2) -> NTT-domain
     (c0 + ks0, c1 + ks1): the stacked forward NTT, _ksk_accumulate and the
@@ -316,6 +321,7 @@ _ROTATE_TAIL_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9)
 
 
+@uncounted
 def rotate_tail_plain(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     """NTT-domain s0 and power-basis c2, both (..., k, N) -> NTT-domain
     (s0 + ks0, ks1): the Garner digits of c2, their forward NTT,
@@ -373,6 +379,7 @@ _KS_TAIL_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9)
 
 
+@uncounted
 def ks_tail_plain(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
     """Power-basis c2 (..., d, N) -> stacked NTT-domain (ks0, ks1), each
     (..., k, N) over the key's context ctx: the Garner rows of c2 reduced
@@ -438,6 +445,7 @@ _KS_ACCUMULATE_ARGS = ([ctypes.c_void_p] * 4
                        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
 
 
+@uncounted
 def ks_accumulate_plain(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
                         add1=None) -> torch.Tensor:
     """NTT-domain digit rows (d, ..., k, N) (d = k Garner rows, or a
@@ -538,9 +546,15 @@ def key_switch_down(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
     modulus: ks_tail, or K1 and ks_accumulate where the fused tails do not
     run), K1 inverse, the switch-down (plain torch) and K1 forward. The
     key's extra moduli divide the key-switch noise."""
+    ks_pb = _key_switch_up(c2_pb, ksk)
+    return ntt_forward(ctx, switch_down_to(ksk.ctx_ksk, ctx, ks_pb))
+
+
+def _key_switch_up(c2_pb: torch.Tensor, ksk) -> torch.Tensor:
+    """key_switch_down's first half: the key switch in the key's context
+    ksk.ctx_ksk and its K1 inverse, power-basis (2, ..., k_ksk, N)."""
     ctx_ksk = ksk.ctx_ksk
-    ks_pb = ntt_backward(ctx_ksk, key_switch(ctx_ksk, c2_pb, ksk))
-    return ntt_forward(ctx, switch_down_to(ctx_ksk, ctx, ks_pb))
+    return ntt_backward(ctx_ksk, key_switch(ctx_ksk, c2_pb, ksk))
 
 
 def rotate_tail_unfused(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor,
@@ -670,7 +684,7 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     limbs, tensor32, K9 inverse over the basis, K2 down-scale, then
     relin_tail_unfused (one K9 forward, ks_accumulate): ntt32 4,
     rns_scale 2, ks_accumulate 1. Strategy 2 and ext_fuse raise UnsupportedOperation there
-    (K8 is a wide kernel)."""
+    (K8 is a wide kernel). A step is a ``mul_relin`` span."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
@@ -705,6 +719,7 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
         rows = intt_scale(ctx, mb.ext, x, k, k_mul - k)
         return ntt_forward(ctx_mul, rows, limb_slice=slice(k, k_mul))
 
+    @obs.span("mul_relin")
     def step(a0, a1, b0, b1):
         x = torch.stack([a0, a1, b0, b1])  # (4, ..., k, N)
         x_pb = None if ext_fuse else bwd(ctx, x)
@@ -849,17 +864,43 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     (a larger context) takes key_switch_down, unfused, as K5 takes a key
     of the ciphertext's context only (tpufhe _rotate_step_leveled):
     ntt 4, ks_accumulate 1."""
+    keyswitch, down, finish = _rotate_stages(ctx, exp, ksk)
+
+    def rot(c0, c1):
+        return finish(down(keyswitch(c0, c1)))
+
+    return rot
+
+
+def _same(state):
+    return state
+
+
+def _rotate_stages(ctx: Context, exp: SubstitutionExponent, ksk) -> tuple:
+    """_rotate_step in three stages, (c0, c1) -> keyswitch -> down ->
+    finish -> the rotated (c0, c1), which make_expand times apart. A
+    leveled key: keyswitch substitutes both parts and runs the K1 inverse,
+    key_switch_down's key switch and its K1 inverse; down is its
+    switch-down; finish its K1 forward and the add of the substituted c0.
+    Otherwise keyswitch is the whole rotation, and down and finish pass it
+    on."""
     if ksk.ctx_ciphertext is not ctx:
         raise ValueError(f"rotation: the key is for {ksk.ctx_ciphertext}, "
                          f"not {ctx}")
     if ksk.ksk_level != ksk.ciphertext_level:
-        def rot_leveled(c0, c1):
+        def keyswitch(c0, c1):
             s0 = substitute(c0, exp, ntt=True)
             c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
-            ks = key_switch_down(ctx, c2_pb, ksk)
-            return ctx.add(s0, ks[0]), ks[1]
+            return s0, _key_switch_up(c2_pb, ksk)
 
-        return rot_leveled
+        def down(state):
+            return state[0], switch_down_to(ksk.ctx_ksk, ctx, state[1])
+
+        def finish(state):
+            ks = ntt_forward(ctx, state[1])
+            return ctx.add(state[0], ks[0]), ks[1]
+
+        return keyswitch, down, finish
     tail = rotate_tail if _fused_tail(ctx, ksk) else rotate_tail_unfused
 
     def rot(c0, c1):
@@ -867,7 +908,7 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
         c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
         return tail(ctx, s0, c2_pb, ksk)
 
-    return rot
+    return rot, _same, _same
 
 
 def make_rotate(par: BfvParameters, gk, level: int = 0):
@@ -880,7 +921,8 @@ def make_rotate(par: BfvParameters, gk, level: int = 0):
 
 def make_inner_sum(par: BfvParameters, ek, level: int = 0):
     """(c0, c1) -> inner sum: log2(N/2) column rotations then the row
-    rotation, each followed by an add (evaluation_key.rs:56-82)."""
+    rotation, each followed by an add (evaluation_key.rs:56-82). Spans:
+    ``inner_sum``, with a ``rotate`` for each rotation and its adds."""
     if not ek.supports_inner_sum():
         raise UnsupportedOperation("This key does not support the inner sum")
     ctx = par.context_at_level(level)
@@ -890,9 +932,11 @@ def make_inner_sum(par: BfvParameters, ek, level: int = 0):
             for e in exps + [2 * n - 1]]
 
     def step(c0, c1):
-        for rot in rots:
-            r0, r1 = rot(c0, c1)
-            c0, c1 = ctx.add(c0, r0), ctx.add(c1, r1)
+        with obs.span("inner_sum"):
+            for rot in rots:
+                with obs.span("rotate"):
+                    r0, r1 = rot(c0, c1)
+                    c0, c1 = ctx.add(c0, r0), ctx.add(c1, r1)
         return c0, c1
 
     return step
@@ -909,7 +953,14 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     back down (tpufhe build_expand_step, pipeline.py:843-885). On narrow
     parameters the rows are int32: a doubling runs ntt32 2 and
     ks_accumulate 1 (ntt32 4 with a leveled key), and the fold's Shoup
-    product takes the monomials' shoup32 constants."""
+    product takes the monomials' shoup32 constants.
+
+    Spans: ``expand`` (device-timed) holds one ``expand.doubling`` a level,
+    tiled by its three device-timed stages: ``keyswitch`` (the rotation's
+    substitutions, K1 inverse, key switch and, with a leveled key, its K1
+    inverse), ``switch_down`` (the leveled key's switch-down) and ``fold``
+    (the leveled key's K1 forward and add, then the fold's subtractions,
+    Shoup products by the monomial, adds and ``cat``)."""
     ctx = par.context_at_level(level)
     if not ek.supports_expansion(level_count):
         raise UnsupportedOperation(
@@ -919,16 +970,26 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     for l in range(level_count):
         gk = ek.gk[(n >> l) + 1]
         mono, mono_shoup = ek.monomials[l]
-        levels.append((_rotate_step(ctx, gk.element, gk.ksk), mono, mono_shoup))
+        levels.append((_rotate_stages(ctx, gk.element, gk.ksk), mono,
+                       mono_shoup))
 
     def step(c0, c1):
-        cur0, cur1 = c0[None], c1[None]
-        for rot, mono, mono_shoup in levels:
-            sub0, sub1 = rot(cur0, cur1)
-            new0 = ctx.mul_shoup(ctx.sub(cur0, sub0), mono, mono_shoup)
-            new1 = ctx.mul_shoup(ctx.sub(cur1, sub1), mono, mono_shoup)
-            cur0 = torch.cat([ctx.add(cur0, sub0), new0])
-            cur1 = torch.cat([ctx.add(cur1, sub1), new1])
+        with obs.span("expand", device=True):
+            cur0, cur1 = c0[None], c1[None]
+            for (keyswitch, down, finish), mono, mono_shoup in levels:
+                with obs.span("expand.doubling"):
+                    with obs.span("keyswitch", device=True):
+                        state = keyswitch(cur0, cur1)
+                    with obs.span("switch_down", device=True):
+                        state = down(state)
+                    with obs.span("fold", device=True):
+                        sub0, sub1 = finish(state)
+                        new0 = ctx.mul_shoup(ctx.sub(cur0, sub0), mono,
+                                             mono_shoup)
+                        new1 = ctx.mul_shoup(ctx.sub(cur1, sub1), mono,
+                                             mono_shoup)
+                        cur0 = torch.cat([ctx.add(cur0, sub0), new0])
+                        cur1 = torch.cat([ctx.add(cur1, sub1), new1])
         return cur0, cur1
 
     return step
@@ -999,7 +1060,9 @@ def make_pir_response_db(par: BfvParameters, rk, dim1: int, dim2: int,
       kernels.tail_fits holds, else K1 forward + ks_accumulate.
 
     The relinearization key is at the ciphertexts' level. Raises
-    NotImplementedError on narrow parameters, as tpufhe does."""
+    NotImplementedError on narrow parameters, as tpufhe does. Spans:
+    ``pir_response`` (device-timed), with a child for each of the five
+    stages above."""
     ctx = par.context_at_level(level)
     if ctx.narrow:
         raise NotImplementedError("narrow (w30) PIR response path")
@@ -1015,14 +1078,24 @@ def make_pir_response_db(par: BfvParameters, rk, dim1: int, dim2: int,
             raise ValueError(f"make_pir_response_db: {e0.shape[0]} expanded "
                              f"ciphertexts and db {tuple(db.shape)} for dims "
                              f"({dim1}, {dim2})")
-        resp = ct_pt_dot(ctx, [e0, e1], db)  # (2, dim2, B, k, N)
-        sel = torch.stack([e1[dim1:dim1 + dim2], e0[dim1:dim1 + dim2]])
-        both = torch.cat([sel, resp])  # (s1, s0, r0, r1)
-        new_rows = scale_into(ctx_mul, mb.ext, ntt_backward(ctx, both), k,
-                              k_mul - k, ntt=True)
-        t = _second_dimension(ctx_mul, torch.cat([both, new_rows], dim=-2))
-        dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
-        return tail(ctx, dsc, ksk)
+        with obs.span("pir_response", device=True):
+            with obs.span("pir_response.dim1"):
+                resp = ct_pt_dot(ctx, [e0, e1], db)  # (2, dim2, B, k, N)
+            with obs.span("pir_response.extend"):
+                sel = torch.stack([e1[dim1:dim1 + dim2],
+                                   e0[dim1:dim1 + dim2]])
+                both = torch.cat([sel, resp])  # (s1, s0, r0, r1)
+                new_rows = scale_into(ctx_mul, mb.ext,
+                                      ntt_backward(ctx, both), k, k_mul - k,
+                                      ntt=True)
+            with obs.span("pir_response.dim2"):
+                t = _second_dimension(ctx_mul,
+                                      torch.cat([both, new_rows], dim=-2))
+            with obs.span("pir_response.down_scale"):
+                dsc = mb.down.scale(ntt_backward(ctx_mul, t),
+                                    starting_index=0, size=k)
+            with obs.span("pir_response.relin"):
+                return tail(ctx, dsc, ksk)
 
     return step
 
