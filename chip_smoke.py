@@ -5,11 +5,18 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the twelve CUDA kernels (one nvcc per kernel, in
+2. build: compile the thirteen CUDA kernels (one nvcc per kernel, in
    parallel; ks_tail from relin_tail.cu, beside K4) and the native
    ChaCha8 / CBD sampler (g++); fails if either does not build;
 3. kernels: each kernel against its plain torch version, compared with
-   torch.equal, and both timed with CUDA events: ntt, rns_scale and
+   torch.equal, and both timed with CUDA events: first zq_mul (the glue's
+   62-bit products, ops/zq.py on the card, whose digit chains are its
+   plain versions; the other kernels' plain versions take it for their
+   products) at MulPIR's switch-down, (2, L, 16, 2, 8192) rows by a
+   (2, 1) column, and fold, (L, 16, 2, 8192) rows by a (2, 8192)
+   monomial, for every L from 1 to 64, and at innerprod-b64's ct_mul_pt,
+   (64, 4, 8192) by a (4, 8192) plaintext, then one inner-product step
+   recorded (zq_mul 2); ntt, rns_scale and
    tensor_intt at the shapes of the N = 8192, L = 3 x 62-bit, batch-64
    mul+relin; relin_tail at that mul+relin's (3, 64, 3, 8192), at phase
    13's 8 x 62-bit (3, 16, 8, 8192) and at BASELINE config 2's ring
@@ -64,7 +71,10 @@ Phases, in order; any failure exits nonzero before the last line:
    expansion (ntt over the ciphertext's and the key's moduli, ks_tail
    with 2 digit rows over 3 limbs) and response (ct_pt_dot
    at 58 terms x 57 columns, ntt, rns_scale, relin_tail), with ct_pt_dot's
-   launch plans; and the second dimension both ways on each program's own
+   launch plans, and a batch of 16 queries as the benchmark's mulpir-q16
+   serves it (expansion, response, the answer switched to the last level:
+   zq_mul 22); zq_mul wherever a recorded program makes a product; and
+   the second dimension both ways on each program's own
    input, (a) tensor over all j and modular adds, (b) three ct_pt_dot
    (the programs' route), equal and timed, tensor held to its plain
    version there; and, after phase 22, every distinct call of phases 21
@@ -102,7 +112,7 @@ Phases, in order; any failure exits nonzero before the last line:
    32 SIMD and 4 poly ciphertexts; a column rotation by 1 of all 32, the
    inner sum of the first 16 and the expansion of the 4 into 16 each, each
    run with the launch counters set to 0 just before it (exact counts of
-   ntt and rotate_tail); every slot of every output is checked after
+   ntt and rotate_tail, and the expansion's zq_mul 8); every slot of every output is checked after
    decryption, and the noise printed;
 7. rates: chained batch-32 rotations and batch-16 inner sums, timed with
    CUDA events;
@@ -139,7 +149,7 @@ Phases, in order; any failure exits nonzero before the last line:
     whose down-scales run K2's general instance, held to the launch
     counts of phases 4 and 10, every slot checked, chained steps timed;
 14. BASELINE config 2 (seed 2031): N = 4096, 2 x 62-bit, batch 64,
-    make_add then ct_mul_pt by a SIMD plaintext (no kernel), every slot
+    make_add then ct_mul_pt by a SIMD plaintext (zq_mul 2), every slot
     checked, chained steps timed (add+pt_mul/s); ct_add_pt, ct_sub_pt and
     ct_neg through the object API, every slot checked;
 15. dot products (seed 2032): N = 8192, 4 x 62-bit, 128 SIMD encryptions
@@ -147,22 +157,24 @@ Phases, in order; any failure exits nonzero before the last line:
     ct_pt_dot launch each), decrypted against sum v_i w_i mod t, then
     chained dot products timed (dot_products/s);
 16. the object API on phase 4's keys and pairs: PublicKey encryption
-    (seed 2033; ntt 2), ct_mul to three parts (ntt 6, rns_scale 3,
-    tensor 1) and their decryption (ntt 1, rns_scale 1), ct_square (ntt
+    (seed 2033; ntt 2, zq_mul 3), ct_mul to three parts (ntt 6,
+    rns_scale 3, tensor 1) and their decryption (ntt 1, rns_scale 1,
+    zq_mul 3), ct_square (ntt
     4, rns_scale 2, tensor 1), relinearizes (ntt 1, rotate_tail 1),
     Multiplicator.default and strategy2(rk, 1) (ntt 7, rns_scale 3,
     tensor 1, rotate_tail 1), each torch.equal to make_mul_relin's output,
     every slot checked, the noise printed beside phase 4's; the lazy Poly:
     Poly.into_ntt(lazy=True) of a product part (ntt 1), below 4p and
-    congruent, times an NttShoup poly torch.equal to the canonical
-    product;
+    congruent, times an NttShoup poly (zq_mul 1) torch.equal to the
+    canonical product;
 17. the single-modulus key switch (seed 2034): N = 2048, 1 x 62-bit,
     batch 16, a relinearization key with log_base 31 and two digit rows;
     ct_mul, relinearizes (ntt 2, ks_accumulate 1) and make_mul_relin (ntt
     3, rns_scale 2, tensor_intt 1, ks_accumulate 1), equal, every slot
     checked;
 18. default_parameters_128(20)'s N = 8192 set (seed 2035; 5 moduli of 43
-    and 44 bits): public-key encryptions (ntt 2 each), make_mul_relin
+    and 44 bits): public-key encryptions (ntt 2, zq_mul 3 each),
+    make_mul_relin
     (phase 4's counts) and Multiplicator.default at batch 16, equal, every
     slot checked, chained steps timed;
 19. PIR at BASELINE config 5 (bench.py:509-552; seed 2036): N = 16384,
@@ -170,7 +182,8 @@ Phases, in order; any failure exits nonzero before the last line:
     slots, built on the card by encode_pir_database: ntt 2), keys at
     level 0, an expansion of 4 levels; make_pir_response on a batch of 4
     queries, each selecting its own cell, held to its exact counts (ntt
-    12, ks_accumulate 5, rns_scale 2, ct_pt_dot 4), every slot of every
+    12, ks_accumulate 5, rns_scale 2, ct_pt_dot 4, zq_mul 8), every slot
+    of every
     answer checked against its cell, the noise printed, chained responses
     timed (PIR responses/s);
 20. MulPIR at its own configuration (tpufhe/models/pir.py:69-77; seed
@@ -180,7 +193,8 @@ Phases, in order; any failure exits nonzero before the last line:
     1); the query at level 1, the expansion keys for level 1 held at level
     0, the relinearization key at level 1 (keygen and upload on the host
     clock); for two queries make_expand(level=1) (7 leveled doublings:
-    ntt 21, ks_tail 7) and make_pir_response_db(level=1) (ct_pt_dot
+    ntt 21, ks_tail 7, zq_mul 21) and make_pir_response_db(level=1)
+    (ct_pt_dot
     4, ntt 3, rns_scale 2, relin_tail 1), each held to its exact counts,
     the answer switched to the last level and all 8192 coefficients
     checked; the expansion and the response timed apart with CUDA events,
@@ -214,13 +228,15 @@ Phases, in order; any failure exits nonzero before the last line:
     (repeat=2: the seeded index and, warm, index + 1) and run_sealpir at
     65,536 x 1 KiB, N = 8192, MulPIR's t and moduli, each element byte
     for byte, each server phase of each query held to its exact counts
-    (MulPIR expand ntt 21, ks_tail 7, response ct_pt_dot 4, ntt 5,
-    rns_scale 2, relin_tail 1; SealPIR expand the same, dot1 ct_pt_dot 1,
-    ntt 2, fold none, dot2 ntt 3, ct_pt_dot 1), the report printed; the
+    (MulPIR expand ntt 21, ks_tail 7, zq_mul 21, response ct_pt_dot 4,
+    ntt 5, rns_scale 2, relin_tail 1, zq_mul 1; SealPIR expand the same,
+    dot1 ct_pt_dot 1, ntt 2, zq_mul 1, fold none, dot2 ntt 3, ct_pt_dot
+    1, zq_mul 1), the report printed; the
     CLI (models.pir.main) for each scheme at 4,096 elements; MulPIR's
     object-API path at 4,096 retrieving what its programs retrieve;
 23. multiparty BFV (tpufhe_torch.mbfv; seed 2041) at BASELINE config 3's
-    ring with 11 parties (bench.py:422): the CRP and the collective public
+    ring with 11 parties (bench.py:422), each step also held to its exact
+    zq_mul count (one launch a product): the CRP and the collective public
     key through PublicKeyShare + aggregate (ntt 22) and batched_public_key
     (ntt 2), torch.equal; the collective relinearization key through two
     rounds of RelinKeyGenerator (ntt 165) and batched_relin_keygen (ntt
@@ -263,7 +279,7 @@ Phases, in order; any failure exits nonzero before the last line:
     phase 12's make_mul_relin output (every slot decrypted) and phase 4's;
     ms per step per rank and the all_gathers' share by CUDA events.
 
-The second-to-last line is {"kernels": [...]} (twelve entries; relin_tail
+The second-to-last line is {"kernels": [...]} (thirteen entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
@@ -369,7 +385,9 @@ API_PRODUCT_LAUNCHES = {"ntt": 6, "rns_scale": 3, "tensor": 1}
 API_SQUARE_LAUNCHES = {"ntt": 4, "rns_scale": 2, "tensor": 1}
 API_MULTIPLY_LAUNCHES = {"ntt": 7, "rns_scale": 3, "tensor": 1,
                          "rotate_tail": 1}
-PK_ENCRYPT_LAUNCHES = {"ntt": 2}  # Delta m, and the three samples at once
+# the NTTs of Delta m and of the three samples at once; the products
+# Delta m, u pk0 and u pk1
+PK_ENCRYPT_LAUNCHES = {"ntt": 2, "zq_mul": 3}
 # phase 17: one 62-bit modulus at N = 2048 (BASELINE config 1's ring): the
 # single-modulus key switch (log_base 31, two digit rows)
 K1_DEGREE = 2048
@@ -387,11 +405,13 @@ PIR_SEED = SEED + 10
 PIR_DIMS = (8, 8)
 PIR_BATCH = 4
 PIR_RATE_STEPS = 8
-# expansion (ntt 2 + ks_accumulate 1 a level), the first dimension and the
+# expansion (ntt 2 + ks_accumulate 1 a level, and the fold's two Shoup
+# products), the first dimension and the
 # three second-dimension dot products (ct_pt_dot 4), the extend (ntt 2,
 # rns_scale 1), the down-scale (ntt 1, rns_scale 1), the unfused
 # relinearization (ntt 1, ks_accumulate 1)
-PIR_LAUNCHES = {"ntt": 12, "ks_accumulate": 5, "rns_scale": 2, "ct_pt_dot": 4}
+PIR_LAUNCHES = {"ntt": 12, "ks_accumulate": 5, "rns_scale": 2, "ct_pt_dot": 4,
+                "zq_mul": 8}
 # SIMD rows: the inverse NTT over t, then the forward over q
 PIR_DB_LAUNCHES = {"ntt": 2}
 # phase 20: MulPIR at its own configuration (tpufhe/models/pir.py:69-77,
@@ -411,17 +431,34 @@ MULPIR_QUERIES = 2
 MULPIR_REPS = 5
 # each of the 7 leveled doublings: K1 inverse, ks_tail (the key switch of
 # the 2 digit rows over the key's 3 moduli), K1 inverse there, the
-# switch-down (no kernel), K1 forward over the ciphertext's 2
-MULPIR_EXPAND_LAUNCHES = {"ntt": 21, "ks_tail": 7}
+# switch-down (its Shoup product), K1 forward over the ciphertext's 2, the
+# fold (two Shoup products by the monomial)
+MULPIR_EXPAND_LAUNCHES = {"ntt": 21, "ks_tail": 7, "zq_mul": 21}
 # ct_pt_dot 4, the extend (ntt 2, rns_scale 1), the down-scale (ntt 1,
 # rns_scale 1), the relinearization on K4 (N = 8192)
 MULPIR_RESPONSE_LAUNCHES = {"ct_pt_dot": 4, "ntt": 3, "rns_scale": 2,
                             "relin_tail": 1}
 MULPIR_DB_LAUNCHES = {"ntt": 1}
+# mulpir-q16's batch of 16 queries as the benchmark serves it: the
+# expansion (7 doublings: a Shoup product in the switch-down, two in the
+# fold), the response and the switch of its answer to the last level (ntt
+# 2, a Shoup product in the switch-down)
+MULPIR_BATCH = 16
+MULPIR_BATCH_LAUNCHES = {"ntt": 26, "ks_tail": 7, "ct_pt_dot": 4,
+                         "rns_scale": 2, "relin_tail": 1, "zq_mul": 22}
+# phase 3's zq_mul (the glue's 62-bit products) at the shapes of the
+# benchmark's glue-bound cells: MulPIR's switch-down, (2, L, 16, 2, 8192)
+# rows by a (2, 1) column, and fold, (L, 16, 2, 8192) rows by a (2, 8192)
+# monomial, at every L from 1 to 64 (a batch of 16 holds 2^l ciphertexts
+# at doubling l), and innerprod-b64's step product, ct_mul_pt of
+# (64, 4, 8192) parts by a (4, 8192) plaintext: 2 Barrett products
+ZQ_FOLD_MAX = 64
+IP_BATCH = 64
+IP_LAUNCHES = {"zq_mul": 2}
 # the key generation: the forward NTTs of the keys' rows and secrets (ntt
 # 32) and the Switcher's scale-up of s and s^2 into the key context
-# (rns_scale 7)
-MULPIR_KEYGEN_LAUNCHES = {"ntt": 32, "rns_scale": 7}
+# (rns_scale 7), and the keys' products (zq_mul 17)
+MULPIR_KEYGEN_LAUNCHES = {"ntt": 32, "rns_scale": 7, "zq_mul": 17}
 # phase 21: the wire format at BASELINE config 3 (phase 4's parameters),
 # ciphertexts and keys timed through serialization WIRE_REPS times
 WIRE_SEED = SEED + 12
@@ -446,16 +483,19 @@ BIGT_MUL_LAUNCHES = API_PRODUCT_LAUNCHES
 PIR_CLI_ELEMENTS = 4096
 # the PIR server phases of models/pir.py per query, fused: MulPIR's
 # expansion and response (make_pir_response_db, then the switch of the
-# answer to the last level: ntt 2); SealPIR's expansion, its first
+# answer to the last level: ntt 2, and its switch-down's Shoup product);
+# SealPIR's expansion, its first
 # dimension (one ct_pt_dot, the batched switch to the last level), the
 # host fold, and its second dimension (the folds encoded in one K1
 # launch, one ct_pt_dot, the switch)
 MULPIR_APP_LAUNCHES = {
     "expand": MULPIR_EXPAND_LAUNCHES,
-    "response": {"ct_pt_dot": 4, "ntt": 5, "rns_scale": 2, "relin_tail": 1}}
+    "response": {"ct_pt_dot": 4, "ntt": 5, "rns_scale": 2, "relin_tail": 1,
+                 "zq_mul": 1}}
 SEALPIR_APP_LAUNCHES = {"expand": MULPIR_EXPAND_LAUNCHES,
-                        "dot1": {"ct_pt_dot": 1, "ntt": 2}, "fold": {},
-                        "dot2": {"ntt": 3, "ct_pt_dot": 1}}
+                        "dot1": {"ct_pt_dot": 1, "ntt": 2, "zq_mul": 1},
+                        "fold": {},
+                        "dot2": {"ntt": 3, "ct_pt_dot": 1, "zq_mul": 1}}
 # phase 23: multiparty BFV at BASELINE config 3's ring (phase 4's
 # parameters) with bench.py's 11 parties (bench.py:422)
 MBFV_SEED = SEED + 15
@@ -470,7 +510,8 @@ MBFV_BENCH_PLAINTEXT = 1153
 MBFV_BENCH_BATCH = 8
 MBFV_BENCH_INNER = 4
 MBFV_BENCH_STEPS = 16
-MBFV_BENCH_LAUNCHES = {"ntt": 3, "rns_scale": 1}  # the s, e and phase NTTs
+# the s, e and phase NTTs, and the round's two products
+MBFV_BENCH_LAUNCHES = {"ntt": 3, "rns_scale": 1, "zq_mul": 2}
 VOTING_DEGREE = 8192  # one 62-bit modulus, run_voting's default
 VOTING_VOTERS = 1000
 # phase 24: the rest of the narrow (w30) mode at phase 10's ring
@@ -1542,6 +1583,76 @@ def check_ks_tail(ctxs, gen, int32_rate: float) -> dict:
     return out
 
 
+def zq_case(label, a, b, b_shoup, m):
+    """A run_cases item for zq_mul: a b mod p by Barrett's method (b_shoup
+    None) or Shoup's, against the digit chain of its mode. Bytes: every
+    output word and each operand's own words once (a broadcast operand is
+    read again from L2), the moduli's constants."""
+    from tpufhe_torch.ops import zq
+
+    ops = (a, b) if b_shoup is None else (a, b, b_shoup)
+    words = math.prod(torch.broadcast_shapes(*(t.shape for t in ops),
+                                             m.p.shape))
+    if b_shoup is None:
+        mode, per = "Barrett", MULMOD
+        pfn = lambda: zq.mul_plain(a, b, m)  # noqa: E731
+    else:
+        mode, per = "Shoup", SHOUP
+        pfn = lambda: zq.mul_shoup_plain(a, b, b_shoup, m)  # noqa: E731
+    return (f"{mode} {label} {tuple(a.shape)} x {tuple(b.shape)}",
+            lambda: zq.mul_cuda(a, b, b_shoup, m), pfn,
+            8 * (words + sum(t.numel() for t in ops)
+                 + (2 if b_shoup is None else 1) * m.p.numel()),
+            words * per)
+
+
+def check_zq_mul_kernels(par_mulpir, par_ip, gen, int32_rate: float) -> dict:
+    """Phase 3, zq_mul at the benchmark's glue-bound shapes (ZQ_FOLD_MAX):
+    MulPIR's switch-down (its q_last^-1 column over the level-1 moduli of
+    50 and 55 bits) and fold (a random monomial row with its Shoup
+    constants) at every L from 1 to 64, and innerprod-b64's ct_mul_pt;
+    then one inner-product step's ct_mul_pt on a (64, 4, 8192) ciphertext
+    recorded (KernelRecorder) and held to IP_LAUNCHES and, call by call,
+    to its plain version. Returns {label: record}."""
+    from tpufhe_torch.bfv import Ciphertext, Encoding, Plaintext
+    from tpufhe_torch.bfv.ops import ct_mul_pt
+    from tpufhe_torch.ops.rq import _switch_tables, shoup_of
+
+    ctx0, ctx1 = par_mulpir.context_at_level(0), par_mulpir.context_at_level(1)
+    k, n = ctx1.k, ctx1.degree
+    inv, inv_shoup, _ = _switch_tables(ctx0)
+    mono = rand_residues((k, n), ctx1.tables.p, gen)
+    mono_shoup = shoup_of(mono, ctx1.moduli)
+    down = rand_residues((2, ZQ_FOLD_MAX, MULPIR_BATCH, k, n), ctx1.tables.p,
+                         gen)
+    fold = rand_residues((ZQ_FOLD_MAX, MULPIR_BATCH, k, n), ctx1.tables.p, gen)
+    out = {}
+    for size in range(1, ZQ_FOLD_MAX + 1):
+        rows = down[:, :size].contiguous()
+        out[f"switch_down_L{size}"] = run_cases(
+            "zq_mul", [zq_case("switch-down", rows, inv, inv_shoup,
+                               ctx1.mod)], int32_rate, "per call")
+        out[f"fold_L{size}"] = run_cases(
+            "zq_mul", [zq_case("fold", fold[:size], mono, mono_shoup,
+                               ctx1.mod)], int32_rate, "per call")
+        del rows
+    del down, fold
+    ctx = par_ip.context_at_level(0)
+    parts = [rand_residues((IP_BATCH, ctx.k, ctx.degree), ctx.tables.p, gen)
+             for _ in range(2)]
+    weights = Plaintext.try_encode(
+        np.arange(ctx.degree, dtype=np.uint64) % PLAINTEXT, Encoding.simd(),
+        par_ip)
+    out["ct_mul_pt"] = run_cases(
+        "zq_mul", [zq_case("ct_mul_pt", parts[0], weights.poly_ntt, None,
+                           ctx.mod)], int32_rate, "per part")
+    with KernelRecorder("inner-product step") as rec:
+        ct_mul_pt(Ciphertext(par_ip, parts, 0), weights)
+    out["ip_step"] = check_recorded(rec, int32_rate, "per inner-product step",
+                                    IP_LAUNCHES)["zq_mul"]
+    return out
+
+
 def check_wider_kernels(pars, gen, int32_rate: float) -> dict:
     """Phase 3, K2 on the multiplication bases above 16 limbs at N = 8192,
     batch 16 (phase 13's sets): the extend (fixed instances) and the
@@ -1735,7 +1846,8 @@ def rotation_path(par) -> dict:
     expand = make_expand(par, ek, EXPAND_LEVEL)
     (c0, c1), launches = run_program(
         f"expand to {size}, batch {EXPAND_BATCH}", expand, (p0, p1),
-        {"ntt": EXPAND_LEVEL, "rotate_tail": EXPAND_LEVEL})
+        {"ntt": EXPAND_LEVEL, "rotate_tail": EXPAND_LEVEL,
+         "zq_mul": 2 * EXPAND_LEVEL})
     if tuple(c0.shape) != (size, EXPAND_BATCH, par.context_at_level(0).k, n):
         raise SystemExit(f"expansion: unexpected shape {tuple(c0.shape)}")
     want = np.zeros((size, EXPAND_BATCH, n), dtype=np.uint64)
@@ -2417,7 +2529,8 @@ def addpt_path(par, card: str) -> float:
         return tuple(ct_mul_pt(Ciphertext(par, list(add(a0, a1, b0, b1)), 0),
                                pt).c)
 
-    (c0, c1), _ = run_program(f"add + pt_mul of {b} pairs", step, inputs, {})
+    (c0, c1), _ = run_program(f"add + pt_mul of {b} pairs", step, inputs,
+                              {"zq_mul": 2})
     va_o, vb_o = va.astype(object), vb.astype(object)
     check_parts("add + pt_mul", par, sk, Ciphertext(par, [c0, c1], 0),
                 ((va_o + vb_o) * vw % t).astype(np.uint64))
@@ -2528,7 +2641,7 @@ def object_api_path(par, mp: SimpleNamespace, variants: dict):
                         API_PRODUCT_LAUNCHES)
     row = Ciphertext(par, [x[0] for x in c3.c], 0)
     run_program("three-part decryption", mp.sk.try_decrypt, (row,),
-                {"ntt": 1, "rns_scale": 1})
+                {"ntt": 1, "rns_scale": 1, "zq_mul": 3})
     want = (va * vb % t).astype(np.uint64)
     check_parts("ct_mul", par, mp.sk, c3, want)
     sq, _ = run_program("ct_square", ct_square, (ca,), API_SQUARE_LAUNCHES)
@@ -2573,7 +2686,8 @@ def lazy_poly(par, mp: SimpleNamespace) -> None:
     canonical = pb.into_ntt()
     agrees, err, note = lazy_check(ctx.tables, slice(None))(lazy.coeffs,
                                                             canonical.coeffs)
-    prod, _ = run_program("lazy Poly x NttShoup", lazy.__mul__, (shoup,), {})
+    prod, _ = run_program("lazy Poly x NttShoup", lazy.__mul__, (shoup,),
+                          {"zq_mul": 1})
     equal = torch.equal(prod.coeffs, (canonical * shoup).coeffs)
     log(f"  lazy Poly {tuple(lazy.coeffs.shape)}: max_abs_err {err}{note}; "
         f"x NttShoup equal to the canonical product: {equal}")
@@ -2690,7 +2804,8 @@ class KernelRecorder:
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
     (check_recorded): ntt, ntt32, rns_scale, ks_accumulate, ct_pt_dot,
-    relin_tail, tensor, rotate_tail, tensor_intt and ks_tail. The second dimension's input is kept too, to
+    relin_tail, tensor, rotate_tail, tensor_intt, ks_tail and zq_mul. The
+    second dimension's input is kept too, to
     time its two routes. The launch counters are set to 0 on entry and read on
     exit (launches), so a kernel call the recorder missed shows."""
 
@@ -2713,6 +2828,7 @@ class KernelRecorder:
         from tpufhe_torch import kernels, pipeline
         from tpufhe_torch.ops import dot
         from tpufhe_torch.ops import ntt as ntt_mod
+        from tpufhe_torch.ops import zq
         from tpufhe_torch.ops.rns import RnsScaler
 
         targets = [(ntt_mod, "ntt_cuda"), (ntt_mod, "ntt32_cuda"),
@@ -2721,7 +2837,8 @@ class KernelRecorder:
                    (pipeline, "relin_tail_cuda"),
                    (pipeline, "_second_dimension"),
                    (pipeline, "tensor_cuda"), (pipeline, "rotate_tail_cuda"),
-                   (pipeline, "tensor_intt_cuda"), (pipeline, "ks_tail_cuda")]
+                   (pipeline, "tensor_intt_cuda"), (pipeline, "ks_tail_cuda"),
+                   (zq, "mul_cuda")]
         self._saved = [(owner, name, getattr(owner, name))
                        for owner, name in targets]
         orig = {name: fn for _, name, fn in self._saved}
@@ -2790,11 +2907,18 @@ class KernelRecorder:
                     lambda: ks_tail_case(label, ctx, c2, key))
             return orig["ks_tail_cuda"](ctx, c2, key)
 
+        def zq_mul(a, b, b_shoup, m):
+            rec.add("zq_mul", (tuple(a.shape), a.stride(), tuple(b.shape),
+                               b.stride(), b_shoup is None, m.moduli,
+                               m.shape),
+                    lambda: zq_case(label, a, b, b_shoup, m))
+            return orig["mul_cuda"](a, b, b_shoup, m)
+
         for (owner, name, _), fn in zip(self._saved, (ntt, ntt32, scale, ks,
                                                       dot_kernel, relin,
                                                       second, tensor,
                                                       rotate, tensor_intt,
-                                                      ks_tail)):
+                                                      ks_tail, zq_mul)):
             setattr(owner, name, fn)
         kernels.reset_launches()
         return self
@@ -3004,6 +3128,7 @@ def mulpir_kernels(m: SimpleNamespace, int32_rate: float, card: str) -> tuple:
     m.expand and m.respond; the database and the recorded inputs are
     dropped after (phase 20 uploads the database again). Returns
     ({program: {kernel: record}}, the routes' record)."""
+    from tpufhe_torch.bfv import Ciphertext
     from tpufhe_torch.pipeline import make_expand, make_pir_response_db
 
     with KernelRecorder("MulPIR database") as rec_db:
@@ -3014,6 +3139,14 @@ def mulpir_kernels(m: SimpleNamespace, int32_rate: float, card: str) -> tuple:
         e0, e1 = m.expand(*m.queries[0])
     with KernelRecorder("MulPIR response") as rec:
         m.respond(e0, e1, db)
+    del e0, e1
+    batch = [m.query_cts[i % len(m.query_cts)] for i in range(MULPIR_BATCH)]
+    with KernelRecorder(f"MulPIR batch of {MULPIR_BATCH}") as rec_batch:
+        e0, e1 = m.expand(*(torch.stack([ct[i] for ct in batch])
+                            for i in (0, 1)))
+        ans = Ciphertext(m.par, list(m.respond(e0, e1, db)), 1)
+        ans.switch_to_level(ans.max_switchable_level())
+    del e0, e1, ans
     records = {
         "mulpir_keygen": check_recorded(m.rec_keygen, int32_rate,
                                         "per MulPIR key generation",
@@ -3026,8 +3159,12 @@ def mulpir_kernels(m: SimpleNamespace, int32_rate: float, card: str) -> tuple:
                                            MULPIR_EXPAND_LAUNCHES),
         "mulpir_response": check_recorded(rec, int32_rate,
                                           "per MulPIR response",
-                                          MULPIR_RESPONSE_LAUNCHES)}
-    del m.rec_keygen
+                                          MULPIR_RESPONSE_LAUNCHES),
+        "mulpir_batch": check_recorded(rec_batch, int32_rate,
+                                       f"per MulPIR batch of {MULPIR_BATCH}",
+                                       MULPIR_BATCH_LAUNCHES)}
+    m.batch_launches = rec_batch.launches
+    del m.rec_keygen, rec_batch
     return records, second_dimension_routes("MulPIR", rec.second, int32_rate,
                                             card)
 
@@ -3883,17 +4020,19 @@ def mbfv_path(par, card: str) -> dict:
         return aggregate([g.round_2(agg1, r) for g in gens])
 
     pk, _ = run_counted(f"public key: PublicKeyShare x {parties} + aggregate",
-                        object_pk, (stream(1),), {"ntt": 2 * parties})
+                        object_pk, (stream(1),),
+                        {"ntt": 2 * parties, "zq_mul": parties})
     pk_b, _ = run_counted("public key: batched_public_key", batched_public_key,
-                          (sks, crp, stream(1)), {"ntt": 2})
+                          (sks, crp, stream(1)), {"ntt": 2, "zq_mul": 1})
     same_tensors("collective public key, object API and batched", pk.c.c,
                  pk_b.c.c)
     rk, _ = run_counted(f"relinearization key: RelinKeyGenerator x {parties}, "
                         "two rounds", object_rk, (stream(2),),
-                        {"ntt": parties * (3 + 4 * k)})
+                        {"ntt": parties * (3 + 4 * k),
+                         "zq_mul": parties * 5 * k})
     rk_b, _ = run_counted("relinearization key: batched_relin_keygen",
                           batched_relin_keygen, (sks, crp_vec, stream(2)),
-                          {"ntt": 4})
+                          {"ntt": 4, "zq_mul": 5 * k})
     tables = ("c0", "c0_shoup", "c1", "c1_shoup")
     same_tensors("collective relinearization key, object API and batched",
                  [getattr(rk.ksk, a) for a in tables],
@@ -3912,7 +4051,7 @@ def mbfv_path(par, card: str) -> dict:
     r3 = stream(3)
     cts, _ = run_counted(f"{len(pts)} encryptions under the collective key",
                          lambda: [pk.try_encrypt(x, r3) for x in pts], (),
-                         {"ntt": 2 * len(pts)})
+                         {"ntt": 2 * len(pts), "zq_mul": 3 * len(pts)})
     a0, a1, b0, b1 = (torch.stack([c[i] for c in cs])
                       for cs in (cts[:batch], cts[batch:]) for i in (0, 1))
     (c0, c1), _ = run_counted(
@@ -3931,11 +4070,13 @@ def mbfv_path(par, card: str) -> dict:
         "aggregate",
         lambda r: [aggregate([DecryptionShare.new(sk, ct, r) for sk in sks])
                    for ct in rows], (stream(4),),
-        {"ntt": batch * (3 * parties + 1), "rns_scale": batch})
+        {"ntt": batch * (3 * parties + 1), "rns_scale": batch,
+         "zq_mul": batch * parties})
     bat, _ = run_counted(
         f"collective decryption of {batch}: batched_decryption",
         lambda r: [batched_decryption(sks, ct, r) for ct in rows],
-        (stream(4),), {"ntt": 3 * batch, "rns_scale": batch})
+        (stream(4),), {"ntt": 3 * batch, "rns_scale": batch,
+                       "zq_mul": batch})
     want = (va.astype(object) * vb % t).astype(np.uint64)
     bad = 0
     for x, y, w in zip(obj, bat, want):
@@ -3955,14 +4096,15 @@ def mbfv_path(par, card: str) -> dict:
         f"SecretKeySwitchShare x {parties} + aggregate",
         lambda: aggregate([SecretKeySwitchShare.new(si, so, rows[0], r5)
                            for si, so in zip(sks, outs)]), (),
-        {"ntt": 3 * parties})
+        {"ntt": 3 * parties, "zq_mul": parties})
     sk_o = SecretKey.random(par, r5)
     pk_o = PublicKey.new(sk_o, r5)
     ct1 = pk.try_encrypt(Plaintext.try_encode(va[1], Encoding.simd(1), par), r5)
     ct_pks, _ = run_counted(
         f"PublicKeySwitchShare x {parties} + aggregate at level 1",
         lambda: aggregate([PublicKeySwitchShare.new(sk, pk_o, ct1, r5)
-                           for sk in sks]), (), {"ntt": 6 * parties})
+                           for sk in sks]), (),
+        {"ntt": 6 * parties, "zq_mul": 4 * parties})
     for name, key, ct, w in (("secret key switch", summed(outs), ct_sks,
                               want[0]),
                              ("public key switch", sk_o, ct_pks, va[1])):
@@ -4573,6 +4715,7 @@ def main() -> int:
                                      "main": par.context_at_level(0),
                                      "n16k": par_16k.context_at_level(0)},
                                     gen, int32_rate)
+    zq_records = check_zq_mul_kernels(par_mulpir, par_rot, gen, int32_rate)
     pir = pir_setup(par_16k)
     pir_records, pir_routes = pir_kernels(pir, int32_rate, card)
     mulpir = mulpir_setup(par_mulpir)
@@ -4726,6 +4869,8 @@ def main() -> int:
     # where no program takes it, the phase-3 case at that shape
     records["ks_tail"] = mulpir_records["mulpir_expansion"].get(
         "ks_tail", ks_tail_records["ks_tail_mulpir"])
+    # zq_mul: its calls in phase 3's recorded MulPIR batch of 16
+    records["zq_mul"] = mulpir_records["mulpir_batch"]["zq_mul"]
 
     # the program whose run gives each kernel's launches
     runs = {"rotate_tail": ("rotation", rot_launches),
@@ -4739,7 +4884,9 @@ def main() -> int:
                          f"mul+relin ({par_run['world']} ranks, "
                          f"{par_run['backend']})", par_run["launches"]),
             "ks_tail": ("MulPIR expansion (phase 20)",
-                        path_launches["mulpir_expansion"])}
+                        path_launches["mulpir_expansion"]),
+            "zq_mul": (f"MulPIR batch of {MULPIR_BATCH} (phase 3)",
+                       mulpir.batch_launches)}
     other_shapes = {
         "ntt": {label: side[label] for label in side
                 if label.startswith("ntt_")}
@@ -4763,6 +4910,7 @@ def main() -> int:
            ("ks_accumulate_int32", "ks_accumulate_int32_rotation")},
         "ks_tail": {label: rec for label, rec in ks_tail_records.items()
                     if label.startswith("ks_tail_")},
+        "zq_mul": zq_records,
         "tensor_intt": {f"strategy2_kp{kp}":
                         variant_records[f"tensor_intt_s2_kp{kp}"]
                         for kp in (1, 2)},

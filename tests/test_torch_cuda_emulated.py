@@ -19,7 +19,11 @@ thread's copies out only when it waits for them), and ks_accumulate's
 Garner, digit and leveled rows (fewer digit rows than key limbs), and
 ntt_dist's cross-shard step (ntt_dist.cu, <<<>>> rewritten likewise) with
 K1 on the shard tables, the D ranks' blocks side by side equal to the
-whole row's transform. The
+whole row's transform, and zq_mul (zq_mul.cu) in both modes over 50-,
+55- and 62-bit moduli at every broadcast pattern the glue passes it, its
+edge words, rows of odd length and rows off a 16-byte boundary, equal to
+the digit chains and to exact integer products, and inside MulPIR's
+expansion, switch-down and a product by a plaintext. The
 card remains the judge of speed and of races; this holds the kernels'
 arithmetic, indexing, barriers and cluster exchanges on every CPU run."""
 
@@ -50,7 +54,7 @@ from tpufhe_torch.parallel import ntt_dist as nd
 
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
-           "intt_scale", "ct_pt_dot", "ks_accumulate", "ntt_dist")
+           "intt_scale", "ct_pt_dot", "ks_accumulate", "ntt_dist", "zq_mul")
 # the sources that launch with <<<>>>, rewritten for g++ before the build
 CHEVRON = ("ks_accumulate", "ntt_dist")
 
@@ -94,9 +98,10 @@ def on_host(emulated, monkeypatch):
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return fn
 
-    def require(name, dtype, *tensors):
+    def require(name, dtype, *tensors, contiguous=True):
         for t in tensors:
-            assert t.dtype == dtype and t.is_contiguous(), name
+            assert t.dtype == dtype, name
+            assert t.is_contiguous() or not contiguous, name
 
     monkeypatch.setattr(kernels, "function", function)
     monkeypatch.setattr(kernels, "require_cuda", require)
@@ -465,3 +470,166 @@ def test_ntt_dist_kernel_matches_plain(on_host, n, shards, k, sl, rows,
     assert torch.equal(torch.cat(out, -1), want)
     assert on_host["ntt_dist"] == shards
     assert on_host["ntt"] == shards
+
+
+# zq_mul: (name, shape of a, shape of b, moduli shape) at k = 2 limbs of
+# n = 64 words (n = 13 in the ragged cases, rows of odd length that the
+# kernel takes one word a thread): the switch-down's rows by a (k, 1)
+# column, the fold's rows by a (k, n) monomial, ct_mul_pt's parts by a
+# (k, n) plaintext, two full operands, the NTT's plain stages' (k, 1, 1)
+# moduli, and an operand expanded along an outer dimension (stride 0)
+ZQ_N = 64
+ZQ_SHAPES = {
+    "column": ((2, 3, 4, 2, ZQ_N), (2, 1), (2, 1)),
+    "row": ((5, 4, 2, ZQ_N), (2, ZQ_N), (2, 1)),
+    "plaintext": ((6, 2, ZQ_N), (2, ZQ_N), (2, 1)),
+    "full": ((3, 2, ZQ_N), (3, 2, ZQ_N), (2, 1)),
+    "staged": ((3, 2, 4, ZQ_N // 4), (2, 4, 1), (2, 1, 1)),
+    "outer_stride_0": ((1, 2, ZQ_N), (7, 2, ZQ_N), (2, 1)),
+    "ragged_row": ((3, 2, 13), (2, 13), (2, 1)),
+    "ragged_full": ((5, 2, 13), (5, 2, 13), (2, 1)),
+}
+
+
+
+def _zq_operands(case, bits, seed):
+    """(a, b, b_shoup, table) of a case over two moduli of `bits` bits:
+    canonical words, each row starting with 0 and ending with p - 1."""
+    a_shape, b_shape, m_shape = ZQ_SHAPES[case]
+    moduli = T.BfvParametersBuilder.generate_moduli([bits] * 2, 64)
+    m = zq.ModTable(moduli, "cpu", m_shape)
+    rng = np.random.default_rng(seed)
+
+    def words(shape):
+        p = m.p.expand(torch.broadcast_shapes(shape, m_shape)).numpy()
+        x = rng.integers(0, 1 << 62, shape, dtype=np.int64) % p
+        x[..., 0] = 0
+        x[..., -1] = p[..., -1] - 1
+        return torch.from_numpy(x)
+
+    a, b = words(a_shape), words(b_shape)
+    if case == "outer_stride_0":
+        a = b[:1].expand(b.shape)
+        assert a.stride()[0] == 0
+        b = words((2, ZQ_N))
+    p = m.p.expand(b.shape).reshape(-1).tolist()
+    bs = [(v << 64) // q for v, q in zip(b.reshape(-1).tolist(), p)]
+    bs = torch.from_numpy(np.array(bs, np.uint64).view(np.int64)
+                          .reshape(b.shape))
+    return a, b, bs, m
+
+
+def _exact(a, b, m):
+    """a b mod p word by word in Python integers (a read as unsigned)."""
+    shape = torch.broadcast_shapes(a.shape, b.shape, m.p.shape)
+    x, y, p = (t.expand(shape).reshape(-1).tolist() for t in (a, b, m.p))
+    return [(u % (1 << 64)) * v % q for u, v, q in zip(x, y, p)]
+
+
+@pytest.mark.parametrize("case", sorted(ZQ_SHAPES))
+@pytest.mark.parametrize("bits", [50, 55, 62])
+@pytest.mark.parametrize("mode", ["barrett", "shoup"])
+def test_zq_mul_kernel_matches_the_digit_chains(on_host, mode, bits, case):
+    """Both modes word for word against zq.mul_plain / mul_shoup_plain and
+    exact products; Shoup's also with a at its edge words 2^63 - 1 and
+    2^62 + p (any a below 2^63)."""
+    a, b, bs, m = _zq_operands(case, bits, bits + len(case))
+    if mode == "barrett":
+        got = zq.mul_cuda(a, b, None, m)
+        want = zq.mul_plain(a, b, m)
+    else:
+        if a.stride()[0]:
+            a = a.clone()
+            a[..., 1] = (1 << 63) - 1
+            a[..., 2] = (1 << 62) + m.p.expand(a.shape)[..., 2]
+        got = zq.mul_cuda(a, b, bs, m)
+        want = zq.mul_shoup_plain(a, b, bs, m)
+    assert got.is_contiguous() and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert got.reshape(-1).tolist() == _exact(a, b, m)
+    assert on_host["zq_mul"] == 1
+
+
+def _zq_plan(emulated, a, b, bs, m) -> tuple:
+    """(merged dimensions, words a thread) of zq_mul's launch plan."""
+    fn = emulated["zq_mul"].tpufhe_zq_mul_plan
+    fn.argtypes = zq._ZQ_MUL_ARGS[:-1] + [ctypes.c_void_p]
+    plan = (ctypes.c_longlong * 2)()
+    _, args = zq.zq_mul_args(a, b, bs, m)
+    assert fn(*args, plan) == 0
+    return tuple(plan)
+
+
+def test_zq_mul_kernel_takes_rows_off_a_16_byte_boundary(on_host, emulated):
+    """Rows of even length whose first word is 8 bytes past a 16-byte
+    boundary (one word a thread; the aligned rows take two, in 16-byte
+    accesses), and a view of a transposed tensor."""
+    a, b, bs, m = _zq_operands("row", 62, 7)
+    shifted = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+    assert shifted.data_ptr() % 16
+    assert _zq_plan(emulated, a, b, bs, m) == (3, 2)
+    assert _zq_plan(emulated, shifted, b, bs, m) == (3, 1)
+    assert torch.equal(zq.mul_cuda(shifted, b, bs, m),
+                       zq.mul_shoup_plain(a, b, bs, m))
+    t = a.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not t.is_contiguous()
+    assert torch.equal(zq.mul_cuda(t, b, None, m), zq.mul_plain(a, b, m))
+    assert on_host["zq_mul"] == 2
+
+
+@pytest.mark.parametrize("case,plan", [
+    ("column", (3, 2)), ("row", (3, 2)), ("plaintext", (3, 2)),
+    ("full", (3, 2)), ("staged", (4, 2)), ("outer_stride_0", (3, 2)),
+    ("ragged_row", (3, 1)), ("ragged_full", (3, 1))])
+def test_zq_mul_kernel_merges_the_broadcast_walk(emulated, case, plan):
+    """The merged dimensions and words a thread of each case: the moduli's
+    (k, 1) column keeps the limb dimension apart from the rows and the
+    words (three dimensions; the switch-down's five and the fold's four
+    merge to three), the NTT stages' (k, 1, 1) one more, and rows of odd
+    length take one word a thread."""
+    a, b, bs, m = _zq_operands(case, 62, 3)
+    assert _zq_plan(emulated, a, b, bs, m) == plan
+
+
+def test_zq_mul_kernel_refuses_more_dimensions_than_it_walks(on_host):
+    """Broadcast patterns that leave seven dimensions after the merge
+    raise; six run."""
+    m = zq.ModTable(T.BfvParametersBuilder.generate_moduli([62], 64), "cpu",
+                    (1, 1))
+    a = torch.arange(3, 19, dtype=torch.int64).reshape(2, 1, 2, 1, 2, 1, 2)
+    b = torch.arange(5, 13, dtype=torch.int64).reshape(1, 2, 1, 2, 1, 2, 1)
+    with pytest.raises(RuntimeError):
+        zq.mul_cuda(a, b, None, m)
+    a, b = a[..., 0], b[..., 0]
+    got = zq.mul_cuda(a, b, None, m)
+    assert got.shape == (2, 2, 2, 2, 2, 2)
+    assert torch.equal(got, zq.mul_plain(a, b, m))
+
+
+def test_zq_mul_kernel_serves_the_glue_bound_cells(on_host, monkeypatch):
+    """test_torch_obs's MulPIR batch (two queries: the expansion, then
+    the switch to the last level without the response, whose plain
+    versions would take the patched products too) and inner-product step
+    with the glue's products (a context's mul and mul_shoup; the plain
+    transforms keep their digit chains) on the emulated kernel: the same
+    words as on the digit chains, and a launch for each of the 22 and 2
+    products, plus the 4 Shoup products a doubling of ks_tail's plain
+    version (2 digit rows, both key parts), which takes a context's
+    mul_shoup too."""
+    from test_torch_obs import one_torch_thread, served_programs
+
+    programs = served_programs(batch=2, respond=False)
+    with one_torch_thread():
+        want = {name: [t.clone() for t in fn()]
+                for name, fn in programs.items()}
+    monkeypatch.setattr(Context, "mul",
+                        lambda ctx, a, b: zq.mul_cuda(a, b, None, ctx.mod))
+    monkeypatch.setattr(Context, "mul_shoup",
+                        lambda ctx, a, b, bs: zq.mul_cuda(a, b, bs, ctx.mod))
+    for name, launches in (("mulpir_batch", 22 + 4 * 7), ("ct_mul_pt", 2)):
+        on_host["zq_mul"] = 0
+        with one_torch_thread():
+            got = programs[name]()
+        assert len(got) == len(want[name])
+        assert all(torch.equal(x, y) for x, y in zip(got, want[name]))
+        assert on_host["zq_mul"] == launches

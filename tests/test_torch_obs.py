@@ -5,6 +5,7 @@ stages, the glue counters read what the code issues, recording follows a
 torch.profiler session, the Chrome export holds one event a span, and the
 kernels' launch counter keeps its behaviour."""
 
+import contextlib
 import json
 import logging
 
@@ -21,8 +22,16 @@ from tpufhe_torch.bfv import (
     RelinearizationKey,
     SecretKey,
 )
+from tpufhe_torch.bfv import Ciphertext
+from tpufhe_torch.bfv.ops import ct_mul_pt
 from tpufhe_torch.ops.rq import ntt_forward
-from tpufhe_torch.pipeline import make_expand, make_inner_sum, make_mul_relin
+from tpufhe_torch.pipeline import (
+    encode_pir_database,
+    make_expand,
+    make_inner_sum,
+    make_mul_relin,
+    make_pir_response_db,
+)
 from tpufhe_torch.utils import obs
 from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
 
@@ -260,3 +269,111 @@ def test_decorator_and_timeit_use_the_one_tracer(caplog):
     with obs.timeit("quiet", report):
         pass
     assert "quiet" in report and len(rec.spans) == 2
+
+
+# the products (glue.zq.mul and glue.zq.mul_shoup, one zq_mul launch each
+# on the card) of what the benchmark's glue-bound cells serve, at degree
+# 128: a MulPIR batch of 16 (mulpir-q16: moduli of 50, 55 and 55 bits,
+# queries at level 1, expansion keys at level 0, seven doublings of 12 glue
+# calls, 3 of them Shoup products, then the response and its switch to
+# the last level, one switch-down of 3 calls) and the inner-product step's
+# product by the plaintext weights (innerprod-b64: a two-part ciphertext
+# over 4 x 62 bits)
+MULPIR_LEVELS = 7
+MULPIR_GLUE = {"glue.rq.substitute": 2 * MULPIR_LEVELS,
+               "glue.zq.add": 4 * MULPIR_LEVELS + 1,
+               "glue.zq.sub": 3 * MULPIR_LEVELS + 1,
+               "glue.zq.mul_shoup": 3 * MULPIR_LEVELS + 1,
+               "rq.switch_down": MULPIR_LEVELS + 1}
+
+
+def served_programs(batch: int = 16, respond: bool = True) -> dict:
+    """{name: a call of no arguments returning the outputs' tensors}: the
+    MulPIR batch and the inner-product step's ct_mul_pt above; without
+    `respond`, the batch's expansion is switched to the last level as it
+    comes (its first ciphertext), with no response in between."""
+    from tpufhe_torch.bfv import RelinearizationKey
+
+    rng = ChaCha8Rng(seed_from_u64(20))
+    par = bfv_params(128, 1785857, [50, 55, 55])
+    sk = SecretKey.random(par, rng)
+    ek = (EvaluationKeyBuilder(sk, ciphertext_level=1,
+                               evaluation_key_level=0)
+          .enable_expansion(MULPIR_LEVELS).build(rng))
+    rk = RelinearizationKey.new(sk, rng, ciphertext_level=1, key_level=1)
+    cts = [sk.try_encrypt(Plaintext.try_encode([i + 1, 0, 2], Encoding.poly(1),
+                                               par), rng)
+           for i in range(batch)]
+    c0 = torch.stack([ct[0] for ct in cts])
+    c1 = torch.stack([ct[1] for ct in cts])
+    dims = (3, 2)
+    values = torch.arange(6 * 128, dtype=torch.int64).reshape(6, 128) % 997
+    db = encode_pir_database(par, values, Encoding.poly(1)).reshape(
+        *dims, 2, 128)
+    expand = make_expand(par, ek, MULPIR_LEVELS, level=1)
+    response = make_pir_response_db(par, rk, *dims, level=1)
+
+    def mulpir_batch():
+        e0, e1 = expand(c0, c1)
+        parts = (list(response(e0, e1, db)) if respond
+                 else [e0[0], e1[0]])
+        res = Ciphertext(par, parts, 1)
+        res.switch_to_level(res.max_switchable_level())
+        return res.c
+
+    ring = bfv_params(128, 65537, [62] * 4)
+    sk4 = SecretKey.random(ring, rng)
+    ct = sk4.try_encrypt(Plaintext.try_encode(list(range(128)),
+                                              Encoding.simd(), ring), rng)
+    weights = Plaintext.try_encode(list(range(1, 129)), Encoding.simd(), ring)
+    return {"mulpir_batch": mulpir_batch,
+            "ct_mul_pt": lambda: ct_mul_pt(ct, weights).c}
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one host thread for the block: the served programs' large
+    elementwise chains slow down tens of times when every test worker
+    runs them on all the cores at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def served():
+    return served_programs()
+
+
+def test_served_programs_issue_the_cells_products(served):
+    """87 glue calls a MulPIR batch of 16, 22 of them Shoup products (the
+    cell's 5.4375 a query); 2 Barrett products an inner-product step."""
+    with one_torch_thread(), obs.recording() as rec:
+        served["mulpir_batch"]()
+    assert rec.counters == MULPIR_GLUE
+    assert sum(n for k, n in rec.counters.items()
+               if k.startswith("glue.")) == 87
+    with obs.recording() as rec:
+        served["ct_mul_pt"]()
+    assert rec.counters == {"glue.zq.mul": 2}
+
+
+def test_the_kernel_wrapper_raises_off_the_card():
+    """zq.mul_cuda takes CUDA tensors only; zq.mul and zq.mul_shoup on CPU
+    tensors run the digit chains and launch nothing."""
+    from tpufhe_torch.ops import zq
+
+    ctx = bfv_params(DEGREE, 65537, [62, 62]).context_at_level(0)
+    x = torch.arange(2 * DEGREE, dtype=torch.int64).reshape(2, DEGREE)
+    with pytest.raises(ValueError):
+        zq.mul_cuda(x, x, None, ctx.mod)
+    b = x[:, :1] + 1
+    bs = torch.from_numpy(zq.as_int64(zq.shoup_array(b.numpy(), ctx.moduli)))
+    kernels.reset_launches()
+    assert torch.equal(zq.mul(x, x, ctx.mod), zq.mul_plain(x, x, ctx.mod))
+    assert torch.equal(zq.mul_shoup(x, b, bs, ctx.mod),
+                       zq.mul_shoup_plain(x, b, bs, ctx.mod))
+    assert kernels.LAUNCHES["zq_mul"] == 0

@@ -69,6 +69,10 @@ KERNELS = {
     "ks_tail": ("relin_tail.cu",
                 "tpufhe/ops/pallas/mxu_ntt_kernel.py:464 _relin_tail_kernel"
                 " (mode ks_only)"),
+    # no Pallas counterpart: the glue's 62-bit products (ops/zq.py mul and
+    # mul_shoup on the card) are XLA code in tpufhe
+    "zq_mul": ("zq_mul.cu",
+               "tpufhe/ops/zq.py mul_mod and mul_shoup (XLA)"),
 }
 HEADERS = ("modarith.cuh", "ntt_pass_device.cuh", "keyswitch_device.cuh",
            "rns_scale_device.cuh")
@@ -386,13 +390,14 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def require_cuda(name: str, dtype, *tensors) -> None:
+def require_cuda(name: str, dtype, *tensors, contiguous: bool = True) -> None:
     """The checks every launching wrapper makes on its tensor arguments:
-    on the card, of the word type `dtype`, contiguous."""
+    on the card, of the word type `dtype`, contiguous (unless the kernel
+    takes strided views)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
         if t.dtype != dtype:
             raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensor is not contiguous")

@@ -6,27 +6,35 @@ Two halves:
   counterpart of tpufhe/ops/zq.py's Modulus (fhe-math/src/zq/mod.rs:32-98):
   the 128-bit Barrett constant, Shoup precomputation, inverses and the
   reference-compatible uniform sampler.
-- Plain elementwise ops on ``torch.int64`` tensors holding one residue per
+- Elementwise ops on ``torch.int64`` tensors holding one residue per
   word: ``add``, ``sub``, ``neg``, ``mul`` and ``mul_shoup`` mod p. They are
   the glue around the CUDA kernels (encryption's e - a*s + m, the decryption
-  phase, the key-switch digits) and the arithmetic of every kernel's plain
-  version.
+  phase, the key-switch digits, the expansion's switch-down and fold) and
+  the arithmetic of every kernel's plain version.
 
-torch has no 128-bit product and almost no uint64 arithmetic, so a product of
-two 62-bit residues is formed from 31-bit digits whose partial products stay
-below 2^62 (``_mul_digits``), and reduced by Barrett's method with
-mu = floor(2^124 / p). Nothing relies on int64 wraparound: every
-intermediate is a non-negative value below 2^63, except the signed columns of
-``normalize``, whose floor shifts are exact.
+On CUDA tensors ``mul`` and ``mul_shoup`` launch the kernel zq_mul
+(csrc/zq_mul.cu: one pass, 64 x 64 -> 128-bit products) and raise where it
+cannot take the operands. On CPU tensors they run the kernel's plain
+versions, ``mul_plain`` and ``mul_shoup_plain``: torch has no 128-bit
+product and almost no uint64 arithmetic, so a product of two 62-bit
+residues is formed from 31-bit digits whose partial products stay below
+2^62 (``mul_columns``), and reduced by Barrett's method with
+mu = floor(2^124 / p) or by Shoup's. Nothing relies on int64 wraparound:
+every intermediate is a non-negative value below 2^63, except the signed
+columns of ``normalize``, whose floor shifts are exact. Both routes return
+the canonical residue, so their words are equal.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from tpufhe_torch import kernels
 from tpufhe_torch.errors import InvalidModulus
 from tpufhe_torch.utils.obs import count
 from tpufhe_torch.utils.primes import is_prime, supports_opt
@@ -240,17 +248,26 @@ class ModTable:
         self.moduli = tuple(int(m) for m in moduli)
         self.device = torch.device(device)
         self.shape = (len(self.moduli), 1) if shape is None else tuple(shape)
-
-        def col(vals):
-            return torch.tensor(vals, dtype=torch.int64,
-                                device=self.device).reshape(self.shape)
-
+        col = self._col
         self.p = col(list(self.moduli))
         self.p_digits = [col([d[i] for d in
                               (int_digits(m, 2) for m in self.moduli)])
                          for i in range(2)]
         mus = [int_digits((1 << 124) // m, 4) for m in self.moduli]
         self.mu_digits = [col([d[i] for d in mus]) for i in range(4)]
+
+    def _col(self, vals):
+        return torch.tensor(vals, dtype=torch.int64,
+                            device=self.device).reshape(self.shape)
+
+    @functools.cached_property
+    def barrett(self) -> tuple:
+        """(lo, hi) of floor(2^128 / p), int64 by bit pattern and shaped as
+        ``p``: zq_mul's Barrett constants (made on first use)."""
+        b = [(1 << 128) // m for m in self.moduli]
+        return tuple(self._col(as_int64(np.array(
+            [(v >> s) & _M64 for v in b], np.uint64)).tolist())
+            for s in (0, 64))
 
     def view(self, shape) -> "ModTable":
         """The same constants reshaped (e.g. (k, 1, 1) for staged NTT views)."""
@@ -296,9 +313,22 @@ def _barrett_digits(prod: list, m: ModTable):
     return torch.where(r >= m.p, r - m.p, r)
 
 
+def _on_card(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_cuda
+
+
 def mul(a, b, m: ModTable):
-    """(a * b) mod p for canonical a, b < p < 2^62."""
+    """(a * b) mod p for canonical a, b < p < 2^62: zq_mul on CUDA tensors,
+    else the digit chain."""
     count("glue.zq.mul")
+    if _on_card(a) or _on_card(b):
+        return mul_cuda(a, b, None, m)
+    return mul_plain(a, b, m)
+
+
+def mul_plain(a, b, m: ModTable):
+    """zq_mul's plain version in Barrett's mode: the product formed from
+    31-bit digits and reduced with mu = floor(2^124 / p)."""
     prod = normalize(mul_columns(to_digits(a, 2), to_digits(b, 2)), 4)
     return _barrett_digits(prod, m)
 
@@ -315,14 +345,20 @@ def reduce_u64(x, m: ModTable):
 
 
 def mul_shoup(a, b, b_shoup, m: ModTable):
-    """a * b mod p by Shoup's method (zq/mod.rs:224-234), fully reduced.
-
-    b < p and b_shoup = floor(b 2^64 / p) stored by bit pattern in int64;
-    a is any value below 2^63. q = floor(a b_shoup / 2^64) is formed
-    exactly from digits, then r = a b - q p (in [0, 2p)) from the low
-    three digits.
-    """
+    """a * b mod p by Shoup's method (zq/mod.rs:224-234), fully reduced:
+    zq_mul on CUDA tensors, else the digit chain. b < p and
+    b_shoup = floor(b 2^64 / p) stored by bit pattern in int64; a is any
+    value below 2^63."""
     count("glue.zq.mul_shoup")
+    if _on_card(a) or _on_card(b):
+        return mul_cuda(a, b, b_shoup, m)
+    return mul_shoup_plain(a, b, b_shoup, m)
+
+
+def mul_shoup_plain(a, b, b_shoup, m: ModTable):
+    """zq_mul's plain version in Shoup's mode: q = floor(a b_shoup / 2^64)
+    formed exactly from digits, then r = a b - q p (in [0, 2p)) from the
+    low three digits."""
     ad = to_digits(a, 3)
     q = bits_of(normalize(mul_columns(ad, to_digits(b_shoup, 3)), 6), 64, 63)
     ab = normalize(mul_columns(ad, to_digits(b, 2)), 3)
@@ -330,6 +366,86 @@ def mul_shoup(a, b, b_shoup, m: ModTable):
     r = normalize([ab[i] - qp[i] for i in range(3)], 3)
     r = r[0] + (r[1] << DIGIT_BITS) + (r[2] << (2 * DIGIT_BITS))
     return torch.where(r >= m.p, r - m.p, r)
+
+
+# zq_mul's C entry point (csrc/zq_mul.cu tpufhe_zq_mul), its argument types
+# set once for each loader (kernels.function, or one put in its place)
+_ZQ_MUL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p] + [ctypes.c_void_p] * 8
+_LAUNCHERS: dict = {}
+
+
+def _launcher():
+    fn = _LAUNCHERS.get(kernels.function)
+    if fn is None:
+        fn = _LAUNCHERS[kernels.function] = kernels.function(
+            "zq_mul", "tpufhe_zq_mul", _ZQ_MUL_ARGS)
+    return fn
+
+
+def _broadcast(shapes) -> tuple:
+    """torch's broadcast of the shapes (torch.broadcast_shapes costs tens
+    of microseconds a call, a launch's whole host time)."""
+    n = max(len(s) for s in shapes)
+    out = [1] * n
+    for s in shapes:
+        for i, d in enumerate(s, n - len(s)):
+            if d != 1 and out[i] != d:
+                if out[i] != 1:
+                    raise ValueError(f"zq_mul: shapes {shapes} do not "
+                                     f"broadcast")
+                out[i] = d
+    return tuple(out)
+
+
+def _strides(t, dims: int) -> list:
+    """t's element strides as a view of a `dims`-dimensional broadcast
+    shape: 0 along each dimension t has not or holds once."""
+    return [0] * (dims - t.dim()) + [0 if d == 1 else s for d, s in
+                                     zip(t.shape, t.stride())]
+
+
+def zq_mul_args(a, b, b_shoup, m: ModTable) -> tuple:
+    """(out, args): a new contiguous int64 tensor of the operands'
+    broadcast shape, and the arguments that tpufhe_zq_mul and
+    tpufhe_zq_mul_plan take before their last (the stream, or the plan):
+    the mode, the shape, the strides of a, b, b_shoup and the moduli as
+    views of that shape (0 where broadcast), and the pointers."""
+    ops = (a, b) if b_shoup is None else (a, b, b_shoup)
+    shape = _broadcast([t.shape for t in ops] + [m.p.shape])
+    out = torch.empty(shape, dtype=torch.int64, device=m.p.device)
+    dims = len(shape)
+    # p, lo and hi are made alike (ModTable._col), so they share p's strides
+    strides = [s for t in (a, b, b_shoup, m.p)
+               for s in ([0] * dims if t is None else _strides(t, dims))]
+    if b_shoup is None:
+        lo, hi = m.barrett
+        consts = (None, m.p.data_ptr(), lo.data_ptr(), hi.data_ptr())
+    else:
+        consts = (b_shoup.data_ptr(), m.p.data_ptr(), None, None)
+    return out, (int(b_shoup is not None), dims,
+                 (ctypes.c_longlong * max(dims, 1))(*shape),
+                 (ctypes.c_longlong * max(4 * dims, 1))(*strides),
+                 a.data_ptr(), b.data_ptr(), *consts, out.data_ptr())
+
+
+def mul_cuda(a, b, b_shoup, m: ModTable):
+    """Launch zq_mul on int64 CUDA tensors: a b mod p by Shoup's method
+    where b_shoup is given, else by Barrett's. a, b, b_shoup and m's
+    constants broadcast against each other as torch broadcasts them; each
+    is passed as a strided view of the result's shape (stride 0 where it
+    is broadcast). Returns a new contiguous tensor of that shape."""
+    ops = (a, b) if b_shoup is None else (a, b, b_shoup)
+    kernels.require_cuda("zq_mul", torch.int64, *ops, m.p, contiguous=False)
+    out, args = zq_mul_args(a, b, b_shoup, m)
+    words = out.numel()
+    if words == 0:
+        return out
+    if words >= 1 << 31:
+        raise ValueError(f"zq_mul: {words} words, at most 2^31 - 1 a launch")
+    kernels.count("zq_mul")
+    kernels.check(_launcher()(*args, kernels.stream()), "zq_mul")
+    return out
 
 
 def mod_of_digits(digits: list, m: ModTable):
