@@ -90,7 +90,11 @@ def tail_fits(n: int, word_bytes: int = 8) -> bool:
     of K3, K4 and K5), as tpufhe does where its tail kernel does not fit.
     No kernel needs three rows a block any more: K3, K4 and K5 hold one row
     a CTA; the route stays until the fused kernels are timed against the
-    unfused ones at N = 16384."""
+    unfused ones at N = 16384. The benchmark's cell mulrelin-n16384-b16
+    (fhebench/, BASELINE config 5's ring) measures the unfused route: its
+    metrics tensor_ms.n16k and relin_ms.n16k read the two stages the rule
+    chooses between (make_mul_relin's spans mul_relin.tensor and
+    mul_relin.relin), the yardstick of a measured rule."""
     return 3 * n * word_bytes <= SMEM_BYTES
 
 

@@ -684,7 +684,15 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     limbs, tensor32, K9 inverse over the basis, K2 down-scale, then
     relin_tail_unfused (one K9 forward, ks_accumulate): ntt32 4,
     rns_scale 2, ks_accumulate 1. Strategy 2 and ext_fuse raise UnsupportedOperation there
-    (K8 is a wide kernel). A step is a ``mul_relin`` span."""
+    (K8 is a wide kernel).
+
+    A step is a ``mul_relin`` span holding two device-timed spans, the
+    stages the route rule (kernels.tail_fits) chooses between, on every
+    route: ``mul_relin.tensor``, the tensor product and its inverse NTT
+    (K3 fused; K7 and the K1 inverse over the basis unfused), and
+    ``mul_relin.relin``, the tail (K4 fused; the decomposition rows, one K1
+    forward of the stacked rows and ks_accumulate unfused). The extend and
+    the down-scale lie outside both."""
     ctx = par.context_at_level(level)
     ksk = rk.ksk
     assert ksk.ciphertext_level == level and ksk.ksk_level == level
@@ -737,11 +745,14 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
                 rhs = mb.rhs.scale(x_pb[2:], starting_index=0, size=k_mul)
             ext = torch.cat([lhs, fwd(ctx_mul, rhs)])
         # tensor product + inverse NTT, the down-scale, then the tail
-        if fused:
-            t_pb = tensor_intt(ctx_mul, ext)
-        else:
-            t_pb = bwd(ctx_mul, square(ctx_mul, *ext))
-        return tail(ctx, mb.down.scale(t_pb, starting_index=0, size=k), key)
+        with obs.span("mul_relin.tensor", device=True):
+            if fused:
+                t_pb = tensor_intt(ctx_mul, ext)
+            else:
+                t_pb = bwd(ctx_mul, square(ctx_mul, *ext))
+        dsc = mb.down.scale(t_pb, starting_index=0, size=k)
+        with obs.span("mul_relin.relin", device=True):
+            return tail(ctx, dsc, key)
 
     return step
 
