@@ -314,6 +314,22 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+# the bound arithmetic: the card's memory peak and the int32 multiplies of
+# the modular operations, as the benchmark's roofline reads them
+from fhebench.roofline.peaks import (
+    HI,
+    LO,
+    MEM_BYTES_PER_S,
+    MULMOD,
+    RED128,
+    SHOUP,
+    SHOUP32,
+    TENSOR_OPS,
+    ks_digit_ops,
+    ntt_ops,
+    scale_ops,
+)
+
 DEGREE = 8192
 MODULI_SIZES = [62, 62, 62]
 PLAINTEXT = 65537
@@ -553,16 +569,7 @@ PAR_RATE_STEPS = 4
 SEQ_LAUNCHES = {"ntt": 4, "ntt_dist": 4, "rns_scale": 2, "tensor": 1,
                 "ks_accumulate": 1}
 DIST_LAUNCHES = {"ntt": 2, "ntt_dist": 2}  # one forward, one inverse
-MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 INT32_MULS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0
-
-# int32 multiplies charged per 64-bit operation in the operation bounds:
-# a 64 x 64 -> 64 low product is three 32-bit partial products, a high
-# product four (csrc/modarith.cuh)
-LO, HI = 3, 4
-SHOUP = HI + 2 * LO  # lazy_mul_shoup
-RED128 = 3 * HI + 4 * LO  # reduce_u128
-MULMOD = LO + HI + RED128
 
 
 _STARTED = time.perf_counter()
@@ -595,38 +602,6 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def ntt_ops(n: int, inverse: bool, shoup: int = SHOUP) -> int:
-    """int32 multiplies of one length-n transform (ops/ntt.py's radix-2
-    stages): one Shoup product per butterfly, and per word for the n^{-1}
-    fold."""
-    ops = (n // 2) * int(math.log2(n)) * shoup
-    return ops + n * shoup if inverse else ops
-
-
-# a narrow (w30) Shoup product: one high and two low 32-bit products
-SHOUP32 = 3
-
-
-def scale_ops(sc, k_in: int, size: int, coeffs: int) -> int:
-    """int32 multiplies of the HPS scaler body on `coeffs` coefficients
-    (csrc/rns_scale_device.cuh, its fixed form; the chunked form adds one
-    reduction per output and chunk after the first)."""
-    # mul_64x128: two low and two high products per input limb; each
-    # output sums plain 64 x 64 -> 128-bit products
-    per = 2 * k_in * (LO + HI)
-    per_out = 2 * RED128 + SHOUP + k_in * (LO + HI)
-    if not sc.factor.is_one:
-        # the theta_omega sum, and v * theta_gamma (128 x 128 bits)
-        per += 2 * k_in * (LO + HI) + 4 * (LO + HI)
-        per_out += RED128
-    return coeffs * (per + size * per_out)
-
-
-# int32 multiplies of one K3 / K7 tensor coefficient: two mul_mod and one
-# mul_add_mod
-TENSOR_OPS = 2 * MULMOD + 2 * (LO + HI) + RED128
 
 
 class Bound:
@@ -788,7 +763,7 @@ def k2_case(label, scaler, x, start, size):
             lambda: scaler.scale_cuda(x, start, size),
             lambda: scaler.scale_plain(x, start, size),
             (x.numel() + coeffs * size) * x.element_size(),
-            scale_ops(scaler, k_in, size, coeffs))
+            scale_ops(scaler.factor.is_one, k_in, size, coeffs))
 
 
 def ks_case(label, ctx, d, key, add0, add1):
@@ -845,7 +820,7 @@ def k4_case(label, ctx, dsc, key):
             lambda: pipeline.relin_tail_cuda(ctx, dsc, key),
             lambda: pipeline.relin_tail_plain(ctx, dsc, key),
             (5 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
-            b * k * (k * ks_digit_ops(ctx) + 2 * ntt_ops(n, False)))
+            b * k * (k * ks_digit_ops(ctx.moduli, ctx.degree) + 2 * ntt_ops(n, False)))
 
 
 def k5_case(label, ctx, s0, c2, key):
@@ -860,7 +835,7 @@ def k5_case(label, ctx, s0, c2, key):
             lambda: pipeline.rotate_tail_cuda(ctx, s0, c2, key),
             lambda: pipeline.rotate_tail_plain(ctx, s0, c2, key),
             (4 * b * k * n + 4 * k * k * n + 2 * k * n) * 8,
-            b * k * k * ks_digit_ops(ctx))
+            b * k * k * ks_digit_ops(ctx.moduli, ctx.degree))
 
 
 def ks_tail_case(label, ctx, c2, key):
@@ -877,7 +852,7 @@ def ks_tail_case(label, ctx, c2, key):
             lambda: pipeline.ks_tail_cuda(ctx, c2, key),
             lambda: pipeline.ks_tail_plain(ctx, c2, key),
             (c2.numel() + 4 * d * k * n + 2 * k * n + 2 * rows * k * n) * 8,
-            rows * k * d * ks_digit_ops(ctx))
+            rows * k * d * ks_digit_ops(ctx.moduli, ctx.degree))
 
 
 # a tail's occupancy entry point: n, cluster, threads -> CTAs per SM, clusters
@@ -943,17 +918,6 @@ def ntt_plans(n: int) -> dict:
             for d in ("forward", "inverse")}
 
 
-def ks_digit_ops(ctx) -> int:
-    """int32 multiplies of one digit row of a tail: its forward transform and
-    two Shoup products per coefficient, and its reduce_u64 (two low and two
-    high products a word) where a limb of c2 can reach 4 p_j (the kernel
-    transforms words below 4 p_j unreduced; with moduli within a factor 4
-    of each other none can)."""
-    n = ctx.degree
-    reduce = any(p_i >= 4 * p_j for p_i in ctx.moduli for p_j in ctx.moduli)
-    return n * (2 * (LO + HI) * reduce + 2 * SHOUP) + ntt_ops(n, False)
-
-
 def check_tails(ctxs, gen, int32_rate: float) -> dict:
     """Phase 3, K4 and K5 against their plain versions with random keys:
     K4 at the N = 8192, 3 x 62-bit batch-64 mul+relin (3, 64, 3, 8192),
@@ -978,7 +942,7 @@ def check_tails(ctxs, gen, int32_rate: float) -> dict:
              lambda ctx=ctx, dsc=dsc, key=key: pipeline.relin_tail_cuda(ctx, dsc, key),
              lambda ctx=ctx, dsc=dsc, key=key: pipeline.relin_tail_plain(ctx, dsc, key),
              (5 * batch * k * n + 4 * k * k * n + 2 * k * n) * 8,
-             batch * k * (k * ks_digit_ops(ctx) + 2 * ntt_ops(n, False)))],
+             batch * k * (k * ks_digit_ops(ctx.moduli, ctx.degree) + 2 * ntt_ops(n, False)))],
             int32_rate, "per call")
         rec["unfused_ms"] = time_ms(
             lambda: pipeline.relin_tail_unfused(ctx, dsc, key), 20)
@@ -998,7 +962,7 @@ def check_tails(ctxs, gen, int32_rate: float) -> dict:
              lambda ctx=ctx, s0=s0, c2=c2, key=key:
                  pipeline.rotate_tail_plain(ctx, s0, c2, key),
              (4 * batch * k * n + 4 * k * k * n + 2 * k * n) * 8,
-             batch * k * k * ks_digit_ops(ctx))], int32_rate, "per call")
+             batch * k * k * ks_digit_ops(ctx.moduli, ctx.degree))], int32_rate, "per call")
         rec["unfused_ms"] = time_ms(
             lambda: pipeline.rotate_tail_unfused(ctx, s0, c2, key), 20)
         out[label] = rec | occupancy(kernels.function(
@@ -1181,7 +1145,8 @@ def check_variant_kernels(par, gen, int32_rate: float) -> dict:
                 lambda: intt_scale_cuda(ctx, scaler, x, start, size),
                 lambda: intt_scale_plain(ctx, scaler, x, start, size),
                 (x.numel() + rows * size * n + 2 * k * n) * 8,
-                rows * k * ntt_ops(n, True) + scale_ops(scaler, k, size, rows * n))
+                rows * k * ntt_ops(n, True)
+                + scale_ops(scaler.factor.is_one, k, size, rows * n))
 
     def split_ms(pairs) -> float:
         """Time of the K1 inverse + K2 launches that K8 replaces."""
@@ -1222,8 +1187,8 @@ def check_variant_kernels(par, gen, int32_rate: float) -> dict:
         lambda: intt_scale_cuda(g_ctx, g_scaler, g_x, 12, 1),
         lambda: intt_scale_plain(g_ctx, g_scaler, g_x, 12, 1), int32_rate,
         (g_x.numel() + BATCH * 1024 + 2 * 12 * 1024) * 8,
-        BATCH * 12 * ntt_ops(1024, True) + scale_ops(g_scaler, 12, 1,
-                                                     BATCH * 1024))
+        BATCH * 12 * ntt_ops(1024, True)
+        + scale_ops(g_scaler.factor.is_one, 12, 1, BATCH * 1024))
     out["intt_scale_general"]["plan"] = plan_record("intt_scale", 1024,
                                                     k_in=12)
 
@@ -1668,12 +1633,12 @@ def host_transcode():
     numpy and uploaded), the codec before rq_pack and rq_unpack."""
     from tpufhe_torch.serialize import rq_pack
 
-    saved = rq_pack._on_card
-    rq_pack._on_card = lambda device: False
+    saved = rq_pack.on_card
+    rq_pack.on_card = lambda x: False
     try:
         yield
     finally:
-        rq_pack._on_card = saved
+        rq_pack.on_card = saved
 
 
 def wire_call_ms(fn, reps: int = WIRE_CALL_REPS) -> float:

@@ -171,7 +171,6 @@ def main() -> int:
         # what kernels.function finds for the wrapper's symbol
         kernels._libs["ct_pt_dot"] = SimpleNamespace(
             tpufhe_ct_pt_dot=libs[name].tpufhe_ct_pt_dot)
-        dot._LAUNCHERS.clear()
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     rows = []
@@ -203,7 +202,6 @@ def main() -> int:
                   flush=True)
         del want
     kernels._libs.pop("ct_pt_dot", None)
-    dot._LAUNCHERS.clear()
     print(json.dumps({"card": card, "ptxas": regs, "shapes": rows}))
     if not all(all(r["equal"].values()) for r in rows):
         raise SystemExit("a candidate disagrees with the plain version")

@@ -154,7 +154,7 @@ def main() -> int:
         bound = cs.Bound(int32_rate)
         coeffs = x.numel() // x.shape[-2]
         bound.add((x.numel() + coeffs * size) * x.element_size(),
-                  cs.scale_ops(sc, x.shape[-2], size, coeffs))
+                  cs.scale_ops(sc.factor.is_one, x.shape[-2], size, coeffs))
         bound_ms, bound_by = bound.result()
         rows.append({"label": label, "shape": list(x.shape), "size": size,
                      "equal": equal, "ms": times, "bound_ms": bound_ms,

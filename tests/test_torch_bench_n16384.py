@@ -30,9 +30,10 @@ from tpufhe_torch.utils import obs
 CELL = "mulrelin-n16384-b16"
 SEED = 2 ** 33 + 1021
 STAGES = ("mul_relin.tensor", "mul_relin.relin")
-# the functions whose calls show the route a step took
+# the functions whose calls show the route a step took (relin_tail runs on
+# both routes and chooses between them; its plain K4 only on the fused one)
 UNFUSED = ("tensor", "ks_accumulate")
-FUSED = ("tensor_intt", "relin_tail")
+FUSED = ("tensor_intt", "relin_tail_plain")
 # the cell's per-layer metrics (BENCHMARK.json)
 LAYER_METRICS = {"tensor_ms.n16k", "relin_ms.n16k", "ntt_roofline.n16k",
                  "kernels_roofline.n16k", "glue_device_pct.n16k",
@@ -93,7 +94,7 @@ def test_cell_runs_the_unfused_route_and_is_correct(checkout, monkeypatch):
     # the window's steps and the two warm-up steps, each on the unfused route
     steps = res["attempted"] // 4 + 2
     assert calls == {"tensor": steps, "ks_accumulate": steps,
-                     "tensor_intt": 0, "relin_tail": 0}
+                     "tensor_intt": 0, "relin_tail_plain": 0}
     assert not any(kernels.LAUNCHES.values())
 
 

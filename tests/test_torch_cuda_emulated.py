@@ -761,7 +761,7 @@ def test_the_codec_takes_the_card_route_at_mulpir_q16s_parameters(
     answer = T.Ciphertext(par, list(host.c), 1)
     answer.switch_to_level(answer.max_switchable_level())
     want = answer.to_bytes()
-    monkeypatch.setattr(rq_pack, "_on_card", lambda device: True)
+    monkeypatch.setattr(rq_pack, "on_card", lambda x: True)
     with obs.recording() as rec:
         card = T.Ciphertext.from_bytes(query, par)
         got = T.Ciphertext(par, list(answer.c), answer.level).to_bytes()

@@ -58,3 +58,30 @@ def test_sources_never_import_tpufhe_or_jax():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_the_kernel_layer_imports_no_program_and_no_object():
+    """The lower layers' arrows point one way: no module under ops/, nor
+    kernels.py or device.py, imports tpufhe_torch.pipeline or
+    tpufhe_torch.bfv, at its top or inside a function."""
+    import ast
+
+    pkg = ROOT / "tpufhe_torch"
+    files = sorted((pkg / "ops").glob("*.py")) + [pkg / "kernels.py",
+                                                  pkg / "device.py"]
+    assert pkg / "ops" / "zq.py" in files and len(files) > 8
+    upper = ("tpufhe_torch.pipeline", "tpufhe_torch.bfv")
+    offenders = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            else:
+                continue
+            offenders += [f"{f.relative_to(ROOT)}: {name}" for name in names
+                          if any(name == u or name.startswith(u + ".")
+                                 for u in upper)]
+    assert not offenders, offenders

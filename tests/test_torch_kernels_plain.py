@@ -253,3 +253,110 @@ def test_slots_free_of_bank_conflicts():
                     assert len({u[t] % 16 for u in units}) == 16
         for e0 in range(0, n, 16):
             assert len({_slot(e) % 16 for e in range(e0, e0 + 16)}) == 16
+
+
+# ---------------------------------------------------------------------------
+# The kernel boundary: the device rule of every dispatcher, and the launch
+# ---------------------------------------------------------------------------
+
+SEAM_N = 64
+
+
+@pytest.fixture(scope="module")
+def seam():
+    """A 3 x 62-bit context at degree 64 on the CPU, its multiplication
+    basis, a Garner key of meta tensors and a maker of meta words."""
+    tp = (T.BfvParametersBuilder().set_degree(SEAM_N)
+          .set_plaintext_modulus(65537).set_moduli_sizes([62, 62, 62])
+          .set_device("cpu").build())
+    ctx = tp.context_at_level(0)
+    mb = tpl.mul_basis(tp)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
+    k = ctx.k
+    key = SimpleNamespace(log_base=0, c0=meta(k, k, SEAM_N),
+                          c0_shoup=meta(k, k, SEAM_N), c1=meta(k, k, SEAM_N),
+                          c1_shoup=meta(k, k, SEAM_N))
+    return SimpleNamespace(ctx=ctx, mb=mb, meta=meta, key=key, k=k)
+
+
+def _dispatch(case: str, s) -> None:
+    """Call the dispatcher `case` on meta tensors of valid shapes."""
+    from tpufhe_torch.device import resolve_device
+    from tpufhe_torch.ops import zq
+    from tpufhe_torch.ops.dot import ct_pt_dot
+    from tpufhe_torch.ops.intt_scale import intt_scale
+    from tpufhe_torch.ops.ntt import ntt_transform
+    from tpufhe_torch.parallel import ntt_dist
+    from tpufhe_torch.serialize import rq_pack
+
+    ctx, meta, key, k, n = s.ctx, s.meta, s.key, s.k, SEAM_N
+    k_mul = s.mb.ctx_mul.k
+    calls = {
+        "resolve_device": lambda: resolve_device("meta"),
+        "ntt": lambda: ntt_transform(meta(2, k, n), ctx.tables),
+        "rns_scale": lambda: s.mb.ext.scale(meta(2, k, n), k, k_mul - k),
+        "intt_scale": lambda: intt_scale(ctx, s.mb.ext, meta(2, k, n), k,
+                                         k_mul - k),
+        "ct_pt_dot": lambda: ct_pt_dot(ctx, [meta(2, 1, k, n)],
+                                       meta(2, 1, k, n)),
+        "zq_mul": lambda: zq.mul(meta(k, n), meta(k, n), ctx.mod),
+        "zq_mul_shoup": lambda: zq.mul_shoup(meta(k, n), meta(k, n),
+                                             meta(k, n), ctx.mod),
+        "rq_pack": lambda: rq_pack.pack(ctx, meta(1, k, n)),
+        "rq_unpack": lambda: rq_pack.unpack(
+            SimpleNamespace(device=torch.device("meta")), [b""]),
+        "ntt_dist": lambda: ntt_dist.cross(
+            meta(2, 1, k, n // 2), ntt_dist.DistNttPlan.new(ctx, 2, 0),
+            slice(None), False),
+        "tensor": lambda: tpl.tensor(ctx, *[meta(2, k, n)] * 4),
+        "tensor_intt": lambda: tpl.tensor_intt(s.mb.ctx_mul,
+                                               meta(4, 2, k_mul, n)),
+        "relin_tail": lambda: tpl.relin_tail(ctx, meta(3, 2, k, n), key),
+        "rotate_tail": lambda: tpl.rotate_tail(ctx, meta(2, k, n),
+                                               meta(2, k, n), key),
+        "ks_tail": lambda: tpl.ks_tail(ctx, meta(2, k, n), key),
+        "ks_accumulate": lambda: tpl.ks_accumulate(ctx, meta(k, 2, k, n),
+                                                   key),
+    }
+    calls[case]()
+
+
+DISPATCHERS = ("resolve_device", "ntt", "rns_scale", "intt_scale",
+               "ct_pt_dot", "zq_mul", "zq_mul_shoup", "rq_pack", "rq_unpack",
+               "ntt_dist", "tensor", "tensor_intt", "relin_tail",
+               "rotate_tail", "ks_tail", "ks_accumulate")
+
+
+@pytest.mark.parametrize("case", DISPATCHERS + ("launch", "launch_error"))
+def test_the_kernel_boundary(seam, monkeypatch, case):
+    """Every dispatcher refuses a device other than the card and the CPU
+    with the one ValueError of device.on_card, before any launch; and
+    kernels.launch counts one launch a call, passes the stream last and
+    raises on a nonzero return."""
+    monkeypatch.setattr(kernels, "LAUNCHES",
+                        dict.fromkeys(kernels.KERNELS, 0))
+    if case in DISPATCHERS:
+        with pytest.raises(ValueError, match="^unsupported device meta$"):
+            _dispatch(case, seam)
+        assert not any(kernels.LAUNCHES.values())
+        return
+    seen = []
+
+    def function(name, symbol, argtypes):
+        assert (name, symbol, argtypes) == ("ntt", "tpufhe_ntt", ["types"])
+        return lambda *args: seen.append(args) or (case == "launch_error")
+
+    monkeypatch.setattr(kernels, "function", function)
+    monkeypatch.setattr(kernels, "stream", lambda: "the stream")
+    for calls in (1, 2):
+        if case == "launch_error":
+            with pytest.raises(RuntimeError, match="CUDA kernel ntt failed"):
+                kernels.launch("ntt", "tpufhe_ntt", ["types"], 7, 8)
+        else:
+            kernels.launch("ntt", "tpufhe_ntt", ["types"], 7, 8)
+        assert kernels.LAUNCHES["ntt"] == calls
+        assert sum(kernels.LAUNCHES.values()) == calls
+        assert seen[-1] == (7, 8, "the stream")

@@ -125,10 +125,10 @@ def _tensor_parts(ctx: Context, a: list, b: list, square: bool) -> list:
     by two: K7 (tensor32 when narrow) in one launch, whose middle part
     a0 b1 + a1 b0 equals the square branch's doubled a0 a1. Otherwise the
     glue of tpufhe's loops, with the symmetry of a square."""
-    from tpufhe_torch.pipeline import tensor, tensor32
+    from tpufhe_torch.pipeline import tensor
 
     if len(a) == 2 and len(b) == 2:
-        return list((tensor32 if ctx.narrow else tensor)(ctx, *a, *b))
+        return list(tensor(ctx, *a, *b))
     c = [None] * (len(a) + len(b) - 1)
     for i in range(len(a)):
         for j in range(i if square else 0, len(b)):

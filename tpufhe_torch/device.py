@@ -19,6 +19,17 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
+    on_card(device)  # raises on a device other than the card or the CPU
     return device
+
+
+def on_card(x) -> bool:
+    """The route of a tensor (or a device): True on the CUDA card, where
+    the kernels run, False on the CPU, where their plain versions run. Any
+    other device raises."""
+    device = x if isinstance(x, torch.device) else x.device
+    if device.type == "cuda":
+        return True
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return False

@@ -7,8 +7,10 @@ It is compiled at first use with nvcc for ``sm_90a`` into
 an edited source is rebuilt) and loaded with ctypes. ``build()`` compiles
 every kernel at once, one nvcc process per kernel, all started together.
 
-Every wrapper calls ``count(name)`` right where it launches its kernel, and
-only there, so a run can show which kernels a path went through.
+Every wrapper launches its kernel through ``launch``, the one place a
+launch happens: it counts the launch (``LAUNCHES``, so a run can show which
+kernels a path went through), passes the current stream and raises on a
+launch error.
 """
 
 from __future__ import annotations
@@ -307,6 +309,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _libs: dict = {}
+# (kernel, symbol) -> (library, typed entry point)
+_entries: dict = {}
 
 
 def count(name: str) -> None:
@@ -374,16 +378,20 @@ def build(names=None) -> dict:
 
 
 def function(name: str, symbol: str, argtypes: list):
-    """The C entry point `symbol` of kernel `name`, building it if needed."""
+    """The C entry point `symbol` of kernel `name`, building it if needed;
+    its argument types are set once for each library loaded under `name`."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(_lib_path(name))
         _libs[name] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    entry = _entries.get((name, symbol))
+    if entry is None or entry[0] is not lib:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entry = _entries[(name, symbol)] = (lib, fn)
+    return entry[1]
 
 
 def check(err: int, name: str) -> None:
@@ -391,6 +399,15 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def launch(name: str, symbol: str, argtypes: list, *args) -> None:
+    """Launch kernel `name` through its C entry point `symbol`: count the
+    launch, call the entry point with args and the current stream, and
+    raise if it returned a nonzero cudaGetLastError()."""
+    fn = function(name, symbol, argtypes)
+    count(name)
+    check(fn(*args, stream()), name)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.errors import UnsupportedOperation
 from tpufhe_torch.ops import zq
 from tpufhe_torch.utils.obs import uncounted
@@ -31,9 +32,8 @@ MAX_PARTS = 8
 _DOT_ARGS = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
-# what does not change between calls: the launcher per loader (argument
-# types set once), and per context its window and table pointers
-_LAUNCHERS: dict = {}
+# what does not change between calls: per context its window and table
+# pointers
 _WINDOWS: dict = {}
 _TABLES: dict = {}
 
@@ -95,16 +95,6 @@ def ct_pt_dot_plain(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _launcher():
-    """The kernel's C entry point, its argument types set once for each
-    loader (kernels.function, or one put in its place)."""
-    fn = _LAUNCHERS.get(kernels.function)
-    if fn is None:
-        fn = _LAUNCHERS[kernels.function] = kernels.function(
-            "ct_pt_dot", "tpufhe_ct_pt_dot", _DOT_ARGS)
-    return fn
-
-
 def _tables(ctx) -> tuple:
     """(moduli, Barrett lo, Barrett hi) pointers of a context's tables."""
     c = _TABLES.get(ctx)
@@ -128,21 +118,17 @@ def ct_pt_dot_cuda(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     if plane == 0:
         return out
     p, b_lo, b_hi = _tables(ctx)
-    fn = _launcher()
     ptrs = (ctypes.c_void_p * len(parts))(*[e.data_ptr() for e in parts])
-    kernels.count("ct_pt_dot")
-    err = fn(ptrs, len(parts), db.data_ptr(), out.data_ptr(), plane,
-             r * n_deg, n, m, ctx.k, n_deg, min(dot_window(ctx), n), p,
-             b_lo, b_hi, kernels.stream())
-    kernels.check(err, "ct_pt_dot")
+    kernels.launch("ct_pt_dot", "tpufhe_ct_pt_dot", _DOT_ARGS, ptrs,
+                   len(parts), db.data_ptr(), out.data_ptr(), plane,
+                   r * n_deg, n, m, ctx.k, n_deg, min(dot_window(ctx), n), p,
+                   b_lo, b_hi)
     return out
 
 
 def ct_pt_dot(ctx, parts: list, db: torch.Tensor) -> torch.Tensor:
     """Sum over i < n of db[i] times rows i of every part (see the module
     docstring); a wide (int64) context only."""
-    if db.device.type == "cuda":
+    if on_card(db):
         return ct_pt_dot_cuda(ctx, parts, db)
-    if db.device.type != "cpu":
-        raise ValueError(f"ct_pt_dot: unsupported device {db.device}")
     return ct_pt_dot_plain(ctx, parts, db)

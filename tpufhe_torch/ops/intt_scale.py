@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.ops.ntt import backward_plain
 from tpufhe_torch.ops.rns import RnsScaler
 from tpufhe_torch.utils.obs import uncounted
@@ -75,16 +76,15 @@ def intt_scale_cuda(ctx, scaler: RnsScaler, x: torch.Tensor,
     tb = ctx.tables
     cluster, threads, _ = kernels.intt_scale_plan(k, n)
     tz = tb.pass_twiddles(True, split=kernels.intt_scale_split(k, n))
-    fn = kernels.function("intt_scale", "tpufhe_intt_scale", _ARGS)
     host = scaler.table_host(starting_index, size)
     tab = scaler.table(x.device, starting_index, size)
-    kernels.count("intt_scale")
-    err = fn(kernels.ptr(x), kernels.ptr(y), rows, k, n, kernels.ptr(tz),
-             kernels.ptr(tb.p), kernels.ptr(tb.ninv), kernels.ptr(tb.ninv_shoup),
-             kernels.ptr(tab), ctypes.c_void_p(host.ctypes.data), host.size,
-             size, scaler.theta_garner_shift, int(scaler.factor.is_one),
-             int(scaler.theta_gamma_sign), cluster, threads, kernels.stream())
-    kernels.check(err, "intt_scale")
+    kernels.launch("intt_scale", "tpufhe_intt_scale", _ARGS, kernels.ptr(x),
+                   kernels.ptr(y), rows, k, n, kernels.ptr(tz),
+                   kernels.ptr(tb.p), kernels.ptr(tb.ninv),
+                   kernels.ptr(tb.ninv_shoup), kernels.ptr(tab),
+                   ctypes.c_void_p(host.ctypes.data), host.size, size,
+                   scaler.theta_garner_shift, int(scaler.factor.is_one),
+                   int(scaler.theta_gamma_sign), cluster, threads)
     return y
 
 
@@ -92,8 +92,6 @@ def intt_scale(ctx, scaler: RnsScaler, x: torch.Tensor, starting_index: int,
                size: int) -> torch.Tensor:
     """rns_scale(ntt_backward(x)) on ctx's (..., k, N) NTT-domain rows."""
     _check(ctx, scaler, x, starting_index, size)
-    if x.device.type == "cuda":
+    if on_card(x):
         return intt_scale_cuda(ctx, scaler, x, starting_index, size)
-    if x.device.type != "cpu":
-        raise ValueError(f"intt_scale: unsupported device {x.device}")
     return intt_scale_plain(ctx, scaler, x, starting_index, size)

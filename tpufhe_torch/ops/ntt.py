@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.ops import zq, zq32
 from tpufhe_torch.ops.zq import ModTable, Modulus
 from tpufhe_torch.utils.obs import uncounted
@@ -399,13 +400,11 @@ def ntt_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
     if rows == 0:
         return y
     tw = tables.pass_twiddles(inverse)
-    fn = kernels.function("ntt", "tpufhe_ntt", _NTT_ARGS)
-    kernels.count("ntt")
-    err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
-             kernels.ptr(tables.p), kernels.ptr(tables.ninv),
-             kernels.ptr(tables.ninv_shoup), start, int(inverse), int(lazy),
-             cluster, threads, kernels.stream())
-    kernels.check(err, "ntt")
+    kernels.launch("ntt", "tpufhe_ntt", _NTT_ARGS, kernels.ptr(x),
+                   kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
+                   kernels.ptr(tables.p), kernels.ptr(tables.ninv),
+                   kernels.ptr(tables.ninv_shoup), start, int(inverse),
+                   int(lazy), cluster, threads)
     return y
 
 
@@ -427,13 +426,11 @@ def ntt32_cuda(x: torch.Tensor, tables: NttTables, limb_slice: slice,
     if rows == 0:
         return y
     tw = tables.pass_twiddles(inverse)
-    fn = kernels.function("ntt32", "tpufhe_ntt32", _NTT32_ARGS)
-    kernels.count("ntt32")
-    err = fn(kernels.ptr(x), kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
-             kernels.ptr(tables.p), kernels.ptr(tables.ninv),
-             kernels.ptr(tables.ninv_shoup), start, int(inverse), int(lazy),
-             threads, kernels.stream())
-    kernels.check(err, "ntt32")
+    kernels.launch("ntt32", "tpufhe_ntt32", _NTT32_ARGS, kernels.ptr(x),
+                   kernels.ptr(y), rows, k_sel, n, kernels.ptr(tw),
+                   kernels.ptr(tables.p), kernels.ptr(tables.ninv),
+                   kernels.ptr(tables.ninv_shoup), start, int(inverse),
+                   int(lazy), threads)
     return y
 
 
@@ -447,11 +444,9 @@ def ntt_transform(x: torch.Tensor, tables: NttTables,
     the canonical ones, as tpufhe's lazy forward leaves them; the plain
     version returns the canonical words, one valid lazy output."""
     sl = slice(None) if limb_slice is None else limb_slice
-    if x.device.type == "cuda":
+    if on_card(x):
         launch = ntt32_cuda if tables.narrow else ntt_cuda
         return launch(x, tables, sl, inverse, lazy)
-    if x.device.type != "cpu":
-        raise ValueError(f"ntt: unsupported device {x.device}")
     if inverse and lazy:
         raise ValueError("ntt: the inverse transform has no lazy output")
     if x.dtype != tables.dtype:

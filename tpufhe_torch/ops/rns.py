@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.errors import InvalidContext, TooFewValues
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.zq import DIGIT_BITS, DIGIT_MASK, ModTable, Modulus
@@ -296,10 +297,8 @@ class RnsScaler:
         """(..., k_in, n) canonical residues -> (..., size, n) in the `to`
         basis, rows starting_index .. starting_index + size."""
         size = self.check_rows(x, starting_index, size)
-        if x.device.type == "cuda":
+        if on_card(x):
             return self.scale_cuda(x, starting_index, size)
-        if x.device.type != "cpu":
-            raise ValueError(f"rns_scale: unsupported device {x.device}")
         if x.dtype != self.dtype:
             raise ValueError(f"rns_scale: dtype {x.dtype}, expected {self.dtype}")
         return self.scale_plain(x, starting_index, size)
@@ -314,17 +313,14 @@ class RnsScaler:
         total = x.numel() // self._k_in
         if total == 0 or size == 0:
             return y
-        fn = kernels.function("rns_scale", "tpufhe_rns_scale", _SCALE_ARGS)
         host = self.table_host(starting_index, size)
         tab = self.table(x.device, starting_index, size)
-        kernels.count("rns_scale")
-        err = fn(kernels.ptr(x), kernels.ptr(y), total, n, self._k_in,
-                 kernels.ptr(tab), ctypes.c_void_p(host.ctypes.data),
-                 host.size, size, self.theta_garner_shift,
-                 int(self.factor.is_one),
-                 int(self.theta_gamma_sign), x.element_size(),
-                 kernels.stream())
-        kernels.check(err, "rns_scale")
+        kernels.launch("rns_scale", "tpufhe_rns_scale", _SCALE_ARGS,
+                       kernels.ptr(x), kernels.ptr(y), total, n, self._k_in,
+                       kernels.ptr(tab), ctypes.c_void_p(host.ctypes.data),
+                       host.size, size, self.theta_garner_shift,
+                       int(self.factor.is_one), int(self.theta_gamma_sign),
+                       x.element_size())
         return y
 
     @uncounted

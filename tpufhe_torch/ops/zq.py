@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.errors import InvalidModulus
 from tpufhe_torch.utils.obs import count
 from tpufhe_torch.utils.primes import is_prime, supports_opt
@@ -313,15 +314,11 @@ def _barrett_digits(prod: list, m: ModTable):
     return torch.where(r >= m.p, r - m.p, r)
 
 
-def _on_card(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.is_cuda
-
-
 def mul(a, b, m: ModTable):
     """(a * b) mod p for canonical a, b < p < 2^62: zq_mul on CUDA tensors,
     else the digit chain."""
     count("glue.zq.mul")
-    if _on_card(a) or _on_card(b):
+    if on_card(a) or on_card(b):
         return mul_cuda(a, b, None, m)
     return mul_plain(a, b, m)
 
@@ -350,7 +347,7 @@ def mul_shoup(a, b, b_shoup, m: ModTable):
     b_shoup = floor(b 2^64 / p) stored by bit pattern in int64; a is any
     value below 2^63."""
     count("glue.zq.mul_shoup")
-    if _on_card(a) or _on_card(b):
+    if on_card(a) or on_card(b):
         return mul_cuda(a, b, b_shoup, m)
     return mul_shoup_plain(a, b, b_shoup, m)
 
@@ -368,19 +365,9 @@ def mul_shoup_plain(a, b, b_shoup, m: ModTable):
     return torch.where(r >= m.p, r - m.p, r)
 
 
-# zq_mul's C entry point (csrc/zq_mul.cu tpufhe_zq_mul), its argument types
-# set once for each loader (kernels.function, or one put in its place)
+# zq_mul's C entry point's argument types (csrc/zq_mul.cu tpufhe_zq_mul)
 _ZQ_MUL_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p] + [ctypes.c_void_p] * 8
-_LAUNCHERS: dict = {}
-
-
-def _launcher():
-    fn = _LAUNCHERS.get(kernels.function)
-    if fn is None:
-        fn = _LAUNCHERS[kernels.function] = kernels.function(
-            "zq_mul", "tpufhe_zq_mul", _ZQ_MUL_ARGS)
-    return fn
 
 
 def _broadcast(shapes) -> tuple:
@@ -443,8 +430,7 @@ def mul_cuda(a, b, b_shoup, m: ModTable):
         return out
     if words >= 1 << 31:
         raise ValueError(f"zq_mul: {words} words, at most 2^31 - 1 a launch")
-    kernels.count("zq_mul")
-    kernels.check(_launcher()(*args, kernels.stream()), "zq_mul")
+    kernels.launch("zq_mul", "tpufhe_zq_mul", _ZQ_MUL_ARGS, *args)
     return out
 
 

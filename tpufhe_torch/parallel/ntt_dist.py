@@ -42,6 +42,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.ntt import NttOperator, NttTables, ntt_transform
 from tpufhe_torch.ops.zq import ModTable, Modulus
@@ -225,12 +226,10 @@ def cross_cuda(blocks: torch.Tensor, w: torch.Tensor, w_shoup: torch.Tensor,
     plane = y.numel()
     if plane == 0:
         return y
-    fn = kernels.function("ntt_dist", "tpufhe_ntt_dist", _NTT_DIST_ARGS)
-    kernels.count("ntt_dist")
-    err = fn(kernels.ptr(blocks), kernels.ptr(y), plane, shards, k_sel, b,
-             kernels.ptr(w), kernels.ptr(w_shoup), kernels.ptr(p), limb0,
-             kernels.stream())
-    kernels.check(err, "ntt_dist")
+    kernels.launch("ntt_dist", "tpufhe_ntt_dist", _NTT_DIST_ARGS,
+                   kernels.ptr(blocks), kernels.ptr(y), plane, shards, k_sel,
+                   b, kernels.ptr(w), kernels.ptr(w_shoup), kernels.ptr(p),
+                   limb0)
     return y
 
 
@@ -247,10 +246,8 @@ def cross(blocks: torch.Tensor, plan: DistNttPlan, limb_slice: slice,
             or blocks.shape[-2] != stop - start):
         raise ValueError(f"ntt_dist: blocks {tuple(blocks.shape)}, expected "
                          f"({plan.shards}, ..., {stop - start}, {plan.block})")
-    if blocks.device.type == "cuda":
+    if on_card(blocks):
         return cross_cuda(blocks, w, ws, plan.tables.p, start)
-    if blocks.device.type != "cpu":
-        raise ValueError(f"ntt_dist: unsupported device {blocks.device}")
     return cross_plain(blocks, w[limb_slice], ws[limb_slice],
                        plan.tables.mod[limb_slice])
 

@@ -35,8 +35,9 @@ its Garner digits, key-switch accumulate and the add of the substituted c0.
 K3, K4 and K5 run a cluster of one-row CTAs per (batch row, limb). Where
 three rows do not fit one block (``kernels.tail_fits``, the route rule,
 false at N = 16384), the programs take
-tpufhe's unfused composition for all three, chosen when they are built
-(tpufhe pipeline.py:476-486, 545-569, 763-779): K7 then K1 inverse over
+tpufhe's unfused composition for all three (tpufhe pipeline.py:476-486,
+545-569, 763-779), which the tails ``relin_tail`` and ``rotate_tail``
+choose themselves at each call: K7 then K1 inverse over
 the multiplication basis in place of K3; one K1 forward of the stacked
 rows (c0, c1 and the Garner digits of c2, or the digits alone for a
 rotation) then the ``ks_accumulate`` kernel in place of K4 and K5. A
@@ -71,6 +72,7 @@ from tpufhe_torch import kernels
 from tpufhe_torch.bfv.encoding import SIMD, Encoding
 from tpufhe_torch.bfv.keys.key_switching_key import decomposition_digits
 from tpufhe_torch.bfv.parameters import BfvParameters
+from tpufhe_torch.device import on_card
 from tpufhe_torch.errors import SimdNotSupported, UnsupportedOperation
 from tpufhe_torch.ops import zq
 from tpufhe_torch.ops.dot import ct_pt_dot
@@ -125,6 +127,16 @@ def _ksk_accumulate(ctx: Context, lifted: torch.Tensor, ksk):
         acc0 = t0 if acc0 is None else ctx.add(acc0, t0)
         acc1 = t1 if acc1 is None else ctx.add(acc1, t1)
     return acc0, acc1
+
+
+def _fused_tail(ctx: Context, ksk=None) -> bool:
+    """Whether the programs over ctx run the fused kernels K3, K4 and K5:
+    wide rows whose three rows of N words fit one block (K3's need; the
+    tails follow the same route). The tails K4 and K5 form Garner digits,
+    so a single-modulus key (ksk.log_base) takes the unfused tail."""
+    if ksk is not None and ksk.log_base:
+        return False
+    return not ctx.narrow and kernels.tail_fits(ctx.degree)
 
 
 def _check_key(name: str, ksk, k: int, n: int, digits: int | None = None
@@ -184,22 +196,20 @@ def tensor_cuda(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
     if rows_k == 0:
         return out
     tb = ctx.tables
-    fn = kernels.function("tensor", "tpufhe_tensor", _TENSOR_ARGS)
-    kernels.count("tensor")
-    err = fn(kernels.ptr(a0), kernels.ptr(a1), kernels.ptr(b0), kernels.ptr(b1),
-             kernels.ptr(out), rows_k, k, n, kernels.ptr(tb.p),
-             kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi),
-             kernels.stream())
-    kernels.check(err, "tensor")
+    kernels.launch("tensor", "tpufhe_tensor", _TENSOR_ARGS, kernels.ptr(a0),
+                   kernels.ptr(a1), kernels.ptr(b0), kernels.ptr(b1),
+                   kernels.ptr(out), rows_k, k, n, kernels.ptr(tb.p),
+                   kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi))
     return out
 
 
 def tensor(ctx: Context, a0, a1, b0, b1) -> torch.Tensor:
-    if a0.device.type == "cuda":
-        return tensor_cuda(ctx, a0, a1, b0, b1)
-    if a0.device.type != "cpu":
-        raise ValueError(f"tensor: unsupported device {a0.device}")
-    return tensor_plain(ctx, a0, a1, b0, b1)
+    """The tensor product of NTT-domain parts: tensor32 on a narrow
+    context, else K7 (its plain version on the CPU)."""
+    if ctx.narrow:
+        return tensor32(ctx, a0, a1, b0, b1)
+    return (tensor_cuda(ctx, a0, a1, b0, b1) if on_card(a0)
+            else tensor_plain(ctx, a0, a1, b0, b1))
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +247,18 @@ def tensor_intt_cuda(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
     tb = ctx_mul.tables
     tz = tb.pass_twiddles(True)
     cluster, threads, _ = kernels.tensor_intt_plan(n)
-    fn = kernels.function("tensor_intt", "tpufhe_tensor_intt", _TENSOR_INTT_ARGS)
-    kernels.count("tensor_intt")
-    err = fn(kernels.ptr(ext), kernels.ptr(out), rows_k, k, n, kernels.ptr(tz),
-             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
-             kernels.ptr(tb.barrett_hi), kernels.ptr(tb.ninv),
-             kernels.ptr(tb.ninv_shoup), cluster, threads, kernels.stream())
-    kernels.check(err, "tensor_intt")
+    kernels.launch("tensor_intt", "tpufhe_tensor_intt", _TENSOR_INTT_ARGS,
+                   kernels.ptr(ext), kernels.ptr(out), rows_k, k, n,
+                   kernels.ptr(tz), kernels.ptr(tb.p),
+                   kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi),
+                   kernels.ptr(tb.ninv), kernels.ptr(tb.ninv_shoup), cluster,
+                   threads)
     return out
 
 
 def tensor_intt(ctx_mul: Context, ext: torch.Tensor) -> torch.Tensor:
-    if ext.device.type == "cuda":
-        return tensor_intt_cuda(ctx_mul, ext)
-    if ext.device.type != "cpu":
-        raise ValueError(f"tensor_intt: unsupported device {ext.device}")
-    return tensor_intt_plain(ctx_mul, ext)
+    return (tensor_intt_cuda(ctx_mul, ext) if on_card(ext)
+            else tensor_intt_plain(ctx_mul, ext))
 
 
 # ---------------------------------------------------------------------------
@@ -294,23 +300,23 @@ def relin_tail_cuda(ctx: Context, dsc: torch.Tensor, ksk):
     tb = ctx.tables
     tw = tb.pass_twiddles(False)
     cluster, threads, _ = kernels.tail_plan(k + 2, n)
-    fn = kernels.function("relin_tail", "tpufhe_relin_tail", _RELIN_TAIL_ARGS)
-    kernels.count("relin_tail")
-    err = fn(kernels.ptr(dsc), kernels.ptr(out), rows_k, k, n, cluster,
-             threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
-             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
-             kernels.ptr(tw), kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
-             kernels.ptr(tb.barrett_hi), kernels.stream())
-    kernels.check(err, "relin_tail")
+    kernels.launch("relin_tail", "tpufhe_relin_tail", _RELIN_TAIL_ARGS,
+                   kernels.ptr(dsc), kernels.ptr(out), rows_k, k, n, cluster,
+                   threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
+                   kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
+                   kernels.ptr(tw), kernels.ptr(tb.p),
+                   kernels.ptr(tb.barrett_lo), kernels.ptr(tb.barrett_hi))
     return out[0], out[1]
 
 
 def relin_tail(ctx: Context, dsc: torch.Tensor, ksk):
-    if dsc.device.type == "cuda":
-        return relin_tail_cuda(ctx, dsc, ksk)
-    if dsc.device.type != "cpu":
-        raise ValueError(f"relin_tail: unsupported device {dsc.device}")
-    return relin_tail_plain(ctx, dsc, ksk)
+    """(3, ..., k, N) power-basis (c0, c1, c2) -> NTT-domain
+    (c0 + ks0, c1 + ks1): K4 (its plain version on the CPU) where the
+    fused tails run (_fused_tail), else relin_tail_unfused."""
+    if not _fused_tail(ctx, ksk):
+        return relin_tail_unfused(ctx, dsc, ksk)
+    return (relin_tail_cuda(ctx, dsc, ksk) if on_card(dsc)
+            else relin_tail_plain(ctx, dsc, ksk))
 
 
 # ---------------------------------------------------------------------------
@@ -352,23 +358,24 @@ def rotate_tail_cuda(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
     tb = ctx.tables
     tw = tb.pass_twiddles(False)
     cluster, threads, _ = kernels.tail_plan(k, n)
-    fn = kernels.function("rotate_tail", "tpufhe_rotate_tail", _ROTATE_TAIL_ARGS)
-    kernels.count("rotate_tail")
-    err = fn(kernels.ptr(s0), kernels.ptr(c2_pb), kernels.ptr(out), rows_k, k, n,
-             cluster, threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
-             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
-             kernels.ptr(tw), kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
-             kernels.ptr(tb.barrett_hi), kernels.stream())
-    kernels.check(err, "rotate_tail")
+    kernels.launch("rotate_tail", "tpufhe_rotate_tail", _ROTATE_TAIL_ARGS,
+                   kernels.ptr(s0), kernels.ptr(c2_pb), kernels.ptr(out),
+                   rows_k, k, n, cluster, threads, kernels.ptr(ksk.c0),
+                   kernels.ptr(ksk.c0_shoup), kernels.ptr(ksk.c1),
+                   kernels.ptr(ksk.c1_shoup), kernels.ptr(tw),
+                   kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+                   kernels.ptr(tb.barrett_hi))
     return out[0], out[1]
 
 
 def rotate_tail(ctx: Context, s0: torch.Tensor, c2_pb: torch.Tensor, ksk):
-    if s0.device.type == "cuda":
-        return rotate_tail_cuda(ctx, s0, c2_pb, ksk)
-    if s0.device.type != "cpu":
-        raise ValueError(f"rotate_tail: unsupported device {s0.device}")
-    return rotate_tail_plain(ctx, s0, c2_pb, ksk)
+    """NTT-domain s0 and power-basis c2 -> NTT-domain (s0 + ks0, ks1): K5
+    (its plain version on the CPU) where the fused tails run (_fused_tail),
+    else rotate_tail_unfused."""
+    if not _fused_tail(ctx, ksk):
+        return rotate_tail_unfused(ctx, s0, c2_pb, ksk)
+    return (rotate_tail_cuda(ctx, s0, c2_pb, ksk) if on_card(s0)
+            else rotate_tail_plain(ctx, s0, c2_pb, ksk))
 
 
 # ---------------------------------------------------------------------------
@@ -417,23 +424,19 @@ def ks_tail_cuda(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
     tb = ctx.tables
     tw = tb.pass_twiddles(False)
     cluster, threads, _ = kernels.tail_plan(d, n)
-    fn = kernels.function("ks_tail", "tpufhe_ks_tail", _KS_TAIL_ARGS)
-    kernels.count("ks_tail")
-    err = fn(kernels.ptr(c2_pb), kernels.ptr(out), rows_k, d, k, n, cluster,
-             threads, kernels.ptr(ksk.c0), kernels.ptr(ksk.c0_shoup),
-             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup), kernels.ptr(tw),
-             kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
-             kernels.ptr(tb.barrett_hi), kernels.stream())
-    kernels.check(err, "ks_tail")
+    kernels.launch("ks_tail", "tpufhe_ks_tail", _KS_TAIL_ARGS,
+                   kernels.ptr(c2_pb), kernels.ptr(out), rows_k, d, k, n,
+                   cluster, threads, kernels.ptr(ksk.c0),
+                   kernels.ptr(ksk.c0_shoup), kernels.ptr(ksk.c1),
+                   kernels.ptr(ksk.c1_shoup), kernels.ptr(tw),
+                   kernels.ptr(tb.p), kernels.ptr(tb.barrett_lo),
+                   kernels.ptr(tb.barrett_hi))
     return out
 
 
 def ks_tail(ctx: Context, c2_pb: torch.Tensor, ksk) -> torch.Tensor:
-    if c2_pb.device.type == "cuda":
-        return ks_tail_cuda(ctx, c2_pb, ksk)
-    if c2_pb.device.type != "cpu":
-        raise ValueError(f"ks_tail: unsupported device {c2_pb.device}")
-    return ks_tail_plain(ctx, c2_pb, ksk)
+    return (ks_tail_cuda(ctx, c2_pb, ksk) if on_card(c2_pb)
+            else ks_tail_plain(ctx, c2_pb, ksk))
 
 
 # ---------------------------------------------------------------------------
@@ -482,28 +485,21 @@ def ks_accumulate_cuda(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
     plane = lifted[0].numel()
     if plane == 0:
         return out
-    fn = kernels.function("ks_accumulate", "tpufhe_ks_accumulate",
-                          _KS_ACCUMULATE_ARGS)
-    kernels.count("ks_accumulate")
-    err = fn(kernels.ptr(lifted),
-             None if add0 is None else kernels.ptr(add0),
-             None if add1 is None else kernels.ptr(add1), kernels.ptr(out),
-             plane, digits, k, n, kernels.ptr(ksk.c0),
-             kernels.ptr(ksk.c0_shoup),
-             kernels.ptr(ksk.c1), kernels.ptr(ksk.c1_shoup),
-             kernels.ptr(ctx.tables.p), lifted.element_size(),
-             kernels.stream())
-    kernels.check(err, "ks_accumulate")
+    kernels.launch("ks_accumulate", "tpufhe_ks_accumulate",
+                   _KS_ACCUMULATE_ARGS, kernels.ptr(lifted),
+                   None if add0 is None else kernels.ptr(add0),
+                   None if add1 is None else kernels.ptr(add1),
+                   kernels.ptr(out), plane, digits, k, n, kernels.ptr(ksk.c0),
+                   kernels.ptr(ksk.c0_shoup), kernels.ptr(ksk.c1),
+                   kernels.ptr(ksk.c1_shoup), kernels.ptr(ctx.tables.p),
+                   lifted.element_size())
     return out
 
 
 def ks_accumulate(ctx: Context, lifted: torch.Tensor, ksk, add0=None,
                   add1=None) -> torch.Tensor:
-    if lifted.device.type == "cuda":
-        return ks_accumulate_cuda(ctx, lifted, ksk, add0, add1)
-    if lifted.device.type != "cpu":
-        raise ValueError(f"ks_accumulate: unsupported device {lifted.device}")
-    return ks_accumulate_plain(ctx, lifted, ksk, add0, add1)
+    return (ks_accumulate_cuda(ctx, lifted, ksk, add0, add1) if on_card(lifted)
+            else ks_accumulate_plain(ctx, lifted, ksk, add0, add1))
 
 
 def relin_tail_unfused(ctx: Context, dsc: torch.Tensor, ksk,
@@ -583,16 +579,6 @@ def relinearize(ctx: Context, ksk, c0: torch.Tensor, c1: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Programs
 # ---------------------------------------------------------------------------
-
-
-def _fused_tail(ctx: Context, ksk=None) -> bool:
-    """Whether the programs over ctx run the fused kernels K3, K4 and K5:
-    wide rows whose three rows of N words fit one block (K3's need; the
-    tails follow the same route). The tails K4 and K5 form Garner digits,
-    so a single-modulus key (ksk.log_base) takes the unfused tail."""
-    if ksk is not None and ksk.log_base:
-        return False
-    return not ctx.narrow and kernels.tail_fits(ctx.degree)
 
 
 @dataclass(frozen=True)
@@ -712,11 +698,7 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
     bwd = ntt_backward if ntt_bwd is None else ntt_bwd
     fused = _fused_tail(ctx) and not hooked
     key = ksk if const_slice is None else _key_block(ksk, const_slice)
-    if hooked:
-        tail = partial(relin_tail_unfused, ntt_fwd=fwd)
-    else:
-        tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
-    square = tensor32 if ctx.narrow else tensor
+    tail = partial(relin_tail_unfused, ntt_fwd=fwd) if hooked else relin_tail
 
     def new_limbs(x, x_pb):
         """The extend's new limbs k .. k_mul of x in the NTT domain, from
@@ -749,7 +731,7 @@ def make_mul_relin(par: BfvParameters, rk, level: int = 0,
             if fused:
                 t_pb = tensor_intt(ctx_mul, ext)
             else:
-                t_pb = bwd(ctx_mul, square(ctx_mul, *ext))
+                t_pb = bwd(ctx_mul, tensor(ctx_mul, *ext))
         dsc = mb.down.scale(t_pb, starting_index=0, size=k)
         with obs.span("mul_relin.relin", device=True):
             return tail(ctx, dsc, key)
@@ -773,17 +755,15 @@ def make_square_relin(par: BfvParameters, rk, level: int = 0):
     mb = mul_basis(par, level)
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
-    square = tensor32 if ctx.narrow else tensor
-    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
 
     def step(a0, a1):
         x = torch.stack([a0, a1])
         new_rows = scale_into(ctx_mul, mb.ext, ntt_backward(ctx, x), k,
                               k_mul - k, ntt=True)
         ext = torch.cat([x, new_rows], dim=-2)
-        t = square(ctx_mul, ext[0], ext[1], ext[0], ext[1])
+        t = tensor(ctx_mul, ext[0], ext[1], ext[0], ext[1])
         dsc = mb.down.scale(ntt_backward(ctx_mul, t), starting_index=0, size=k)
-        return tail(ctx, dsc, ksk)
+        return relin_tail(ctx, dsc, ksk)
 
     return step
 
@@ -912,12 +892,11 @@ def _rotate_stages(ctx: Context, exp: SubstitutionExponent, ksk) -> tuple:
             return ctx.add(state[0], ks[0]), ks[1]
 
         return keyswitch, down, finish
-    tail = rotate_tail if _fused_tail(ctx, ksk) else rotate_tail_unfused
 
     def rot(c0, c1):
         s0 = substitute(c0, exp, ntt=True)
         c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
-        return tail(ctx, s0, c2_pb, ksk)
+        return rotate_tail(ctx, s0, c2_pb, ksk)
 
     return rot, _same, _same
 
@@ -1082,7 +1061,6 @@ def make_pir_response_db(par: BfvParameters, rk, dim1: int, dim2: int,
     mb = mul_basis(par, level)
     ctx_mul = mb.ctx_mul
     k, k_mul = ctx.k, ctx_mul.k
-    tail = relin_tail if _fused_tail(ctx, ksk) else relin_tail_unfused
 
     def step(e0, e1, db):
         if e0.shape[0] < dim1 + dim2 or tuple(db.shape[:2]) != (dim1, dim2):
@@ -1106,7 +1084,7 @@ def make_pir_response_db(par: BfvParameters, rk, dim1: int, dim2: int,
                 dsc = mb.down.scale(ntt_backward(ctx_mul, t),
                                     starting_index=0, size=k)
             with obs.span("pir_response.relin"):
-                return tail(ctx, dsc, ksk)
+                return relin_tail(ctx, dsc, ksk)
 
     return step
 

@@ -23,18 +23,15 @@ import numpy as np
 import torch
 
 from tpufhe_torch import kernels
+from tpufhe_torch.device import on_card
 from tpufhe_torch.errors import SerializationError
 from tpufhe_torch.utils.obs import count
-
-
-def _on_card(device: torch.device) -> bool:
-    return device.type == "cuda"
 
 
 def pack(ctx, x: torch.Tensor) -> np.ndarray:
     """The (m, row bytes) uint8 payloads of the (m, k, N) canonical words
     x of ctx, on the card by rq_pack where x lies there."""
-    if _on_card(x.device):
+    if on_card(x):
         count("wire.card_rows", x.shape[0])
         return pack_cuda(ctx, x)
     count("wire.host_rows", x.shape[0])
@@ -46,7 +43,7 @@ def unpack(ctx, payloads: list) -> torch.Tensor:
     the length encode gives them), on the card by rq_unpack where ctx
     lies there; SerializationError if a residue is not below its
     modulus."""
-    if _on_card(ctx.device):
+    if on_card(ctx.device):
         count("wire.card_rows", len(payloads))
         return unpack_cuda(ctx, payloads)
     count("wire.host_rows", len(payloads))
@@ -78,23 +75,11 @@ def unpack_plain(ctx, payloads: list) -> torch.Tensor:
     return torch.from_numpy(words).to(ctx.device)
 
 
-# the C entry points (csrc/rq_pack.cu), their argument types set once for
-# each loader (kernels.function, or one put in its place)
+# the C entry points' argument types (csrc/rq_pack.cu)
 _PACK_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
               ctypes.c_longlong] + [ctypes.c_void_p] * 5
 _UNPACK_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_longlong] + [ctypes.c_void_p] * 6
-_LAUNCHERS: dict = {}
-
-
-def _launcher(name: str):
-    key = (name, kernels.function)
-    fn = _LAUNCHERS.get(key)
-    if fn is None:
-        fn = _LAUNCHERS[key] = kernels.function(
-            name, f"tpufhe_{name}",
-            _PACK_ARGS if name == "rq_pack" else _UNPACK_ARGS)
-    return fn
 
 
 @functools.lru_cache(maxsize=64)
@@ -157,10 +142,9 @@ def rq_pack_cuda(ctx, x: torch.Tensor) -> torch.Tensor:
     c_nbits, _, nbits = _limbs(tuple(ctx.moduli))
     out = torch.empty((m * _row_bytes(nbits, n) + 7) // 8 + 1,
                       dtype=torch.int64, device=x.device)
-    kernels.count("rq_pack")
-    kernels.check(_launcher("rq_pack")(
-        x.element_size(), m, k, n, c_nbits, x.data_ptr(), out.data_ptr(),
-        out[-1:].data_ptr(), kernels.stream()), "rq_pack")
+    kernels.launch("rq_pack", "tpufhe_rq_pack", _PACK_ARGS, x.element_size(),
+                   m, k, n, c_nbits, x.data_ptr(), out.data_ptr(),
+                   out[-1:].data_ptr())
     return out
 
 
@@ -177,9 +161,7 @@ def rq_unpack_cuda(ctx, packed: torch.Tensor, m: int) -> torch.Tensor:
                          f"{m} rows of the context's and the flag")
     out = torch.empty((m, ctx.k, n), device=packed.device,
                       dtype=torch.int32 if ctx.narrow else torch.int64)
-    kernels.count("rq_unpack")
-    kernels.check(_launcher("rq_unpack")(
-        out.element_size(), m, ctx.k, n, c_nbits, c_moduli,
-        packed.data_ptr(), out.data_ptr(), packed[-1:].data_ptr(),
-        kernels.stream()), "rq_unpack")
+    kernels.launch("rq_unpack", "tpufhe_rq_unpack", _UNPACK_ARGS,
+                   out.element_size(), m, ctx.k, n, c_nbits, c_moduli,
+                   packed.data_ptr(), out.data_ptr(), packed[-1:].data_ptr())
     return out
