@@ -5,7 +5,7 @@
 Phases, in order; any failure exits nonzero before the last line:
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile the fifteen CUDA kernels (one nvcc per kernel, in
+2. build: compile the sixteen CUDA kernels (one nvcc per kernel, in
    parallel; ks_tail from relin_tail.cu, beside K4, and rq_unpack from
    rq_pack.cu, beside rq_pack) and the native
    ChaCha8 / CBD sampler (g++); fails if either does not build;
@@ -14,10 +14,13 @@ Phases, in order; any failure exits nonzero before the last line:
    62-bit products, ops/zq.py on the card, whose digit chains are its
    plain versions; the other kernels' plain versions take it for their
    products) at MulPIR's switch-down, (2, L, 16, 2, 8192) rows by a
-   (2, 1) column, and fold, (L, 16, 2, 8192) rows by a (2, 8192)
-   monomial, for every L from 1 to 64, and at innerprod-b64's ct_mul_pt,
-   (64, 4, 8192) by a (4, 8192) plaintext, then one inner-product step
-   recorded (zq_mul 2); ntt, rns_scale and
+   (2, 1) column, for every L from 1 to 64, and at innerprod-b64's
+   ct_mul_pt, (64, 4, 8192) by a (4, 8192) plaintext, then one
+   inner-product step recorded (zq_mul 2); expand_fold (the expansion's
+   fold) at mulpir-q16's doublings, (L, 16, 2, 8192) parts over the
+   level-1 moduli by the level's monomial, L = 1, 2, 4, ..., 64, with the
+   leveled key's addend, and at L = 64 without it, each beside its bytes
+   bound; ntt, rns_scale and
    tensor_intt at the shapes of the N = 8192, L = 3 x 62-bit, batch-64
    mul+relin; relin_tail at that mul+relin's (3, 64, 3, 8192), at phase
    13's 8 x 62-bit (3, 16, 8, 8192) and at BASELINE config 2's ring
@@ -74,7 +77,8 @@ Phases, in order; any failure exits nonzero before the last line:
    at 58 terms x 57 columns, ntt, rns_scale, relin_tail), with ct_pt_dot's
    launch plans, and a batch of 16 queries as the benchmark's mulpir-q16
    serves it (expansion, response, the answer switched to the last level:
-   zq_mul 22), then that batch's wire path as mulpir-q16 serves it (its 16
+   zq_mul 8, expand_fold 7), then that batch's wire path as mulpir-q16
+   serves it (its 16
    queries, (1, 2, 8192) at 50/55 bits, parsed and its 16 answers,
    (2, 1, 8192) at 50 bits, serialized: rq_unpack 16, rq_pack 16, ntt
    32) and a Galois key's round trip, each call of rq_pack and rq_unpack
@@ -120,7 +124,8 @@ Phases, in order; any failure exits nonzero before the last line:
    32 SIMD and 4 poly ciphertexts; a column rotation by 1 of all 32, the
    inner sum of the first 16 and the expansion of the 4 into 16 each, each
    run with the launch counters set to 0 just before it (exact counts of
-   ntt and rotate_tail, and the expansion's zq_mul 8); every slot of every output is checked after
+   ntt and rotate_tail, and the expansion's expand_fold 4); every slot of
+   every output is checked after
    decryption, and the noise printed;
 7. rates: chained batch-32 rotations and batch-16 inner sums, timed with
    CUDA events;
@@ -190,7 +195,8 @@ Phases, in order; any failure exits nonzero before the last line:
     slots, built on the card by encode_pir_database: ntt 2), keys at
     level 0, an expansion of 4 levels; make_pir_response on a batch of 4
     queries, each selecting its own cell, held to its exact counts (ntt
-    12, ks_accumulate 5, rns_scale 2, ct_pt_dot 4, zq_mul 8), every slot
+    12, ks_accumulate 5, rns_scale 2, ct_pt_dot 4, expand_fold 4), every
+    slot
     of every
     answer checked against its cell, the noise printed, chained responses
     timed (PIR responses/s);
@@ -201,7 +207,8 @@ Phases, in order; any failure exits nonzero before the last line:
     1); the query at level 1, the expansion keys for level 1 held at level
     0, the relinearization key at level 1 (keygen and upload on the host
     clock); for two queries make_expand(level=1) (7 leveled doublings:
-    ntt 21, ks_tail 7, zq_mul 21) and make_pir_response_db(level=1)
+    ntt 21, ks_tail 7, zq_mul 7, expand_fold 7) and
+    make_pir_response_db(level=1)
     (ct_pt_dot
     4, ntt 3, rns_scale 2, relin_tail 1), each held to its exact counts,
     the answer switched to the last level and all 8192 coefficients
@@ -238,7 +245,8 @@ Phases, in order; any failure exits nonzero before the last line:
     (repeat=2: the seeded index and, warm, index + 1) and run_sealpir at
     65,536 x 1 KiB, N = 8192, MulPIR's t and moduli, each element byte
     for byte, each server phase of each query held to its exact counts
-    (MulPIR expand ntt 21, ks_tail 7, zq_mul 21, response ct_pt_dot 4,
+    (MulPIR expand ntt 21, ks_tail 7, zq_mul 7, expand_fold 7, response
+    ct_pt_dot 4,
     ntt 5, rns_scale 2, relin_tail 1, zq_mul 1; SealPIR expand the same,
     dot1 ct_pt_dot 1, ntt 2, zq_mul 1, fold none, dot2 ntt 3, ct_pt_dot
     1, zq_mul 1), the report printed; the
@@ -289,7 +297,7 @@ Phases, in order; any failure exits nonzero before the last line:
     phase 12's make_mul_relin output (every slot decrypted) and phase 4's;
     ms per step per rank and the all_gathers' share by CUDA events.
 
-The second-to-last line is {"kernels": [...]} (fifteen entries; relin_tail
+The second-to-last line is {"kernels": [...]} (sixteen entries; relin_tail
 and rotate_tail also carry unfused_ms, cluster, blocks_per_sm and
 clusters, ntt, tensor_intt, intt_scale and ntt32 their plan, intt_scale
 its split_ms; other_shapes holds each program's records, those of
@@ -432,13 +440,13 @@ PIR_SEED = SEED + 10
 PIR_DIMS = (8, 8)
 PIR_BATCH = 4
 PIR_RATE_STEPS = 8
-# expansion (ntt 2 + ks_accumulate 1 a level, and the fold's two Shoup
-# products), the first dimension and the
+# expansion (ntt 2 + ks_accumulate 1 a level, and the fold,
+# expand_fold 1), the first dimension and the
 # three second-dimension dot products (ct_pt_dot 4), the extend (ntt 2,
 # rns_scale 1), the down-scale (ntt 1, rns_scale 1), the unfused
 # relinearization (ntt 1, ks_accumulate 1)
 PIR_LAUNCHES = {"ntt": 12, "ks_accumulate": 5, "rns_scale": 2, "ct_pt_dot": 4,
-                "zq_mul": 8}
+                "expand_fold": 4}
 # SIMD rows: the inverse NTT over t, then the forward over q
 PIR_DB_LAUNCHES = {"ntt": 2}
 # phase 20: MulPIR at its own configuration (tpufhe/models/pir.py:69-77,
@@ -459,17 +467,18 @@ MULPIR_REPS = 5
 # each of the 7 leveled doublings: K1 inverse, ks_tail (the key switch of
 # the 2 digit rows over the key's 3 moduli), K1 inverse there, the
 # switch-down (its Shoup product), K1 forward over the ciphertext's 2, the
-# fold (two Shoup products by the monomial)
-MULPIR_EXPAND_LAUNCHES = {"ntt": 21, "ks_tail": 7, "zq_mul": 21}
+# fold (expand_fold)
+MULPIR_EXPAND_LAUNCHES = {"ntt": 21, "ks_tail": 7, "zq_mul": 7,
+                          "expand_fold": 7}
 # ct_pt_dot 4, the extend (ntt 2, rns_scale 1), the down-scale (ntt 1,
 # rns_scale 1), the relinearization on K4 (N = 8192)
 MULPIR_RESPONSE_LAUNCHES = {"ct_pt_dot": 4, "ntt": 3, "rns_scale": 2,
                             "relin_tail": 1}
 MULPIR_DB_LAUNCHES = {"ntt": 1}
 # mulpir-q16's batch of 16 queries as the benchmark serves it: the
-# expansion (7 doublings: a Shoup product in the switch-down, two in the
-# fold), the response and the switch of its answer to the last level (ntt
-# 2, a Shoup product in the switch-down)
+# expansion (7 doublings: a Shoup product in the switch-down, the fold on
+# expand_fold), the response and the switch of its answer to the last level
+# (ntt 2, a Shoup product in the switch-down)
 MULPIR_BATCH = 16
 # the batch's wire path (mulpir-q16's): a K1 forward and an rq_unpack a
 # query parsed, a K1 inverse and an rq_pack an answer serialized
@@ -478,13 +487,15 @@ MULPIR_WIRE_LAUNCHES = {"ntt": 2 * MULPIR_BATCH, "rq_unpack": MULPIR_BATCH,
 # to_bytes and from_bytes timed per call, each route
 WIRE_CALL_REPS = 20
 MULPIR_BATCH_LAUNCHES = {"ntt": 26, "ks_tail": 7, "ct_pt_dot": 4,
-                         "rns_scale": 2, "relin_tail": 1, "zq_mul": 22}
+                         "rns_scale": 2, "relin_tail": 1, "zq_mul": 8,
+                         "expand_fold": 7}
 # phase 3's zq_mul (the glue's 62-bit products) at the shapes of the
 # benchmark's glue-bound cells: MulPIR's switch-down, (2, L, 16, 2, 8192)
-# rows by a (2, 1) column, and fold, (L, 16, 2, 8192) rows by a (2, 8192)
-# monomial, at every L from 1 to 64 (a batch of 16 holds 2^l ciphertexts
-# at doubling l), and innerprod-b64's step product, ct_mul_pt of
-# (64, 4, 8192) parts by a (4, 8192) plaintext: 2 Barrett products
+# rows by a (2, 1) column, at every L from 1 to 64 (a batch of 16 holds
+# 2^l ciphertexts at doubling l), and innerprod-b64's step product,
+# ct_mul_pt of (64, 4, 8192) parts by a (4, 8192) plaintext: 2 Barrett
+# products; and expand_fold at the fold of each of MulPIR's 7 doublings,
+# (2^l, 16, 2, 8192)
 ZQ_FOLD_MAX = 64
 IP_BATCH = 64
 IP_LAUNCHES = {"zq_mul": 2}
@@ -1696,34 +1707,27 @@ def wire_calls(m: SimpleNamespace, answer, card: str) -> dict:
 def check_zq_mul_kernels(par_mulpir, par_ip, gen, int32_rate: float) -> dict:
     """Phase 3, zq_mul at the benchmark's glue-bound shapes (ZQ_FOLD_MAX):
     MulPIR's switch-down (its q_last^-1 column over the level-1 moduli of
-    50 and 55 bits) and fold (a random monomial row with its Shoup
-    constants) at every L from 1 to 64, and innerprod-b64's ct_mul_pt;
+    50 and 55 bits) at every L from 1 to 64, and innerprod-b64's ct_mul_pt;
     then one inner-product step's ct_mul_pt on a (64, 4, 8192) ciphertext
     recorded (KernelRecorder) and held to IP_LAUNCHES and, call by call,
     to its plain version. Returns {label: record}."""
     from tpufhe_torch.bfv import Ciphertext, Encoding, Plaintext
     from tpufhe_torch.bfv.ops import ct_mul_pt
-    from tpufhe_torch.ops.rq import _switch_tables, shoup_of
+    from tpufhe_torch.ops.rq import _switch_tables
 
     ctx0, ctx1 = par_mulpir.context_at_level(0), par_mulpir.context_at_level(1)
     k, n = ctx1.k, ctx1.degree
     inv, inv_shoup, _ = _switch_tables(ctx0)
-    mono = rand_residues((k, n), ctx1.tables.p, gen)
-    mono_shoup = shoup_of(mono, ctx1.moduli)
     down = rand_residues((2, ZQ_FOLD_MAX, MULPIR_BATCH, k, n), ctx1.tables.p,
                          gen)
-    fold = rand_residues((ZQ_FOLD_MAX, MULPIR_BATCH, k, n), ctx1.tables.p, gen)
     out = {}
     for size in range(1, ZQ_FOLD_MAX + 1):
         rows = down[:, :size].contiguous()
         out[f"switch_down_L{size}"] = run_cases(
             "zq_mul", [zq_case("switch-down", rows, inv, inv_shoup,
                                ctx1.mod)], int32_rate, "per call")
-        out[f"fold_L{size}"] = run_cases(
-            "zq_mul", [zq_case("fold", fold[:size], mono, mono_shoup,
-                               ctx1.mod)], int32_rate, "per call")
         del rows
-    del down, fold
+    del down
     ctx = par_ip.context_at_level(0)
     parts = [rand_residues((IP_BATCH, ctx.k, ctx.degree), ctx.tables.p, gen)
              for _ in range(2)]
@@ -1737,6 +1741,53 @@ def check_zq_mul_kernels(par_mulpir, par_ip, gen, int32_rate: float) -> dict:
         ct_mul_pt(Ciphertext(par_ip, parts, 0), weights)
     out["ip_step"] = check_recorded(rec, int32_rate, "per inner-product step",
                                     IP_LAUNCHES)["zq_mul"]
+    return out
+
+
+def fold_case(label, ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+    """A run_cases item for expand_fold: both parts' fold of a doubling
+    against its plain version (zq add, sub, mul_shoup, cat). Bytes: each
+    streamed operand's words read once (cur0, cur1, s0, ks1, and ks0 where
+    there is an addend), both parts' two halves written once, the
+    monomial's two rows and the moduli; one Shoup product a word of each
+    part."""
+    from tpufhe_torch import pipeline
+
+    args = (ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup)
+    words = cur0.numel()
+    streamed = 4 + (ks0 is not None) + 4
+    return (f"{label} {tuple(cur0.shape)}"
+            f"{'' if ks0 is not None else ' without the addend'}",
+            lambda: pipeline.expand_fold_cuda(*args),
+            lambda: pipeline.expand_fold_plain(*args),
+            8 * (streamed * words + 2 * mono.numel() + ctx.k),
+            2 * words * SHOUP)
+
+
+def check_expand_fold_kernels(par_mulpir, gen, int32_rate: float) -> dict:
+    """Phase 3, expand_fold at mulpir-q16's doublings: (L, 16, 2, 8192)
+    parts over the level-1 moduli of 50 and 55 bits and the doubling's own
+    monomial x^{-L} with its Shoup constants, L = 1, 2, ..., 64, with the
+    leveled key's addend (s0 + ks0), and at L = 64 without it (a key at
+    the ciphertexts' level); each torch.equal to its plain version and
+    timed beside its bytes bound. Returns {label: record}."""
+    from tpufhe_torch.bfv.keys.evaluation_key import monomials
+
+    ctx = par_mulpir.context_at_level(1)
+    monos = monomials(ctx)
+    parts = rand_residues((5, ZQ_FOLD_MAX, MULPIR_BATCH, ctx.k, ctx.degree),
+                          ctx.tables.p, gen)
+    out = {}
+    for l in range(ZQ_FOLD_MAX.bit_length()):
+        size = 1 << l
+        cur0, cur1, s0, ks0, ks1 = (x[:size] for x in parts)
+        out[f"fold_L{size}"] = run_cases("expand_fold", [fold_case(
+            f"doubling {l}", ctx, cur0, cur1, s0, ks0, ks1, *monos[l])],
+            int32_rate, "per doubling")
+    out[f"fold_L{size}_no_addend"] = run_cases("expand_fold", [fold_case(
+        f"doubling {l}", ctx, cur0, cur1, s0, None, ks1, *monos[l])],
+        int32_rate, "per doubling")
+    del parts
     return out
 
 
@@ -1934,7 +1985,7 @@ def rotation_path(par) -> dict:
     (c0, c1), launches = run_program(
         f"expand to {size}, batch {EXPAND_BATCH}", expand, (p0, p1),
         {"ntt": EXPAND_LEVEL, "rotate_tail": EXPAND_LEVEL,
-         "zq_mul": 2 * EXPAND_LEVEL})
+         "expand_fold": EXPAND_LEVEL})
     if tuple(c0.shape) != (size, EXPAND_BATCH, par.context_at_level(0).k, n):
         raise SystemExit(f"expansion: unexpected shape {tuple(c0.shape)}")
     want = np.zeros((size, EXPAND_BATCH, n), dtype=np.uint64)
@@ -2891,8 +2942,8 @@ class KernelRecorder:
     options), with the number of calls of that signature: phase 3 holds
     each against its plain version at the program's own shapes
     (check_recorded): ntt, ntt32, rns_scale, ks_accumulate, ct_pt_dot,
-    relin_tail, tensor, rotate_tail, tensor_intt, ks_tail, zq_mul, rq_pack
-    and rq_unpack. The
+    relin_tail, tensor, rotate_tail, tensor_intt, ks_tail, zq_mul,
+    expand_fold, rq_pack and rq_unpack. The
     second dimension's input is kept too, to
     time its two routes. The launch counters are set to 0 on entry and read on
     exit (launches), so a kernel call the recorder missed shows."""
@@ -2927,8 +2978,8 @@ class KernelRecorder:
                    (pipeline, "_second_dimension"),
                    (pipeline, "tensor_cuda"), (pipeline, "rotate_tail_cuda"),
                    (pipeline, "tensor_intt_cuda"), (pipeline, "ks_tail_cuda"),
-                   (zq, "mul_cuda"), (rq_pack, "rq_pack_cuda"),
-                   (rq_pack, "rq_unpack_cuda")]
+                   (zq, "mul_cuda"), (pipeline, "expand_fold_cuda"),
+                   (rq_pack, "rq_pack_cuda"), (rq_pack, "rq_unpack_cuda")]
         self._saved = [(owner, name, getattr(owner, name))
                        for owner, name in targets]
         orig = {name: fn for _, name, fn in self._saved}
@@ -3004,6 +3055,13 @@ class KernelRecorder:
                     lambda: zq_case(label, a, b, b_shoup, m))
             return orig["mul_cuda"](a, b, b_shoup, m)
 
+        def fold(ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+            args = (ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup)
+            rec.add("expand_fold", (tuple(cur0.shape), id(ctx), ks0 is None,
+                                    id(mono)),
+                    lambda: fold_case(label, *args))
+            return orig["expand_fold_cuda"](*args)
+
         def pack(ctx, x):
             rec.add("rq_pack", (tuple(x.shape), x.dtype, tuple(ctx.moduli)),
                     lambda: rq_pack_case(label, ctx, x))
@@ -3019,8 +3077,8 @@ class KernelRecorder:
                                                       dot_kernel, relin,
                                                       second, tensor,
                                                       rotate, tensor_intt,
-                                                      ks_tail, zq_mul, pack,
-                                                      unpack)):
+                                                      ks_tail, zq_mul, fold,
+                                                      pack, unpack)):
             setattr(owner, name, fn)
         kernels.reset_launches()
         return self
@@ -4856,6 +4914,7 @@ def main() -> int:
                                      "n16k": par_16k.context_at_level(0)},
                                     gen, int32_rate)
     zq_records = check_zq_mul_kernels(par_mulpir, par_rot, gen, int32_rate)
+    fold_records = check_expand_fold_kernels(par_mulpir, gen, int32_rate)
     pir = pir_setup(par_16k)
     pir_records, pir_routes = pir_kernels(pir, int32_rate, card)
     mulpir = mulpir_setup(par_mulpir)
@@ -5011,6 +5070,8 @@ def main() -> int:
         "ks_tail", ks_tail_records["ks_tail_mulpir"])
     # zq_mul: its calls in phase 3's recorded MulPIR batch of 16
     records["zq_mul"] = mulpir_records["mulpir_batch"]["zq_mul"]
+    # expand_fold: its calls in that batch (one a doubling)
+    records["expand_fold"] = mulpir_records["mulpir_batch"]["expand_fold"]
     # rq_pack, rq_unpack: their calls in that batch's recorded wire path
     for name in ("rq_pack", "rq_unpack"):
         records[name] = mulpir_records["mulpir_wire"][name]
@@ -5030,6 +5091,8 @@ def main() -> int:
                         path_launches["mulpir_expansion"]),
             "zq_mul": (f"MulPIR batch of {MULPIR_BATCH} (phase 3)",
                        mulpir.batch_launches),
+            "expand_fold": (f"MulPIR batch of {MULPIR_BATCH} (phase 3)",
+                            mulpir.batch_launches),
             "rq_pack": (f"MulPIR batch of {MULPIR_BATCH}'s wire path "
                         f"(phase 3)", mulpir.wire_launches),
             "rq_unpack": (f"MulPIR batch of {MULPIR_BATCH}'s wire path "
@@ -5058,6 +5121,7 @@ def main() -> int:
         "ks_tail": {label: rec for label, rec in ks_tail_records.items()
                     if label.startswith("ks_tail_")},
         "zq_mul": zq_records,
+        "expand_fold": fold_records,
         "rq_pack": {},
         "rq_unpack": {},
         "tensor_intt": {f"strategy2_kp{kp}":

@@ -23,7 +23,11 @@ whole row's transform, and zq_mul (zq_mul.cu) in both modes over 50-,
 55- and 62-bit moduli at every broadcast pattern the glue passes it, its
 edge words, rows of odd length and rows off a 16-byte boundary, equal to
 the digit chains and to exact integer products, and inside MulPIR's
-expansion, switch-down and a product by a plaintext, and rq_pack /
+expansion, switch-down and a product by a plaintext, expand_fold
+(expand_fold.cu), the expansion's fold, on both routes (with and
+without the addend) over 50-, 55- and 62-bit moduli, its edge words and
+rows off a 16-byte boundary, and inside make_expand at MulPIR's shape,
+and rq_pack /
 rq_unpack (rq_pack.cu), the wire codec's residue transcode, byte for byte
 against the host transcode at every width from 1 to 62 bits, mixed
 widths, narrow rows, streams off an 8-byte boundary, the range flag, and
@@ -63,7 +67,7 @@ from tpufhe_torch.utils.rngs import ChaCha8Rng, seed_from_u64
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 SOURCES = ("ntt", "tensor_intt", "relin_tail", "rotate_tail", "ntt32",
            "intt_scale", "ct_pt_dot", "ks_accumulate", "ntt_dist", "zq_mul",
-           "rq_pack")
+           "rq_pack", "expand_fold")
 # the sources that launch with <<<>>>, rewritten for g++ before the build
 CHEVRON = ("ks_accumulate", "ntt_dist")
 
@@ -642,6 +646,189 @@ def test_zq_mul_kernel_serves_the_glue_bound_cells(on_host, monkeypatch):
         assert len(got) == len(want[name])
         assert all(torch.equal(x, y) for x, y in zip(got, want[name]))
         assert on_host["zq_mul"] == launches
+
+
+# expand_fold: (degree, limbs, ciphertexts L, batch B, bits of the moduli)
+# of the doubling folds held against the plain version, each with and
+# without the addend: one limb to three, N = 16 to 8192, L = 1 to 64
+FOLD_CASES = [(16, 1, 1, 1, 62), (16, 3, 64, 16, 50), (64, 2, 8, 16, 55),
+              (1024, 2, 32, 1, 62), (8192, 2, 1, 1, 55), (8192, 1, 2, 4, 62),
+              (8192, 3, 1, 2, 50)]
+
+
+def _fold_operands(n, k, l, b, bits, addend, seed):
+    """(ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup) of a fold of L
+    ciphertexts of B rows: canonical words, ks0 None without the addend.
+    The first five columns of every row hold edge words: a subtrahend
+    above cur (0 against p - 1), p - 1 against p - 1, p - 1 against 0,
+    0 against 0, and s0 + ks0 wrapping past p (p - 1 + p - 1)."""
+    ctx = _context(n, k, bits)
+    rng = np.random.default_rng(seed)
+    p = np.array(ctx.moduli, np.uint64)[:, None]
+
+    def words(shape):
+        return rng.integers(0, 1 << 62, shape, dtype=np.uint64) % p
+
+    cur0, cur1, s0, ks0, ks1 = (words((l, b, k, n)) for _ in range(5))
+    edges = np.array([[0, p_ - 1, p_ - 1, 0, p_ - 3] for p_ in p[:, 0]],
+                     np.uint64)  # cur
+    subs = np.array([[p_ - 1, p_ - 1, 0, 0, p_ - 1] for p_ in p[:, 0]],
+                    np.uint64)  # s0 and ks1
+    for cur in (cur0, cur1):
+        cur[..., :5] = edges
+    s0[..., :5], ks1[..., :5] = subs, subs
+    ks0[..., :5] = subs * np.array([0, 0, 0, 0, 1], np.uint64)
+    mono = words((k, n))
+    mono[:, 0] = p[:, 0] - 1
+    t = [torch.from_numpy(x.astype(np.int64))
+         for x in (cur0, cur1, s0, ks0, ks1, mono)]
+    if not addend:
+        t[3] = None
+    return (ctx, *t, shoup_of(t[5], ctx.moduli))
+
+
+def _fold_exact(ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+    """The fold word by word in Python integers: both parts' rows."""
+    p = np.array(ctx.moduli, dtype=object)[:, None]
+    m = mono.numpy().astype(object)
+    out = []
+    for cur, sub, add in ((cur0, s0, ks0), (cur1, ks1, None)):
+        c, s = cur.numpy().astype(object), sub.numpy().astype(object)
+        if add is not None:
+            s = (s + add.numpy().astype(object)) % p
+        out.append(np.concatenate([(c + s) % p, (c - s) % p * m % p]).tolist())
+    return out
+
+
+@pytest.mark.parametrize("addend", [True, False])
+@pytest.mark.parametrize("n,k,l,b,bits", FOLD_CASES)
+def test_expand_fold_kernel_matches_plain(on_host, n, k, l, b, bits, addend):
+    """Both parts of a doubling's fold word for word against
+    expand_fold_plain (zq add, sub, mul_shoup and cat), in one launch; at
+    the smallest case also against exact integers."""
+    ops = _fold_operands(n, k, l, b, bits, addend, n + k + l + b + bits)
+    got = tpl.expand_fold_cuda(*ops)
+    want = tpl.expand_fold_plain(*ops)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2 * l, b, k, n) and g.is_contiguous()
+        assert torch.equal(g, w)
+    if n * l * b <= 16:
+        assert [g.tolist() for g in got] == _fold_exact(*ops)
+    assert on_host["expand_fold"] == 1
+
+
+def _fold_plan(emulated, ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+    """The words a thread takes in expand_fold's launch on these
+    operands (outputs allocated aligned, as torch.empty does)."""
+    fn = emulated["expand_fold"].tpufhe_expand_fold_plan
+    fn.argtypes = tpl._EXPAND_FOLD_ARGS
+    out = torch.empty((2, 2) + tuple(cur0.shape), dtype=torch.int64)
+    plan = (ctypes.c_longlong * 1)()
+    ptr = [None if t is None else t.data_ptr()
+           for t in (cur0, cur1, s0, ks0, ks1, mono, mono_shoup)]
+    assert fn(cur0.numel(), ctx.k, ctx.degree, *ptr, ctx.tables.p.data_ptr(),
+              out[0].data_ptr(), out[1].data_ptr(), plan) == 0
+    return plan[0]
+
+
+def _shifted(x):
+    """A contiguous copy of x whose first word is 8 bytes past a 16-byte
+    boundary."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    assert y.data_ptr() % 16 == 8
+    return y.copy_(x)
+
+
+@pytest.mark.parametrize("which", [0, 2, 3, 5])
+def test_expand_fold_kernel_takes_rows_off_a_16_byte_boundary(
+        on_host, emulated, which):
+    """An operand (cur0, s0, ks0 or the monomial) 8 bytes past a 16-byte
+    boundary: one word a thread, scalar accesses (two where every
+    operand is aligned), and the same words."""
+    ops = list(_fold_operands(64, 2, 4, 2, 62, True, 11 + which))
+    want = tpl.expand_fold_plain(*ops)
+    assert _fold_plan(emulated, *ops) == 2
+    ops[1 + which] = _shifted(ops[1 + which])
+    assert _fold_plan(emulated, *ops) == 1
+    got = tpl.expand_fold_cuda(*ops)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert on_host["expand_fold"] == 1
+
+
+def test_expand_fold_kernel_refuses_mismatched_operands(on_host):
+    """Operands of other shapes, or a monomial of another degree, raise
+    before any launch."""
+    ctx, *ops = _fold_operands(16, 2, 2, 1, 62, True, 5)
+    bad = list(ops)
+    bad[2] = ops[2][:1]
+    with pytest.raises(ValueError):
+        tpl.expand_fold_cuda(ctx, *bad)
+    bad = list(ops)
+    bad[5] = ops[5][:, :8].contiguous()
+    with pytest.raises(ValueError):
+        tpl.expand_fold_cuda(ctx, *bad)
+    assert on_host["expand_fold"] == 0
+
+
+@pytest.mark.parametrize("leveled", [True, False])
+def test_expand_fold_kernel_serves_make_expand(on_host, monkeypatch, leveled):
+    """One make_expand call into 2^7 ciphertexts each (at degree 128)
+    with the fold on the emulated kernel: leveled, at MulPIR's shape (a
+    batch of 16, moduli of 50, 55 and 55 bits, queries at level 1,
+    expansion keys at level 0, the fold adding the key switch to s0), and
+    with keys at the ciphertexts' level (a batch of 2 over 3 x 62 bits,
+    the rotation's c0 as it comes). Exactly one expand_fold launch a doubling, no glue.zq counter
+    inside a fold span, the glue outside them alone counted, and the
+    words of the plain route, which test_torch_galois and
+    test_torch_levels hold against tpufhe."""
+    from test_torch_obs import bfv_params, one_torch_thread
+
+    from tpufhe_torch.ops import zq as zq_mod
+
+    levels, batch, n = 7, 16 if leveled else 2, 128
+    rng = ChaCha8Rng(seed_from_u64(24))
+    par = bfv_params(n, 1785857 if leveled else 65537,
+                     [50, 55, 55] if leveled else [62, 62, 62])
+    level = 1 if leveled else 0
+    sk = T.SecretKey.random(par, rng)
+    ek = (T.EvaluationKeyBuilder(sk, ciphertext_level=level,
+                                 evaluation_key_level=0)
+          .enable_expansion(levels).build(rng))
+    cts = [sk.try_encrypt(T.Plaintext.try_encode(
+        [i + 1, 0, 2], T.Encoding.poly(level), par), rng)
+        for i in range(batch)]
+    c0 = torch.stack([ct[0] for ct in cts])
+    c1 = torch.stack([ct[1] for ct in cts])
+    expand = tpl.make_expand(par, ek, levels, level=level)
+    with one_torch_thread(), obs.recording() as plain_rec:
+        want = expand(c0, c1)
+    seen = []
+
+    def spy(name, k=1):
+        rec = obs._open
+        if rec is not None and not rec._quiet:
+            seen.append((name, tuple(rec._stack)))
+        count(name, k)
+
+    count = zq_mod.count
+    monkeypatch.setattr(zq_mod, "count", spy)
+    monkeypatch.setattr(tpl, "expand_fold_plain", tpl.expand_fold_cuda)
+    with one_torch_thread(), obs.recording() as rec:
+        got = expand(c0, c1)
+    assert on_host["expand_fold"] == levels
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].shape == (1 << levels, batch, 2 if leveled else 3, n)
+    names = {s.id: s.name for s in rec.spans}
+    assert sum(names[i] == "fold" for i in names) == levels
+    assert not [name for name, stack in seen
+                if any(names[i] == "fold" for i in stack)]
+    outside = {"glue.rq.substitute": 2 * levels}
+    if leveled:  # the switch-down's add, sub and Shoup product
+        outside.update({"rq.switch_down": levels, "glue.zq.add": levels,
+                        "glue.zq.sub": levels, "glue.zq.mul_shoup": levels})
+    counted = {k: v for k, v in rec.counters.items()
+               if not k.startswith("launch.")}
+    assert counted == outside == plain_rec.counters
 
 
 # rq_pack / rq_unpack: the residues of m messages of a context, packed

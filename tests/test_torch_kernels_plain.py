@@ -320,6 +320,8 @@ def _dispatch(case: str, s) -> None:
         "ks_tail": lambda: tpl.ks_tail(ctx, meta(2, k, n), key),
         "ks_accumulate": lambda: tpl.ks_accumulate(ctx, meta(k, 2, k, n),
                                                    key),
+        "expand_fold": lambda: tpl.expand_fold(
+            ctx, *[meta(1, 2, k, n)] * 5, meta(k, n), meta(k, n)),
     }
     calls[case]()
 
@@ -327,7 +329,7 @@ def _dispatch(case: str, s) -> None:
 DISPATCHERS = ("resolve_device", "ntt", "rns_scale", "intt_scale",
                "ct_pt_dot", "zq_mul", "zq_mul_shoup", "rq_pack", "rq_unpack",
                "ntt_dist", "tensor", "tensor_intt", "relin_tail",
-               "rotate_tail", "ks_tail", "ks_accumulate")
+               "rotate_tail", "ks_tail", "ks_accumulate", "expand_fold")
 
 
 @pytest.mark.parametrize("case", DISPATCHERS + ("launch", "launch_error"))

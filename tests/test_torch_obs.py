@@ -79,19 +79,19 @@ def programs():
 
 
 # the glue counters one call of each program implies: a leveled doubling
-# substitutes both parts, switches down (an add, a sub and a Shoup product
-# of rq.switch_down) and adds s0 back after its K1 forward, then folds (2
-# subs, 2 Shoup products, 2 adds); a doubling at the key's level rotates
-# by K1 + K5 (kernels) and folds; a rotation of the inner sum substitutes
-# both parts (K1 + K5) and adds both; mul+relin is kernels, stack and cat
+# substitutes both parts and switches down (an add, a sub and a Shoup
+# product of rq.switch_down), then its K1 forward and the fold (the add of
+# s0, the subs, Shoup products, adds and cat) are kernels (expand_fold);
+# a doubling at the key's level rotates by K1 + K5 and folds, all kernels
+# but the gathers; a rotation of the inner sum substitutes both parts
+# (K1 + K5) and adds both; mul+relin is kernels, stack and cat
 ROTATIONS = DEGREE.bit_length() - 1
 GLUE = {
     "expand_leveled": {"glue.rq.substitute": 2 * LEVELS,
-                       "glue.zq.add": 4 * LEVELS, "glue.zq.sub": 3 * LEVELS,
-                       "glue.zq.mul_shoup": 3 * LEVELS,
+                       "glue.zq.add": LEVELS, "glue.zq.sub": LEVELS,
+                       "glue.zq.mul_shoup": LEVELS,
                        "rq.switch_down": LEVELS},
-    "expand": {"glue.rq.substitute": 2 * LEVELS, "glue.zq.add": 2 * LEVELS,
-               "glue.zq.sub": 2 * LEVELS, "glue.zq.mul_shoup": 2 * LEVELS},
+    "expand": {"glue.rq.substitute": 2 * LEVELS},
     "inner_sum": {"glue.rq.substitute": 2 * ROTATIONS,
                   "glue.zq.add": 2 * ROTATIONS},
     "mul_relin": {},
@@ -274,16 +274,17 @@ def test_decorator_and_timeit_use_the_one_tracer(caplog):
 # the products (glue.zq.mul and glue.zq.mul_shoup, one zq_mul launch each
 # on the card) of what the benchmark's glue-bound cells serve, at degree
 # 128: a MulPIR batch of 16 (mulpir-q16: moduli of 50, 55 and 55 bits,
-# queries at level 1, expansion keys at level 0, seven doublings of 12 glue
-# calls, 3 of them Shoup products, then the response and its switch to
-# the last level, one switch-down of 3 calls) and the inner-product step's
-# product by the plaintext weights (innerprod-b64: a two-part ciphertext
-# over 4 x 62 bits)
+# queries at level 1, expansion keys at level 0, seven doublings of 5 glue
+# calls: two gathers and the switch-down's 3, one of them a Shoup product,
+# the fold being the kernel expand_fold; then the response and its switch
+# to the last level, one switch-down of 3 calls) and the inner-product
+# step's product by the plaintext weights (innerprod-b64: a two-part
+# ciphertext over 4 x 62 bits)
 MULPIR_LEVELS = 7
 MULPIR_GLUE = {"glue.rq.substitute": 2 * MULPIR_LEVELS,
-               "glue.zq.add": 4 * MULPIR_LEVELS + 1,
-               "glue.zq.sub": 3 * MULPIR_LEVELS + 1,
-               "glue.zq.mul_shoup": 3 * MULPIR_LEVELS + 1,
+               "glue.zq.add": MULPIR_LEVELS + 1,
+               "glue.zq.sub": MULPIR_LEVELS + 1,
+               "glue.zq.mul_shoup": MULPIR_LEVELS + 1,
                "rq.switch_down": MULPIR_LEVELS + 1}
 
 
@@ -349,13 +350,13 @@ def served():
 
 
 def test_served_programs_issue_the_cells_products(served):
-    """87 glue calls a MulPIR batch of 16, 22 of them Shoup products (the
-    cell's 5.4375 a query); 2 Barrett products an inner-product step."""
+    """38 glue calls a MulPIR batch of 16, 8 of them Shoup products (the
+    cell's 2.375 a query); 2 Barrett products an inner-product step."""
     with one_torch_thread(), obs.recording() as rec:
         served["mulpir_batch"]()
     assert rec.counters == MULPIR_GLUE
     assert sum(n for k, n in rec.counters.items()
-               if k.startswith("glue.")) == 87
+               if k.startswith("glue.")) == 38
     with obs.recording() as rec:
         served["ct_mul_pt"]()
     assert rec.counters == {"glue.zq.mul": 2}

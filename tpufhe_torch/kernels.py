@@ -75,6 +75,11 @@ KERNELS = {
     # mul_shoup on the card) are XLA code in tpufhe
     "zq_mul": ("zq_mul.cu",
                "tpufhe/ops/zq.py mul_mod and mul_shoup (XLA)"),
+    # no Pallas counterpart: the expansion's fold (the add after a leveled
+    # key switch, the subtractions, the products by the monomial and the
+    # concatenation) is XLA code in tpufhe
+    "expand_fold": ("expand_fold.cu",
+                    "tpufhe/pipeline.py:843 build_expand_step (XLA)"),
     # no Pallas counterpart: the wire codec's residue transcode, both
     # directions in one source, each its own entry so that the launch
     # counts tell them apart

@@ -9,8 +9,8 @@ Two halves:
 - Elementwise ops on ``torch.int64`` tensors holding one residue per
   word: ``add``, ``sub``, ``neg``, ``mul`` and ``mul_shoup`` mod p. They are
   the glue around the CUDA kernels (encryption's e - a*s + m, the decryption
-  phase, the key-switch digits, the expansion's switch-down and fold) and
-  the arithmetic of every kernel's plain version.
+  phase, the key-switch digits, the expansion's switch-down) and the
+  arithmetic of every kernel's plain version.
 
 On CUDA tensors ``mul`` and ``mul_shoup`` launch the kernel zq_mul
 (csrc/zq_mul.cu: one pass, 64 x 64 -> 128-bit products) and raise where it

@@ -54,8 +54,9 @@ Launches: ntt32 4, rns_scale 2 and ks_accumulate 1 per mul+relin or
 square, ntt32 2 and ks_accumulate 1 per rotation.
 
 Tensors are (..., k, N) on the parameters' device, int64 (int32 when
-narrow); leading dimensions are the batch. K3, K4, K5, K7 and
-ks_accumulate sit in this module beside their plain versions.
+narrow); leading dimensions are the batch. K3, K4, K5, K7,
+ks_accumulate and expand_fold (the expansion's fold, one launch a
+doubling of make_expand) sit in this module beside their plain versions.
 """
 
 from __future__ import annotations
@@ -858,7 +859,8 @@ def _rotate_step(ctx: Context, exp: SubstitutionExponent, ksk):
     keyswitch, down, finish = _rotate_stages(ctx, exp, ksk)
 
     def rot(c0, c1):
-        return finish(down(keyswitch(c0, c1)))
+        s0, ks0, r1 = finish(down(keyswitch(c0, c1)))
+        return (s0 if ks0 is None else ctx.add(s0, ks0)), r1
 
     return rot
 
@@ -867,14 +869,19 @@ def _same(state):
     return state
 
 
+def _rotated(state):
+    return state[0], None, state[1]
+
+
 def _rotate_stages(ctx: Context, exp: SubstitutionExponent, ksk) -> tuple:
     """_rotate_step in three stages, (c0, c1) -> keyswitch -> down ->
-    finish -> the rotated (c0, c1), which make_expand times apart. A
-    leveled key: keyswitch substitutes both parts and runs the K1 inverse,
+    finish -> (s0, ks0, r1), the rotated ciphertext being (s0 + ks0, r1),
+    which make_expand times apart and whose add its fold takes. A leveled
+    key: keyswitch substitutes both parts and runs the K1 inverse,
     key_switch_down's key switch and its K1 inverse; down is its
-    switch-down; finish its K1 forward and the add of the substituted c0.
-    Otherwise keyswitch is the whole rotation, and down and finish pass it
-    on."""
+    switch-down; finish its K1 forward, beside the substituted c0.
+    Otherwise keyswitch is the whole rotation, down passes it on and
+    finish returns (r0, None, r1)."""
     if ksk.ctx_ciphertext is not ctx:
         raise ValueError(f"rotation: the key is for {ksk.ctx_ciphertext}, "
                          f"not {ctx}")
@@ -889,7 +896,7 @@ def _rotate_stages(ctx: Context, exp: SubstitutionExponent, ksk) -> tuple:
 
         def finish(state):
             ks = ntt_forward(ctx, state[1])
-            return ctx.add(state[0], ks[0]), ks[1]
+            return state[0], ks[0], ks[1]
 
         return keyswitch, down, finish
 
@@ -898,7 +905,7 @@ def _rotate_stages(ctx: Context, exp: SubstitutionExponent, ksk) -> tuple:
         c2_pb = ntt_backward(ctx, substitute(c1, exp, ntt=True))
         return rotate_tail(ctx, s0, c2_pb, ksk)
 
-    return rot, _same, _same
+    return rot, _same, _rotated
 
 
 def make_rotate(par: BfvParameters, gk, level: int = 0):
@@ -932,6 +939,77 @@ def make_inner_sum(par: BfvParameters, ek, level: int = 0):
     return step
 
 
+# ---------------------------------------------------------------------------
+# The expansion's fold (csrc/expand_fold.cu)
+# ---------------------------------------------------------------------------
+
+_EXPAND_FOLD_ARGS = ([ctypes.c_longlong] + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p] * 11)
+
+
+def _fold(ctx: Context, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+    """The fold in the context's elementwise ops (ops/zq.py, or zq32 on a
+    narrow context) and cat: sub0 = s0 + ks0 (s0 where ks0 is None),
+    sub1 = ks1, then per part cat(cur + sub, (cur - sub) mono)."""
+    sub0 = s0 if ks0 is None else ctx.add(s0, ks0)
+    out = []
+    for cur, sub in ((cur0, sub0), (cur1, ks1)):
+        new = ctx.mul_shoup(ctx.sub(cur, sub), mono, mono_shoup)
+        out.append(torch.cat([ctx.add(cur, sub), new]))
+    return tuple(out)
+
+
+@uncounted
+def expand_fold_plain(ctx: Context, cur0, cur1, s0, ks0, ks1, mono,
+                      mono_shoup):
+    """The plain version of expand_fold on a wide context: _fold, whose
+    elementwise work stands for the kernel and is not glue."""
+    return _fold(ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup)
+
+
+def expand_fold_cuda(ctx: Context, cur0, cur1, s0, ks0, ks1, mono,
+                     mono_shoup):
+    """Launch expand_fold on a wide context: both parts' fold in one pass,
+    into one new (2, 2L, ..., k, N) tensor; returns its two parts."""
+    ops = [t for t in (cur0, cur1, s0, ks0, ks1) if t is not None]
+    kernels.require_cuda("expand_fold", torch.int64, *ops, mono, mono_shoup)
+    k, n = ctx.k, ctx.degree
+    shape = cur0.shape
+    if (cur0.dim() < 3 or shape[-2:] != (k, n)
+            or any(t.shape != shape for t in ops)
+            or mono.shape != (k, n) or mono_shoup.shape != (k, n)):
+        raise ValueError(f"expand_fold: shapes {[tuple(t.shape) for t in ops]}"
+                         f", monomial {tuple(mono.shape)}, expected "
+                         f"(L, ..., {k}, {n}) and ({k}, {n})")
+    if cur0.numel() >= 1 << 31:
+        raise ValueError(f"expand_fold: {cur0.numel()} words a part, at most "
+                         f"2^31 - 1 a launch")
+    out = torch.empty((2, 2 * shape[0]) + shape[1:], dtype=torch.int64,
+                      device=cur0.device)
+    kernels.launch("expand_fold", "tpufhe_expand_fold", _EXPAND_FOLD_ARGS,
+                   cur0.numel(), k, n, kernels.ptr(cur0), kernels.ptr(cur1),
+                   kernels.ptr(s0), None if ks0 is None else kernels.ptr(ks0),
+                   kernels.ptr(ks1), kernels.ptr(mono),
+                   kernels.ptr(mono_shoup), kernels.ptr(ctx.tables.p),
+                   kernels.ptr(out[0]), kernels.ptr(out[1]))
+    return out[0], out[1]
+
+
+def expand_fold(ctx: Context, cur0, cur1, s0, ks0, ks1, mono, mono_shoup):
+    """One doubling's fold of make_expand: (L, ..., k, N) parts cur0,
+    cur1, the rotation's (s0, ks0, ks1) from _rotate_stages' finish (ks0
+    None: s0 is the rotated c0) and the level's monomial x^{-2^l} (k, N)
+    with its Shoup constants -> the (2L, ..., k, N) parts
+    cat(cur_j + sub_j, (cur_j - sub_j) mono), sub0 = s0 + ks0, sub1 = ks1.
+    A wide context takes the kernel expand_fold on the card and its plain
+    version on the CPU; a narrow one the zq32 glue (_fold)."""
+    args = (ctx, cur0, cur1, s0, ks0, ks1, mono, mono_shoup)
+    if ctx.narrow:
+        return _fold(*args)
+    return (expand_fold_cuda(*args) if on_card(cur0)
+            else expand_fold_plain(*args))
+
+
 def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     """Oblivious expansion (Angel et al., evaluation_key.rs:153-193) into
     2^level_count ciphertexts: at doubling level l all 2^l live ciphertexts
@@ -940,17 +1018,19 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
     (2^level_count, B, k, N) tensors, equal to EvaluationKey.expands.
     Each rotation takes its key's route (_rotate_step): leveled keys, as
     MulPIR builds them, key-switch in their larger context and switch
-    back down (tpufhe build_expand_step, pipeline.py:843-885). On narrow
+    back down (tpufhe build_expand_step, pipeline.py:843-885). The fold
+    of each doubling (the leveled key's add, the subtractions, the Shoup
+    products by the monomial, the adds and the cat) is one launch of the
+    kernel expand_fold on a wide context (expand_fold). On narrow
     parameters the rows are int32: a doubling runs ntt32 2 and
-    ks_accumulate 1 (ntt32 4 with a leveled key), and the fold's Shoup
-    product takes the monomials' shoup32 constants.
+    ks_accumulate 1 (ntt32 4 with a leveled key), and the fold is zq32
+    glue, its Shoup product on the monomials' shoup32 constants.
 
     Spans: ``expand`` (device-timed) holds one ``expand.doubling`` a level,
     tiled by its three device-timed stages: ``keyswitch`` (the rotation's
     substitutions, K1 inverse, key switch and, with a leveled key, its K1
     inverse), ``switch_down`` (the leveled key's switch-down) and ``fold``
-    (the leveled key's K1 forward and add, then the fold's subtractions,
-    Shoup products by the monomial, adds and ``cat``)."""
+    (the leveled key's K1 forward, then the fold)."""
     ctx = par.context_at_level(level)
     if not ek.supports_expansion(level_count):
         raise UnsupportedOperation(
@@ -965,7 +1045,8 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
 
     def step(c0, c1):
         with obs.span("expand", device=True):
-            cur0, cur1 = c0[None], c1[None]
+            # a user's parts, the fold kernel's inputs
+            cur0, cur1 = c0.contiguous()[None], c1.contiguous()[None]
             for (keyswitch, down, finish), mono, mono_shoup in levels:
                 with obs.span("expand.doubling"):
                     with obs.span("keyswitch", device=True):
@@ -973,13 +1054,9 @@ def make_expand(par: BfvParameters, ek, level_count: int, level: int = 0):
                     with obs.span("switch_down", device=True):
                         state = down(state)
                     with obs.span("fold", device=True):
-                        sub0, sub1 = finish(state)
-                        new0 = ctx.mul_shoup(ctx.sub(cur0, sub0), mono,
-                                             mono_shoup)
-                        new1 = ctx.mul_shoup(ctx.sub(cur1, sub1), mono,
-                                             mono_shoup)
-                        cur0 = torch.cat([ctx.add(cur0, sub0), new0])
-                        cur1 = torch.cat([ctx.add(cur1, sub1), new1])
+                        cur0, cur1 = expand_fold(ctx, cur0, cur1,
+                                                 *finish(state), mono,
+                                                 mono_shoup)
         return cur0, cur1
 
     return step
